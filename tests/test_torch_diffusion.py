@@ -1,0 +1,126 @@
+"""Diffusion actor parity: schedules, time embedding, denoiser and the
+reverse chain of the port (CPU) against the JAX package, on shared inputs.
+
+The chain's draws (x_L and the L noises) are rebuilt from the JAX key the
+way ``repro.diffusion.sampler`` draws them and injected into the port.
+f32 tolerance 2e-5 throughout (the whole chain agrees to a few 1e-6).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.diffusion import denoiser as jden
+from repro.diffusion import make_schedule as jmake_schedule
+from repro.diffusion import reverse_sample as jreverse_sample
+from repro.diffusion import reverse_sample_actions as jreverse_actions
+from repro_torch.bridge import denoiser_from_numpy
+from repro_torch.diffusion import (denoiser_apply, denoiser_init,
+                                   make_schedule, reverse_sample,
+                                   reverse_sample_actions, time_embedding)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def chain_draws(key, batch_shape, action_dim, L):
+    """x_L and noises exactly as repro.diffusion.sampler draws them."""
+    kx, ke = jax.random.split(key)
+    x_L = jax.random.normal(kx, batch_shape + (action_dim,))
+    noises = jax.random.normal(ke, (L,) + batch_shape + (action_dim,))
+    return torch.tensor(np.asarray(x_L)), torch.tensor(np.asarray(noises))
+
+
+@pytest.mark.parametrize("kind,L", [("paper", 5), ("paper", 10),
+                                    ("linear", 7), ("linear", 1000),
+                                    ("cosine", 12)])
+def test_schedule_matches_jax(kind, L):
+    j = jmake_schedule(L, kind=kind)
+    t = make_schedule(L, kind=kind)
+    assert t.L == L
+    for name in ("betas", "alphas", "alpha_bars", "beta_tildes"):
+        np.testing.assert_allclose(getattr(t, name).numpy(),
+                                   np.asarray(getattr(j, name)),
+                                   rtol=2e-5, atol=1e-7, err_msg=name)
+    assert t.alphas_host == tuple(t.alphas.tolist())
+    assert t.beta_tildes_host[0] == pytest.approx(0.0, abs=1e-12)
+
+
+def test_time_embedding_matches_jax():
+    ls = np.arange(0, 1001, 37).astype(np.float32)
+    np.testing.assert_allclose(time_embedding(torch.from_numpy(ls)).numpy(),
+                               np.asarray(jden.time_embedding(ls)), **TOL)
+    assert time_embedding(3.0).shape == (16,)
+
+
+def test_denoiser_init_distribution_and_layout():
+    p = denoiser_init(50, 20, torch.Generator().manual_seed(0))
+    dims = [86, 128, 128, 128, 20]
+    assert [tuple(w.shape) for w in p.net.w] == list(zip(dims[:-1],
+                                                         dims[1:]))
+    for w, b, i in zip(p.net.w, p.net.b, dims[:-1]):
+        assert torch.all(b == 0)
+        # std 1/sqrt(in) within 10% over >= 2560 draws
+        assert abs(w.std().item() * np.sqrt(i) - 1.0) < 0.1
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_denoiser_apply_matches_jax(batch):
+    key = jax.random.PRNGKey(1)
+    jp = jden.denoiser_init(key, 12, 6)
+    tp = denoiser_from_numpy(_np(jp), device="cpu")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(batch + (6,)).astype(np.float32)
+    s = rng.standard_normal(batch + (12,)).astype(np.float32)
+    for l in (1.0, 4.0):
+        j = jden.denoiser_apply(jp, x, jnp.float32(l), s)
+        t = denoiser_apply(tp, torch.from_numpy(x), l, torch.from_numpy(s))
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **TOL)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("batch,S,A,L", [((), 50, 20, 5), ((4,), 8, 4, 4),
+                                         ((64,), 50, 20, 5)])
+def test_reverse_sample_actions_matches_jax(impl, batch, S, A, L):
+    from repro.core import D3PGCfg, make_actor_schedule
+    key = jax.random.PRNGKey(7)
+    jsched = make_actor_schedule(D3PGCfg(state_dim=S, action_dim=A, L=L))
+    jp = jden.denoiser_init(jax.random.PRNGKey(2), S, A)
+    s = np.random.default_rng(3).standard_normal(batch + (S,)).astype(
+        np.float32)
+    j = jreverse_actions(jp, jsched, s, key, A, impl=impl)
+    x_L, noises = chain_draws(key, batch, A, L)
+    t = reverse_sample_actions(denoiser_from_numpy(_np(jp), device="cpu"),
+                               make_schedule(L), torch.from_numpy(s), A,
+                               x_L=x_L, noises=noises)
+    assert t.shape == batch + (A,)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
+
+
+def test_reverse_sample_gateway_chain_matches_jax():
+    """The gateway's unconditional image chain: linear schedule, state
+    (1,) of zeros, 40 steps."""
+    key = jax.random.PRNGKey(5)
+    jp = jden.denoiser_init(jax.random.PRNGKey(9), 1, 32)
+    j = jreverse_sample(jp, jmake_schedule(40, kind="linear"),
+                        jnp.zeros((1,)), key, 32)
+    x_L, noises = chain_draws(key, (), 32, 40)
+    t = reverse_sample(denoiser_from_numpy(_np(jp), device="cpu"),
+                       make_schedule(40, kind="linear"), torch.zeros(1), 32,
+                       x_L=x_L, noises=noises)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
+
+
+def test_reverse_sample_draws_from_generator():
+    p = denoiser_init(8, 4, torch.Generator().manual_seed(0))
+    s = torch.zeros(2, 8)
+    a1 = reverse_sample_actions(p, make_schedule(3), s, 4,
+                                generator=torch.Generator().manual_seed(1))
+    a2 = reverse_sample_actions(p, make_schedule(3), s, 4,
+                                generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a1, a2) and a1.shape == (2, 4)
+    assert float(a1.min()) >= 0.0 and float(a1.max()) <= 1.0
