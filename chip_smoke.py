@@ -19,12 +19,23 @@ Phases, each printing one JSON line:
 6. data_plane    — the edge gateway loop of examples/serve_edge.py against the
                port: 10 diffusion models at image_dim=256, total_steps=1000,
                3 frames x 4 slots; checks the kernel ran once per reverse step.
+7. lm_plane      — the gateway's LM branch: qwen2-0.5b and mamba2-130m at full
+               width (random weights from seeds), each behind an Engine
+               (max_batch=4, max_seq=512), beside a diffusion model; a few
+               gateway slots, then one Engine.run of 8 requests per model
+               (prompt lengths 4-300); checks 24 flash_attention launches
+               per qwen2 prefill, 24 ssd_scan launches per mamba2 prefill,
+               finite logits, and one prefill through the kernels against
+               the plain versions.
 
-Then a ``kernels`` line (per kernel: route, source, the TPU kernel it
-replaces, launches on the serving path, error, times and bound) and, last,
-``{"ok": true, "device": {...}}``.  Launch counts are reset just before each
-serving path runs and read just after, so comparison and timing launches do
-not count.  Phases 5 and 6 take a device, so the CPU tests run them small.
+Phases 3 and 4 cover every kernel: ddpm_step, flash_attention (at the
+prefill buckets of phase 7 and at tests/test_kernels.py's FLASH_CASES) and
+ssd_scan (likewise, SSD_CASES).  Then a ``kernels`` line (per kernel:
+route, source, the TPU kernel it replaces, launches on the serving path,
+error, times, bound and library time) and, last, ``{"ok": true,
+"device": {...}}``.  Launch counts are reset just before each serving path
+runs and read just after, so comparison and timing launches do not count.
+Phases 5-7 take a device, so the CPU tests run them small.
 """
 from __future__ import annotations
 
@@ -38,8 +49,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.d3pg import (amend_actions,  # noqa: E402
                                    make_actor_schedule)
 from repro_torch.core.env import (EnvCfg, env_advance_frame,  # noqa: E402
@@ -51,13 +65,19 @@ from repro_torch.core.t2drl import (STAT_KEYS, T2DRLCfg,  # noqa: E402
 from repro_torch.device import make_generator, resolve_device  # noqa: E402
 from repro_torch.diffusion import time_embedding  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
+from repro_torch.nn.core import count_params  # noqa: E402
 from repro_torch.serving import (CatalogEntry, EdgeGateway,  # noqa: E402
-                                 toy_diffusion_builder)
+                                 Engine, ServeCfg, toy_diffusion_builder)
+from repro_torch.serving import engine as engine_mod  # noqa: E402
+from repro_torch.serving.engine import _bucket  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = 2e-4      # tests/test_kernels.py: the chunked SSD, f32
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+F32_FLOPS = 67e12       # f32 on CUDA cores
+BF16_FLOPS = 989e12     # bf16 on tensor cores, dense
 
 KERNEL_CHECK_SHAPES = [((20,), torch.float32), ((1, 20), torch.float32),
                        ((64, 20), torch.float32), ((2, 3, 40), torch.float32),
@@ -66,6 +86,30 @@ KERNEL_CHECK_SHAPES = [((20,), torch.float32), ((1, 20), torch.float32),
                        ((4096, 256), torch.float32)]
 TIMING_SHAPES = [(20,), (256,), (65536, 256)]
 DDPM_COEF = (0.9, 0.5, 0.04)          # alpha, alpha_bar, beta_tilde
+
+# prefill lengths of the LM plane: the engine's buckets at max_seq = 512
+PATH_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+LONG_L = 4096                         # a timing shape off the path
+QWEN_HEADS = (14, 2, 64)              # H, Hkv, d_head of qwen2-0.5b
+MAMBA_SSD = (24, 64, 1, 128, 128)     # H, P, G, N, chunk of mamba2-130m
+# (B, H, Hkv, L, S, D, window, dtype, causal): FLASH_CASES of
+# tests/test_kernels.py, one non-causal case, and qwen2-0.5b's prefills
+FLASH_CHECK_CASES = [
+    (2, 4, 2, 128, 128, 64, None, torch.float32, True),
+    (1, 8, 8, 256, 256, 128, None, torch.float32, True),
+    (1, 4, 1, 256, 256, 64, 64, torch.float32, True),
+    (2, 2, 2, 96, 96, 32, None, torch.float32, True),
+    (1, 4, 2, 128, 128, 64, None, torch.bfloat16, True),
+    (1, 2, 1, 64, 64, 128, 32, torch.bfloat16, True),
+    (2, 4, 2, 96, 96, 64, None, torch.float32, False),
+] + [(1, 14, 2, Lb, Lb, 64, None, torch.bfloat16, True)
+     for Lb in PATH_BUCKETS]
+# (B, L, H, P, G, N, chunk): SSD_CASES of tests/test_kernels.py and
+# mamba2-130m's prefills (plus a ragged L = 300)
+SSD_CHECK_CASES = [
+    (2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 64, 32),
+    (2, 40, 4, 8, 2, 16, 16), (1, 256, 2, 64, 1, 128, 128),
+] + [(1, L, 24, 64, 1, 128, 128) for L in PATH_BUCKETS + (300,)]
 
 
 class SmokeError(RuntimeError):
@@ -124,7 +168,7 @@ def _ddpm_inputs(shape, dtype, device, seed):
             for _ in range(3)]
 
 
-def phase_kernel_check(device) -> dict:
+def _check_ddpm(device) -> dict:
     errs, cases = [], []
     alpha, abar, btilde = DDPM_COEF
     for i, (shape, dtype) in enumerate(KERNEL_CHECK_SHAPES):
@@ -149,9 +193,91 @@ def phase_kernel_check(device) -> dict:
     o2 = ops.ddpm_step(x, e, n2, *DDPM_COEF, 0)
     sync(device)
     require(torch.equal(o1, o2), "ddpm_step at l_rev=0 depends on noise")
-    return {"phase": "kernel_check", "ddpm_step": {
-        "max_abs_err": max(errs), "cases": cases,
-        "last_step_deterministic": True}}
+    return {"max_abs_err": max(errs), "cases": cases,
+            "last_step_deterministic": True}
+
+
+def _randn(g, *shape):
+    return torch.randn(shape, generator=g)
+
+
+def _flash_inputs(B, H, Hkv, L, S, D, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [t.to(device=device, dtype=dtype) for t in
+            (_randn(g, B, L, H, D), _randn(g, B, S, Hkv, D),
+             _randn(g, B, S, Hkv, D))]
+
+
+def _ssd_inputs(B, L, H, P, G, N, device, seed):
+    """x, dt, A, B, C, D as tests/test_kernels.py draws them."""
+    g = torch.Generator().manual_seed(seed)
+    x = _randn(g, B, L, H, P)
+    dt = F.softplus(_randn(g, B, L, H))
+    A = -torch.exp(_randn(g, H) * 0.5)
+    Bm, Cm = _randn(g, B, L, G, N), _randn(g, B, L, G, N)
+    return [t.to(device) for t in (x, dt, A, Bm, Cm, torch.ones(H))]
+
+
+def _allclose_err(out, expect, tol: float, what: str) -> float:
+    """Max abs error; fails unless |out - expect| <= tol + tol*|expect|
+    everywhere (the assert_allclose of tests/test_kernels.py)."""
+    out, expect = out.float(), expect.float()
+    require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    require(torch.allclose(out, expect, rtol=tol, atol=tol),
+            f"{what}: outside rtol = atol = {tol}")
+    return (out - expect).abs().max().item()
+
+
+def _check_flash(device) -> dict:
+    cases = []
+    for i, (B, H, Hkv, L, S, D, window, dtype, causal) in enumerate(
+            FLASH_CHECK_CASES):
+        q, k, v = _flash_inputs(B, H, Hkv, L, S, D, dtype, device, 200 + i)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        expect = ref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+        sync(device)
+        require(out.shape == q.shape and out.dtype == dtype,
+                f"flash_attention output {out.shape} {out.dtype}")
+        shape = [B, H, Hkv, L, S, D]
+        err = _allclose_err(out, expect, TOL[dtype],
+                            f"flash_attention {shape} window={window} "
+                            f"{dtype} causal={causal}")
+        cases.append({"B_H_Hkv_L_S_D": shape, "window": window,
+                      "dtype": str(dtype), "causal": causal,
+                      "max_abs_err": err})
+    # online softmax renormalises exactly: constant V comes back unchanged
+    q, k, _ = _flash_inputs(1, 2, 2, 128, 128, 64, torch.float32, device, 7)
+    out = ops.flash_attention(q, k, torch.ones_like(k), causal=True)
+    sync(device)
+    ones_err = (out - 1.0).abs().max().item()
+    require(ones_err <= 1e-5, f"flash_attention of constant V: {ones_err}")
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "cases": cases, "constant_v_max_abs_err": ones_err}
+
+
+def _check_ssd(device) -> dict:
+    cases = []
+    for i, (B, L, H, P, G, N, chunk) in enumerate(SSD_CHECK_CASES):
+        args = _ssd_inputs(B, L, H, P, G, N, device, 300 + i)
+        y, st = ops.ssd_scan(*args, chunk=chunk)
+        y_ref, st_ref = ref.ssd_scan_ref(*args, chunk=chunk)
+        sync(device)
+        require(y.shape == (B, L, H, P) and st.shape == (B, H, P, N),
+                f"ssd_scan output {y.shape} {st.shape}")
+        shape = [B, L, H, P, G, N, chunk]
+        err = max(_allclose_err(y, y_ref, SSD_TOL, f"ssd_scan y {shape}"),
+                  _allclose_err(st, st_ref, SSD_TOL,
+                                f"ssd_scan state {shape}"))
+        cases.append({"B_L_H_P_G_N_chunk": shape, "max_abs_err": err})
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "cases": cases}
+
+
+def phase_kernel_check(device) -> dict:
+    return {"phase": "kernel_check", "ddpm_step": _check_ddpm(device),
+            "flash_attention": _check_flash(device),
+            "ssd_scan": _check_ssd(device)}
 
 
 # -- 4. kernel timing -----------------------------------------------------------
@@ -174,6 +300,115 @@ def ddpm_bound_ms(n: int, itemsize: int):
     t_ops = 5 * n / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound_ms(B, L, S, H, Hkv, D, itemsize: int, causal: bool = True,
+                   window=None):
+    """Least time for one attention call: q, k, v read once and out written
+    once over HBM against 4*D flops (QK^T and PV) for each (query, key)
+    pair the mask keeps, at the peak of the input type (bf16 tensor cores
+    or f32 CUDA cores); returns (ms, "bytes"|"operations", peak name)."""
+    i = np.arange(L)
+    hi = np.minimum(S - 1, i) if causal else np.full(L, S - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(L, np.int64)
+    pairs = int(np.maximum(0, hi - lo + 1).sum())
+    t_bytes = itemsize * (2 * B * L * H * D + 2 * B * S * Hkv * D) \
+        / HBM_BYTES_PER_S
+    peak, name = ((BF16_FLOPS, "bf16 989 TFLOP/s") if itemsize == 2
+                  else (F32_FLOPS, "f32 67 TFLOP/s"))
+    t_ops = 4 * D * B * H * pairs / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", name)
+
+
+def ssd_bound_ms(B, L, H, P, G, N, chunk: int):
+    """Least time for one chunked SSD in f32: x, dt, A, B, C, D read once,
+    y and the state written once, against the chunked algorithm's flops
+    for these lengths (per head and chunk of Qc steps: C.B and the masked
+    product over the Qc(Qc+1)/2 pairs j <= i, the inter-chunk term, the
+    state update and the D skip) at the f32 CUDA-core peak."""
+    t_bytes = 4 * (2 * B * L * H * P + B * L * H + 2 * H + 2 * B * L * G * N
+                   + B * H * P * N) / HBM_BYTES_PER_S
+    Q = min(chunk, L)
+    qcs = [min(Q, L - t0) for t0 in range(0, L, Q)]
+    flops = B * H * sum(qc * (qc + 1) // 2 * (2 * N + 2 * P)
+                        + 4 * qc * N * P + 2 * qc * P for qc in qcs)
+    t_ops = flops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", "f32 67 TFLOP/s")
+
+
+def _timed_turns(kernel, plain, library=None) -> dict:
+    """CUDA-event ms of kernel, plain version and library call, in turns
+    (plain, kernel, library, library, kernel, plain), after a warm-up; the
+    launch count per measurement is set from one timed kernel run to take
+    ~20 ms."""
+    fns = [f for f in (kernel, plain, library) if f is not None]
+    for fn in fns:
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    iters = int(min(2000, max(10, 20.0 / max(_time_ms(kernel, 3), 1e-3))))
+    order = [plain, kernel] + ([library] * 2 if library else []) \
+        + [kernel, plain]
+    t = [_time_ms(fn, iters) for fn in order]
+    out = {"iters": iters, "ms": (t[1] + t[-2]) / 2, "ms_runs": [t[1], t[-2]],
+           "plain_ms": (t[0] + t[-1]) / 2, "plain_ms_runs": [t[0], t[-1]],
+           "library_ms": None}
+    if library:
+        out["library_ms"] = (t[2] + t[3]) / 2
+        out["library_ms_runs"] = [t[2], t[3]]
+    return out
+
+
+def _sdpa_call(q, k, v):
+    """The library yardstick for flash_attention (timed here only; the port
+    never calls it): one ``scaled_dot_product_attention`` with
+    ``is_causal=True`` on the (B, H, L, D) views, with ``enable_gqa=True``
+    where this torch has it, else on K/V heads repeated beforehand."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)), \
+            "sdpa(is_causal=True, enable_gqa=True)"
+    except TypeError:
+        G = q.shape[2] // k.shape[2]
+        kr, vr = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, is_causal=True)), \
+            "sdpa(is_causal=True) on repeated K/V heads"
+
+
+def _flash_timing(device) -> list:
+    H, Hkv, D = QWEN_HEADS
+    rows = []
+    for L in PATH_BUCKETS + (LONG_L,):
+        q, k, v = _flash_inputs(1, H, Hkv, L, L, D, torch.bfloat16, device,
+                                seed=L)
+        library, call = _sdpa_call(q, k, v)
+        t = _timed_turns(
+            lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True), library)
+        bound, by, peak = flash_bound_ms(1, L, L, H, Hkv, D, 2)
+        rows.append({"shape": [1, L, H, Hkv, D], "dtype": "bfloat16",
+                     **t, "bound_ms": bound, "bound_by": by, "peak": peak,
+                     "library_call": call})
+    return rows
+
+
+def _ssd_timing(device) -> list:
+    H, P, G, N, chunk = MAMBA_SSD
+    rows = []
+    for L in PATH_BUCKETS + (LONG_L,):
+        args = _ssd_inputs(1, L, H, P, G, N, device, seed=L)
+        t = _timed_turns(lambda: ops.ssd_scan(*args, chunk=chunk),
+                         lambda: ref.ssd_scan_ref(*args, chunk=chunk))
+        bound, by, peak = ssd_bound_ms(1, L, H, P, G, N, chunk)
+        rows.append({"shape": [1, L, H, P, G, N, chunk], "dtype": "float32",
+                     **t, "bound_ms": bound, "bound_by": by, "peak": peak})
+    return rows
 
 
 def phase_kernel_timing(device) -> dict:
@@ -203,7 +438,9 @@ def phase_kernel_timing(device) -> dict:
                      "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2,
                      "plain_ms_runs": [p1, p2], "bound_ms": bound,
                      "bound_by": by, "library_ms": None})
-    return {"phase": "kernel_timing", "ddpm_step": rows}
+    return {"phase": "kernel_timing", "ddpm_step": rows,
+            "flash_attention": _flash_timing(device),
+            "ssd_scan": _ssd_timing(device)}
 
 
 # -- 5. control plane -----------------------------------------------------------
@@ -393,6 +630,225 @@ def phase_data_plane(device, env_cfg: EnvCfg = EnvCfg(T=3, K=4),
             "image_chain_kernel_vs_plain_max_abs_err": chain_err}
 
 
+# -- 7. LM plane ----------------------------------------------------------------
+
+LM_MODELS = {1: "qwen2-0.5b", 2: "mamba2-130m"}    # gateway model ids
+LM_KERNEL = {"qwen2-0.5b": "flash_attention", "mamba2-130m": "ssd_scan"}
+# kernel vs plain prefill: the two paths round the same bf16 activations,
+# but the kernels sum in another order than the plain versions, so a bf16
+# rounding may move by one ulp (2^-8 relative) in any of the 24 layers;
+# the last-token logits may differ by 5% of their largest magnitude
+LM_PREFILL_TOL = 5e-2
+
+
+class _FiniteLogits:
+    """Records whether every logit the engines produce is finite: wraps
+    the engine module's ``lm_prefill``/``lm_decode`` for the duration,
+    keeping one device flag per call (no extra synchronisation)."""
+
+    def __enter__(self):
+        self.flags = []
+        self._saved = (engine_mod.lm_prefill, engine_mod.lm_decode)
+
+        def watch(fn):
+            def wrapped(*a, **kw):
+                logits, cache = fn(*a, **kw)
+                self.flags.append(torch.isfinite(logits).all())
+                return logits, cache
+            return wrapped
+        engine_mod.lm_prefill, engine_mod.lm_decode = map(watch, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        engine_mod.lm_prefill, engine_mod.lm_decode = self._saved
+
+    def all_finite(self) -> bool:
+        return bool(torch.stack(self.flags).all()) if self.flags else True
+
+
+def _lm_catalogue(dev, make: str, max_seq: int, image_dim: int):
+    def lm_builder(arch_name, seed):
+        def build():
+            cfg = getattr(get_arch(arch_name), make)()
+            params = lm_mod.lm_init(make_generator(seed, dev), cfg)
+            return Engine(cfg, params, ServeCfg(max_batch=4, max_seq=max_seq),
+                          device=dev)
+        return build
+    cat = [CatalogEntry(model_id=0, name="diffusion-0", kind="diffusion",
+                        size_gb=0.5, builder=toy_diffusion_builder(0,
+                                                                   image_dim))]
+    for m, name in LM_MODELS.items():
+        cat.append(CatalogEntry(model_id=m, name=name, kind="lm",
+                                size_gb=2.0, builder=lm_builder(name, m)))
+    return cat
+
+
+def _generated(prompt_len: int, budget: int, max_seq: int) -> int:
+    """Tokens an engine request yields: the prefill's, then decode steps
+    until the budget is spent or the position reaches max_seq - 1 (at
+    least one step), counting from the prompt's bucket."""
+    Lb = min(_bucket(prompt_len), max_seq)
+    return 1 + max(1, min(budget, max_seq - 1 - Lb))
+
+
+def _prefill_kernel_vs_plain(engine: Engine, prompt) -> dict:
+    """Last-token logits of one prefill through the kernels and through
+    the plain versions, on the same padded tokens and a fresh cache."""
+    Lb = min(_bucket(len(prompt)), engine.sc.max_seq)
+    toks = np.full((1, Lb), engine.sc.pad_id, np.int64)
+    toks[0, :len(prompt)] = prompt
+    toks = torch.from_numpy(toks).to(engine.device)
+    out = {}
+    with torch.no_grad():
+        for impl in ("kernel", "plain"):
+            cache = lm_mod.lm_init_cache(engine.cfg, 1, engine.sc.max_seq,
+                                         device=engine.device)
+            out[impl] = lm_mod.lm_prefill(engine.params, engine.cfg, toks,
+                                          cache, impl=impl)[0].float()
+    scale = out["plain"].abs().max().item()
+    err = (out["kernel"] - out["plain"]).abs().max().item()
+    require(bool(torch.isfinite(out["kernel"]).all())
+            and bool(torch.isfinite(out["plain"]).all()),
+            f"{engine.cfg.name}: non-finite prefill logits")
+    require(err <= LM_PREFILL_TOL * scale,
+            f"{engine.cfg.name}: prefill logits kernel vs plain differ by "
+            f"{err} > {LM_PREFILL_TOL} x {scale}")
+    return {"bucket": Lb, "max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "tolerance_rel": LM_PREFILL_TOL,
+            "same_argmax": bool(out["kernel"].argmax() == out["plain"]
+                                .argmax())}
+
+
+def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
+                   max_prompt: int = 300, max_seq: int = 512,
+                   max_new: int = 16, slots: int = 3, users: int = 4,
+                   total_steps: int = 1000, image_dim: int = 256,
+                   seed: int = 0) -> dict:
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    gw = EdgeGateway(_lm_catalogue(dev, make, max_seq, image_dim),
+                     capacity_gb=8.0, image_dim=image_dim,
+                     total_steps=total_steps, device=dev)
+    load = gw.apply_caching(np.ones(1 + len(LM_MODELS)))
+    require(sorted(gw.loaded) == [0, *LM_MODELS], f"loaded {gw.loaded}")
+    engines = {name: gw.loaded[m] for m, name in LM_MODELS.items()}
+    n_layers = {name: e.cfg.n_layers for name, e in engines.items()}
+    g = make_generator(seed, dev)
+
+    def launches():
+        return {k: ops.LAUNCHES[k] for k in ("flash_attention", "ssd_scan",
+                                             "ddpm_step")}
+
+    def expect(prefills: dict) -> dict:
+        return {LM_KERNEL[n]: n_layers[n] * prefills.get(n, 0)
+                for n in engines}
+
+    # gateway slots: each cached LM request is one prefill of an 8-token
+    # prompt and max(1, steps // 16) tokens
+    slot_rows, served = [], {n: 0 for n in engines}
+    buckets = {n: [] for n in engines}
+    with _FiniteLogits() as fin:
+        ops.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        for k in range(slots):
+            req = rng.integers(0, 1 + len(LM_MODELS), size=users)
+            xi = rng.dirichlet(np.ones(users))
+            res = gw.serve_slot(req.tolist(), xi, g)
+            for r in res:
+                if r.model_id in LM_MODELS:
+                    name = LM_MODELS[r.model_id]
+                    served[name] += 1
+                    buckets[name].append(8)
+                    want = _generated(8, max(1, r.steps // 16), max_seq)
+                    require(r.output_shape == (want,),
+                            f"{name}: gateway output {r.output_shape}, "
+                            f"expected ({want},)")
+            slot_rows.append({"slot": k, "requests": req.tolist(),
+                              "xi": xi.tolist(),
+                              "steps": [r.steps for r in res],
+                              "measured_wall_s": [r.measured_wall_s
+                                                  for r in res]})
+        sync(dev)
+        gw_wall = time.perf_counter() - t0
+        gw_launches = launches()
+        finite = fin.all_finite()
+    require(finite, "non-finite logits in the gateway's LM requests")
+    diffusion_steps = sum(st for row in slot_rows for m, st in
+                          zip(row["requests"], row["steps"]) if m == 0)
+    if dev.type == "cuda":
+        for kname, n in expect(served).items():
+            require(gw_launches[kname] == n, f"gateway: {kname} launched "
+                    f"{gw_launches[kname]} times, expected {n}")
+        require(gw_launches["ddpm_step"] == diffusion_steps,
+                f"gateway: ddpm_step launched {gw_launches['ddpm_step']} "
+                f"times, expected {diffusion_steps}")
+
+    # one Engine.run per model: prompts of 4..max_prompt tokens from seed
+    runs = {}
+    for name, eng in engines.items():
+        vocab = eng.cfg.vocab
+        reqs = [(i, rng.integers(0, vocab, size=int(rng.integers(
+            4, max_prompt + 1))), int(rng.integers(4, max_new + 1)))
+            for i in range(n_requests)]
+        buckets[name] += [min(_bucket(len(p)), max_seq) for _, p, _ in reqs]
+        with _FiniteLogits() as fin:
+            ops.reset_launches()
+            sync(dev)
+            done, stats = eng.run(reqs)
+            sync(dev)
+            got = launches()
+            finite = fin.all_finite()
+        require(finite, f"{name}: non-finite logits in Engine.run")
+        require(sorted(done) == list(range(n_requests)) and all(
+            len(done[i]) == _generated(len(p), mnt, max_seq)
+            for i, p, mnt in reqs),
+            f"{name}: generated lengths {[len(v) for v in done.values()]}")
+        want = expect({name: stats["prefills"]})
+        other = [k for k in ("flash_attention", "ssd_scan")
+                 if k != LM_KERNEL[name]][0]
+        if dev.type == "cuda":
+            require(got[LM_KERNEL[name]] == want[LM_KERNEL[name]],
+                    f"{name}: {LM_KERNEL[name]} launched "
+                    f"{got[LM_KERNEL[name]]} times in {stats['prefills']} "
+                    f"prefills, expected {want[LM_KERNEL[name]]}")
+            require(got[other] == 0, f"{name}: {other} launched "
+                    f"{got[other]} times")
+        decoded = sum(len(v) - 1 for v in done.values())
+        runs[name] = {
+            "requests": n_requests,
+            "prompt_lengths": [len(p) for _, p, _ in reqs],
+            "tokens_generated": sum(len(v) for v in done.values()),
+            "decode_steps": stats["decode_steps"],
+            "prefills": stats["prefills"],
+            "prefill_ms_per_request": 1e3 * stats["prefill_s"]
+            / stats["prefills"],
+            "decode_tokens_per_s": decoded / stats["decode_s"],
+            "wall_s": stats["wall_s"], "launches": got,
+            "expected_launches": want,
+            "params": count_params(eng.params),
+            "kernel_vs_plain_prefill": _prefill_kernel_vs_plain(
+                eng, reqs[0][1])}
+
+    flash = gw_launches["flash_attention"] + sum(
+        r["launches"]["flash_attention"] for r in runs.values())
+    ssd = gw_launches["ssd_scan"] + sum(
+        r["launches"]["ssd_scan"] for r in runs.values())
+    return {"phase": "lm_plane", "make": make, "load": load,
+            "gateway": {"slots": slot_rows, "wall_s": gw_wall,
+                        "lm_requests": served, "launches": gw_launches,
+                        "expected_launches": expect(served)},
+            "engine_runs": runs, "bucket_counts": {
+                n: {str(b): bs.count(b) for b in sorted(set(bs))}
+                for n, bs in buckets.items()},
+            "flash_attention_launches": flash, "ssd_scan_launches": ssd}
+
+
+def modal_bucket(counts: dict) -> int:
+    """The most frequent prefill length (the larger on a tie)."""
+    return max((c, int(b)) for b, c in counts.items())[1]
+
+
 # -- main -----------------------------------------------------------------------
 
 def main() -> int:
@@ -410,19 +866,34 @@ def main() -> int:
     emit(control)
     data = phase_data_plane(device)
     emit(data)
-    # the kernels line: times at the gateway's per-step shape (256,), the
-    # shape of most launches on the serving path
-    row = next(r for r in timing["ddpm_step"] if r["shape"] == [256])
+    lm = phase_lm_plane(device)
+    emit(lm)
+    # the kernels line: ddpm_step's times at the gateway's per-step shape
+    # (256,), the shape of most of its launches; flash_attention's and
+    # ssd_scan's at the most frequent prefill length of the LM plane
+    rows = {"ddpm_step": next(r for r in timing["ddpm_step"]
+                              if r["shape"] == [256])}
+    for kname, model in (("flash_attention", "qwen2-0.5b"),
+                         ("ssd_scan", "mamba2-130m")):
+        L = modal_bucket(lm["bucket_counts"][model])
+        rows[kname] = next(r for r in timing[kname] if r["shape"][1] == L)
+    launches = {"ddpm_step": control["ddpm_step_launches"]
+                + data["ddpm_step_launches"]
+                + lm["gateway"]["launches"]["ddpm_step"],
+                "flash_attention": lm["flash_attention_launches"],
+                "ssd_scan": lm["ssd_scan_launches"]}
+    replaces = {"ddpm_step": "src/repro/kernels/ddpm_step.py:20",
+                "flash_attention": "src/repro/kernels/flash_attention.py:27",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:22"}
     emit({"kernels": [{
-        "name": "ddpm_step", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ddpm_step.cu",
-        "replaces": "src/repro/kernels/ddpm_step.py:20",
-        "launches": control["ddpm_step_launches"]
-        + data["ddpm_step_launches"],
-        "max_abs_err": check["ddpm_step"]["max_abs_err"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None, "shape": row["shape"]}]})
+        "name": k, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{k}.cu",
+        "replaces": replaces[k], "launches": launches[k],
+        "max_abs_err": check[k]["max_abs_err"],
+        "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
+        "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
+        "library_ms": rows[k]["library_ms"], "shape": rows[k]["shape"]}
+        for k in ("ddpm_step", "flash_attention", "ssd_scan")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,6 +13,7 @@ from repro_torch.core.env import EnvState, ModelParams
 from repro_torch.core.networks import MLP
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.denoiser import TIME_DIM, Denoiser
+from repro_torch.models.lm import LMCfg, check_ported, tree_map
 
 
 def _f32(a, device):
@@ -71,3 +72,32 @@ def env_state_from_numpy(st, generator: torch.Generator) -> EnvState:
                     lambda_idx=idx(st.lambda_idx), pos=_f32(st.pos, dev),
                     h=_f32(st.h, dev), req=idx(st.req),
                     d_in=_f32(st.d_in, dev), rho=_f32(st.rho, dev))
+
+
+def lm_params_from_numpy(tree, cfg: LMCfg, device=None) -> dict:
+    """``jax.tree.map(np.asarray, repro.models.lm.lm_init(...))`` -> the
+    port's parameter tree: the same nested dicts and lists
+    (``embed.table``, ``groups[i].shared / .stacked`` with the leading
+    repeat axis, ``final_norm``, the per-block attention, SSM and MLP
+    leaves), each leaf a tensor of its numpy dtype on ``device``.  Raises
+    if ``cfg`` is not ported or the tree does not fit it."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    table = np.asarray(tree["embed"]["table"])
+    if table.shape != (cfg.vocab, cfg.d_model) \
+            or len(tree["groups"]) != len(cfg.groups):
+        raise ValueError(f"the tree does not fit {cfg.name}: embed "
+                         f"{table.shape}, {len(tree['groups'])} groups")
+    for gt, g in zip(tree["groups"], cfg.groups):
+        for block in gt["stacked"].values():
+            lead = {np.asarray(a).shape[0] for a in _leaves(block)}
+            if lead != {g.repeats}:
+                raise ValueError(f"stacked leaves of {cfg.name} lead with "
+                                 f"{sorted(lead)}, not {g.repeats} repeats")
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]

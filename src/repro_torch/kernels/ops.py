@@ -10,15 +10,35 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from . import build, ref
 
-LAUNCHES = {"ddpm_step": 0}
+LAUNCHES = {"ddpm_step": 0, "flash_attention": 0, "ssd_scan": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+
+# c_void_p for every pointer and the stream: a bare Python int would be
+# passed as a 32-bit C int and cut the address
+_SIGNATURES = {
+    "ddpm_step_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, ctypes.c_float,
+                                        ctypes.c_float, ctypes.c_float,
+                                        ctypes.c_int, _P]),
+    "flash_attention_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, _I64,
+                                              _I64, _I64, _I64, _I64,
+                                              ctypes.c_int, _I64,
+                                              ctypes.c_float, ctypes.c_int,
+                                              _P]),
+    "ssd_scan_launch": (ctypes.c_int, [_P] * 8 + [_I64] * 7 + [_P]),
+    "ssd_scan_smem_bytes": (_I64, [_I64, _I64, _I64]),
+}
+
+FLASH_HEAD_DIMS = (32, 64, 128)
+SMEM_LIMIT = 232448          # H100: 227 KB of shared memory per block
 
 
 def reset_launches() -> None:
@@ -26,20 +46,50 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _ddpm_fn():
-    fn = _FN.get("ddpm_step")
+def _fn(lib: str, name: str):
+    """``name`` from ``csrc/<lib>.cu``, built and typed at first use."""
+    fn = _FN.get(name)
     if fn is None:
-        fn = build.load("ddpm_step").ddpm_step_launch
-        # c_void_p for every pointer and the stream: a bare Python int
-        # would be passed as a 32-bit C int and cut the address
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN["ddpm_step"] = fn
+        fn = getattr(build.load(lib), name)
+        fn.restype, fn.argtypes = _SIGNATURES[name]
+        _FN[name] = fn
     return fn
 
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    """What every kernel needs of a CUDA input: contiguous, on the current
+    device."""
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        if t.device.index != torch.cuda.current_device():
+            raise ValueError(f"{name}: a tensor is on {t.device} but the "
+                             f"current device is "
+                             f"cuda:{torch.cuda.current_device()}")
+
+
+def _check_no_grad(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward yet (the training slice adds it, "
+            "ROADMAP queue A); call it under torch.no_grad()")
+
+
+def _check_device(name: str, *tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    return dev
+
+
+# -- ddpm_step ------------------------------------------------------------------
 
 def ddpm_coefficients(alpha: float, alpha_bar: float, beta_tilde: float,
                       l_rev: int):
@@ -65,11 +115,7 @@ def _check_ddpm(x, eps_hat, noise):
                              f"{tuple(t.shape)}, x {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"ddpm_step takes float32 or bfloat16, not {x.dtype}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, eps_hat, noise)):
-        raise NotImplementedError(
-            "ddpm_step has no backward yet (the training slice adds it, "
-            "ROADMAP queue A); call it under torch.no_grad()")
+    _check_no_grad("ddpm_step", x, eps_hat, noise)
 
 
 def ddpm_step(x, eps_hat, noise, alpha: float, alpha_bar: float,
@@ -84,19 +130,122 @@ def ddpm_step(x, eps_hat, noise, alpha: float, alpha_bar: float,
         return ref.ddpm_step_ref(x, eps_hat, noise, c1, c2, sigma)
     if x.device.type != "cuda":
         raise ValueError(f"ddpm_step runs on cuda or cpu, not {x.device}")
-    if not (x.is_contiguous() and eps_hat.is_contiguous()
-            and noise.is_contiguous()):
-        raise ValueError("ddpm_step: the kernel takes contiguous tensors")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"ddpm_step: x is on {x.device} but the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
+    _check_cuda("ddpm_step", x, eps_hat, noise)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    err = _ddpm_fn()(x.data_ptr(), eps_hat.data_ptr(), noise.data_ptr(),
-                     out.data_ptr(), x.numel(), c1, c2, sigma,
-                     _DTYPE_CODE[x.dtype],
-                     torch.cuda.current_stream(x.device).cuda_stream)
+    err = _fn("ddpm_step", "ddpm_step_launch")(
+        x.data_ptr(), eps_hat.data_ptr(), noise.data_ptr(), out.data_ptr(),
+        x.numel(), c1, c2, sigma, _DTYPE_CODE[x.dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"ddpm_step kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["ddpm_step"] += 1
     return out
+
+
+# -- flash_attention --------------------------------------------------------------
+
+def _check_flash(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q (B, L, H, D) and k/v "
+                         "(B, S, Hkv, D) are 4-D")
+    B, L, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
+    if k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"flash_attention: {H} heads do not group over "
+                         f"{k.shape[2]} kv heads")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention takes d_head in "
+                         f"{FLASH_HEAD_DIMS}, not {D}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
+                        f"one dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if B < 1 or L < 1 or k.shape[1] < 1:
+        raise ValueError(f"flash_attention: empty batch, queries or keys "
+                         f"(B = {B}, L = {L}, S = {k.shape[1]})")
+    _check_no_grad("flash_attention", q, k, v)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Causal (or full) GQA attention with an optional sliding window.
+
+    q: (B, L, H, D); k/v: (B, S, Hkv, D) — the model layout, as
+    ``repro.kernels.ops.flash_attention``; query i attends keys j <= i
+    (causal) and j > i - window.  Scale 1/sqrt(D).  Returns (B, L, H, D)
+    in q.dtype."""
+    dev = _check_device("flash_attention", q, k, v)
+    _check_flash(q, k, v, window)
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _check_cuda("flash_attention", q, k, v)
+    B, L, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = _fn("flash_attention", "flash_attention_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, S, H,
+        Hkv, D, int(causal), -1 if window is None else int(window),
+        1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+# -- ssd_scan ---------------------------------------------------------------------
+
+def _check_ssd(x, dt, A, Bm, Cm, D, chunk):
+    if x.dim() != 4:
+        raise ValueError("ssd_scan: x is (B, L, H, P)")
+    B, L, H, P = x.shape
+    if Bm.dim() != 4 or Bm.shape != Cm.shape or Bm.shape[:2] != (B, L):
+        raise ValueError(f"ssd_scan: B/C {tuple(Bm.shape)}/{tuple(Cm.shape)} "
+                         f"do not fit x {tuple(x.shape)}")
+    G = Bm.shape[2]
+    if tuple(dt.shape) != (B, L, H) or tuple(A.shape) != (H,) \
+            or tuple(D.shape) != (H,):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, D {tuple(D.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    if G < 1 or H % G:
+        raise ValueError(f"ssd_scan: {H} heads do not group over {G}")
+    if L < 1 or chunk < 1:
+        raise ValueError(f"ssd_scan: L = {L}, chunk = {chunk}")
+    for t in (x, dt, A, Bm, Cm, D):
+        if not t.is_floating_point():
+            raise TypeError(f"ssd_scan takes floating tensors, not {t.dtype}")
+    _check_no_grad("ssd_scan", x, dt, A, Bm, Cm, D)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
+    """Mamba2 chunked SSD.  x: (B, L, H, P); dt: (B, L, H); A/D: (H,);
+    Bm/Cm: (B, L, G, N).  Inputs are cast to f32 (as the JAX wrapper does);
+    returns (y (B, L, H, P) f32, final state (B, H, P, N) f32).  A ragged
+    last chunk gives what the JAX wrapper's dt = 0 padding gives."""
+    dev = _check_device("ssd_scan", x, dt, A, Bm, Cm, D)
+    _check_ssd(x, dt, A, Bm, Cm, D, chunk)
+    f32 = [t.float().contiguous() for t in (x, dt, A, Bm, Cm, D)]
+    if dev.type == "cpu":
+        return ref.ssd_scan_ref(*f32, chunk=chunk)
+    _check_cuda("ssd_scan", *f32)
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, L)
+    smem = _fn("ssd_scan", "ssd_scan_smem_bytes")(Q, P, N)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan: chunk {Q}, head dim {P} and state {N} "
+                         f"need {smem} bytes of shared memory, above the "
+                         f"card's {SMEM_LIMIT}")
+    y = torch.empty((B, L, H, P), dtype=torch.float32, device=dev)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    err = _fn("ssd_scan", "ssd_scan_launch")(
+        *(t.data_ptr() for t in f32), y.data_ptr(), state.data_ptr(), B, L,
+        H, G, P, N, Q, _stream(y))
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    LAUNCHES["ssd_scan"] += 1
+    return y, state

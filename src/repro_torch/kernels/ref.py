@@ -1,12 +1,51 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-Each repeats its kernel's arithmetic op for op, so on the card the two
-agree bit for bit; the CPU tests and ``chip_smoke.py`` hold the kernels
-against these.
+The CPU tests and ``chip_smoke.py`` hold the kernels against these.
+``ddpm_step_ref`` repeats its kernel's arithmetic op for op, so on the card
+the two agree bit for bit; attention and the SSD scan sum in another order
+than their kernels and agree to a tolerance.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, scale=None):
+    """q: (B, L, H, D); k/v: (B, S, Hkv, D) with H % Hkv == 0.  Returns
+    (B, L, H, D) in q.dtype; scores, softmax and the weighted sum in f32
+    (the oracle of ``repro.kernels.ref.flash_attention_ref``)."""
+    B, L, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = scale or 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, L, Hkv, G, D)
+    s = torch.einsum("blkgd,bskd->bkgls", qg, k.float()) * scale
+    qpos = torch.arange(L, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    m = torch.ones((L, S), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgls,bskd->blkgd", p, v.float())
+    return o.reshape(B, L, H, D).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
+    """Chunked SSD; returns (y, final state).  Delegates to the layer's
+    reference ``nn.ssm.ssd_reference`` (held against a step-by-step
+    recurrence in the tests), as the JAX oracle does."""
+    from repro_torch.nn.ssm import ssd_reference
+    return ssd_reference(x, dt, A, Bm, Cm, D, chunk=chunk,
+                         return_state=True)
 
 
 def ddpm_step_ref(x, eps_hat, noise, c1: float, c2: float, sigma: float):

@@ -1,20 +1,23 @@
 """Edge AIGC gateway — the paper's control plane wired to real execution
-(port of ``repro.serving.gateway``, diffusion half).
+(port of ``repro.serving.gateway``).
 
 The gateway keeps a catalogue of GenAI models, applies the cacher's rho by
-loading and evicting real parameter sets against a byte budget, and runs
-each cached request under its compute share xi: a DDPM reverse chain of
-``round(xi * total_steps)`` steps, every step through the ``ddpm_step``
-kernel.  It reports the modeled quality/delay (Eqs. 7-8) beside the
-measured wall-clock (taken after ``torch.cuda.synchronize``).  Uncached
-requests take the modeled cloud path.  LM models (``kind="lm"``) raise
-until the LM branch is ported.
+loading and evicting real models against a byte budget, and runs each
+cached request under its compute share xi, ``steps = round(xi *
+total_steps)``: a diffusion model runs a DDPM reverse chain of ``steps``
+steps, every step through the ``ddpm_step`` kernel; an LM (``kind="lm"``,
+its builder returns an :class:`~repro_torch.serving.engine.Engine`)
+generates ``max(1, steps // 16)`` tokens through its engine, every prefill
+through the ``flash_attention`` or ``ssd_scan`` kernel.  It reports the
+modeled quality/delay (Eqs. 7-8) beside the measured wall-clock (taken
+after ``torch.cuda.synchronize``).  Uncached requests take the modeled
+cloud path.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -24,9 +27,7 @@ from repro_torch.core.quality import (cloud_delay, cloud_quality,
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import denoiser_init, make_schedule, \
     reverse_sample
-
-_LM_TODO = ("LM catalogue entries are not ported yet (ROADMAP queue A, "
-            "item 8: the LM side branch behind serving/engine.py)")
+from repro_torch.serving.engine import Engine
 
 
 @dataclasses.dataclass
@@ -35,7 +36,7 @@ class CatalogEntry:
     name: str
     kind: str                     # "diffusion" | "lm"
     size_gb: float
-    builder: Callable[[], object]  # -> Denoiser (diffusion)
+    builder: Callable[[], object]  # -> Denoiser (diffusion) or Engine (lm)
     # fitted-curve parameters (paper Sec. 7.1 ranges)
     a1: float = 60.0
     a2: float = 110.0
@@ -96,13 +97,25 @@ class EdgeGateway:
             e = self.catalogue[m]
             if self.used_gb() + e.size_gb > self.capacity_gb:
                 continue
-            if e.kind != "diffusion":
-                raise NotImplementedError(_LM_TODO)
-            self.loaded[m] = e.builder().to(self.device)
+            self.loaded[m] = self._build(e)
         _sync(self.device)
         return {"load_s": time.perf_counter() - t0,
                 "used_gb": self.used_gb(),
                 "n_loaded": float(len(self.loaded))}
+
+    def _build(self, e: CatalogEntry):
+        if e.kind == "diffusion":
+            return e.builder().to(self.device)
+        if e.kind != "lm":
+            raise ValueError(f"{e.name}: unknown kind {e.kind!r}")
+        engine = e.builder()
+        if not isinstance(engine, Engine):
+            raise TypeError(f"{e.name}: an LM builder returns an Engine, not "
+                            f"{type(engine).__name__}")
+        if engine.device != self.device:
+            raise ValueError(f"{e.name}: its engine is on {engine.device}, "
+                             f"the gateway on {self.device}")
+        return engine
 
     # -- execution (short timescale) ------------------------------------------
 
@@ -119,9 +132,12 @@ class EdgeGateway:
                               self._state, self.image_dim,
                               generator=generator, x_L=x_L, noises=noises)
 
-    def serve_request(self, model_id: int, xi: float,
-                      generator=None) -> ServedResult:
-        """Execute one request under compute share xi (Eq. 7-8 knob)."""
+    def serve_request(self, model_id: int, xi: float, generator=None,
+                      prompt: Optional[np.ndarray] = None) -> ServedResult:
+        """Execute one request under compute share xi (Eq. 7-8 knob).  An
+        LM request decodes ``max(1, steps // 16)`` tokens after ``prompt``
+        (default ``arange(8) % vocab``); its output shape is the number of
+        tokens generated."""
         e = self.catalogue[model_id]
         cached = model_id in self.loaded
         steps = int(max(1, round(float(xi) * self.total_steps)))
@@ -134,14 +150,21 @@ class EdgeGateway:
                 measured_wall_s=0.0, output_shape=())
         _sync(self.device)
         t0 = time.perf_counter()
-        out = self.diffusion_sample(model_id, steps, generator)
+        if e.kind == "diffusion":
+            shape = tuple(self.diffusion_sample(model_id, steps,
+                                                generator).shape)
+        else:
+            engine = self.loaded[model_id]
+            if prompt is None:
+                prompt = np.arange(8, dtype=np.int64) % engine.cfg.vocab
+            done, _ = engine.run([(0, prompt, max(1, steps // 16))])
+            shape = (len(done[0]),)
         _sync(self.device)
         wall = time.perf_counter() - t0
         s = torch.tensor(float(steps))
         q = float(tv_quality(s, e.a1, e.a2, e.a3, e.a4))
         d = float(gen_delay(s, e.b1, e.b2))
-        return ServedResult(model_id, True, steps, q, d, wall,
-                            tuple(out.shape))
+        return ServedResult(model_id, True, steps, q, d, wall, shape)
 
     def serve_slot(self, requests, xi, generator=None) -> List[ServedResult]:
         """requests: per-user model ids; xi: per-user compute shares."""

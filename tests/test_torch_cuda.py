@@ -1,5 +1,7 @@
 """Card-only tests of the port: each hand-written kernel against its plain
-version on the card, and the serving paths' launch counts.
+version on the card, its launch counter and its rejections, and the
+serving paths' launch counts (one ddpm_step per reverse step, 24
+flash_attention or ssd_scan launches per full-width prefill).
 
 Run on a machine with an NVIDIA GPU (it has no JAX, so skip the suite's
 conftest, which imports it):
@@ -12,12 +14,17 @@ every worker collects the same tests; without a card they skip.
 import pytest
 import torch
 
+import numpy as np
+import torch.nn.functional as F
+
+from repro_torch.configs import get_arch
 from repro_torch.core.env import EnvCfg, make_models
 from repro_torch.core.t2drl import T2DRLCfg, policy_init, run_eval
 from repro_torch.device import make_generator
 from repro_torch.diffusion import (denoiser_init, make_schedule,
                                    reverse_sample_actions)
 from repro_torch.kernels import build, ops, ref
+from repro_torch.models.lm import lm_init, lm_init_cache, lm_prefill
 from repro_torch.serving import CatalogEntry, EdgeGateway, \
     toy_diffusion_builder
 
@@ -125,3 +132,96 @@ def test_gateway_launches_one_per_image_step(cuda):
     assert [r.steps for r in res] == [25, 50, 25]
     assert ops.LAUNCHES["ddpm_step"] == 100
     assert all(r.measured_wall_s > 0 for r in res)
+
+
+# -- flash_attention and ssd_scan ------------------------------------------------
+
+def _randn(seed, *shape, device, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("B,H,Hkv,L,S,D,window,dtype,causal", [
+    (2, 4, 2, 128, 128, 64, None, torch.float32, True),
+    (1, 8, 8, 256, 256, 128, None, torch.float32, True),
+    (1, 4, 1, 256, 256, 64, 64, torch.float32, True),
+    (2, 2, 2, 96, 96, 32, None, torch.float32, True),
+    (1, 4, 2, 128, 128, 64, None, torch.bfloat16, True),
+    (1, 2, 1, 64, 64, 128, 32, torch.bfloat16, True),
+    (2, 4, 2, 40, 56, 32, None, torch.float32, False),
+    (1, 14, 2, 8, 8, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 512, 512, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 300, 300, 64, 100, torch.float32, True)])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, L, S, D,
+                                              window, dtype, causal):
+    q = _randn(1, B, L, H, D, device=cuda, dtype=dtype)
+    k = _randn(2, B, S, Hkv, D, device=cuda, dtype=dtype)
+    v = _randn(3, B, S, Hkv, D, device=cuda, dtype=dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = TOL[dtype]
+    assert torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_constant_v_and_rejections(cuda):
+    q = _randn(4, 1, 128, 2, 64, device=cuda)
+    k = _randn(5, 1, 128, 2, 64, device=cuda)
+    out = ops.flash_attention(q, k, torch.ones_like(k), causal=True)
+    assert (out - 1).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="d_head"):
+        ops.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", [
+    (2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 64, 32),
+    (2, 40, 4, 8, 2, 16, 16), (1, 256, 2, 64, 1, 128, 128),
+    (1, 8, 24, 64, 1, 128, 128), (1, 300, 24, 64, 1, 128, 128),
+    (1, 512, 24, 64, 1, 128, 128)])
+def test_ssd_scan_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk):
+    x = _randn(1, B, L, H, P, device=cuda)
+    dt = F.softplus(_randn(2, B, L, H, device=cuda))
+    A = -torch.exp(0.5 * _randn(3, H, device=cuda))
+    Bm, Cm = _randn(4, B, L, G, N, device=cuda), _randn(5, B, L, G, N,
+                                                         device=cuda)
+    D = torch.ones(H, device=cuda)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+    yr, sr = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert torch.allclose(y, yr, rtol=2e-4, atol=2e-4)
+    assert torch.allclose(s, sr, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_scan_rejects_too_much_shared_memory(cuda):
+    x = torch.zeros(1, 256, 1, 128, device=cuda)
+    dt = torch.zeros(1, 256, 1, device=cuda)
+    h = torch.zeros(1, device=cuda)
+    bc = torch.zeros(1, 256, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ssd_scan(x, dt, h, bc, bc, h, chunk=256)
+
+
+@pytest.mark.parametrize("name,kernel", [("qwen2-0.5b", "flash_attention"),
+                                         ("mamba2-130m", "ssd_scan")])
+def test_full_width_prefill_launches_one_kernel_per_layer(cuda, name,
+                                                          kernel):
+    cfg = get_arch(name).make_full()
+    params = lm_init(make_generator(0, cuda), cfg)
+    toks = torch.from_numpy(np.arange(128) % cfg.vocab).to(cuda)[None]
+    ops.reset_launches()
+    with torch.no_grad():
+        logits, _ = lm_prefill(params, cfg, toks,
+                               lm_init_cache(cfg, 1, 128, device=cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == cfg.n_layers == 24
+    assert sum(ops.LAUNCHES.values()) == 24
+    assert bool(torch.isfinite(logits).all())

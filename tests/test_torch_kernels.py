@@ -98,3 +98,162 @@ def test_ddpm_step_rejects_bad_inputs(bad):
         err = NotImplementedError
     with pytest.raises(err):
         ops.ddpm_step(x, e, n, 0.9, 0.5, 0.04, 1)
+
+
+# -- flash_attention ------------------------------------------------------------
+
+# FLASH_CASES of tests/test_kernels.py: (B, H, Hkv, L, S, D, window, dtype)
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, None, jnp.float32),
+    (1, 8, 8, 256, 256, 128, None, jnp.float32),
+    (1, 4, 1, 256, 256, 64, 64, jnp.float32),
+    (2, 2, 2, 96, 96, 32, None, jnp.float32),      # unaligned L
+    (1, 4, 2, 128, 128, 64, None, jnp.bfloat16),
+    (1, 2, 1, 64, 64, 128, 32, jnp.bfloat16),
+]
+
+
+def _same(seed, dtype, *shapes):
+    """The same (dtype-rounded) normal arrays for JAX and for torch."""
+    rng = np.random.default_rng(seed)
+    jx = [jnp.asarray(rng.standard_normal(s).astype(np.float32)).astype(dtype)
+          for s in shapes]
+    return jx, [torch.tensor(np.asarray(a.astype(jnp.float32))).to(
+        _J2T[dtype]) for a in jx]
+
+
+@pytest.mark.parametrize("B,H,Hkv,L,S,D,window,dtype", FLASH_CASES)
+def test_flash_attention_matches_jax_kernel_and_oracle(B, H, Hkv, L, S, D,
+                                                       window, dtype):
+    (jq, jk, jv), (q, k, v) = _same(L + D, dtype, (B, L, H, D),
+                                    (B, S, Hkv, D), (B, S, Hkv, D))
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before   # CPU: plain version
+    assert out.dtype == q.dtype and out.shape == q.shape
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                  bq=64, bk=64)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=True, window=window)
+    for expect in (pallas, oracle):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(expect, np.float32),
+                                   **_tol(dtype))
+
+
+def test_flash_attention_rows_sum_to_one_property():
+    _, (q, k) = _same(5, jnp.float32, (1, 128, 2, 64), (1, 128, 2, 64))
+    out = ops.flash_attention(q, k, torch.ones_like(k), causal=True)
+    np.testing.assert_allclose(out.numpy(), 1.0, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_non_causal_matches_jax_oracle():
+    (jq, jk, jv), (q, k, v) = _same(6, jnp.float32, (2, 40, 4, 32),
+                                    (2, 56, 2, 32), (2, 56, 2, 32))
+    out = ops.flash_attention(q, k, v, causal=False, window=None)
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(jref.flash_attention_ref(
+            jq, jk, jv, causal=False)), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", ["d_head", "dtype", "groups", "window",
+                                 "shape", "grad", "device"])
+def test_flash_attention_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 2, 32), \
+        torch.zeros(1, 8, 2, 32)
+    kw, err = {}, ValueError
+    if bad == "d_head":
+        q, k, v = (t[..., :16] for t in (q, k, v))
+    elif bad == "dtype":
+        k, err = k.to(torch.bfloat16), TypeError
+    elif bad == "groups":
+        q = torch.zeros(1, 8, 3, 32)
+    elif bad == "window":
+        kw = {"window": 0}
+    elif bad == "shape":
+        v = torch.zeros(1, 7, 2, 32)
+    elif bad == "grad":
+        q.requires_grad_(True)
+        err = NotImplementedError
+    else:
+        q, k, v = (t.to("meta") for t in (q, k, v))
+    with pytest.raises(err):
+        ops.flash_attention(q, k, v, **kw)
+
+
+# -- ssd_scan -------------------------------------------------------------------
+
+# SSD_CASES of tests/test_kernels.py: (B, L, H, P, G, N, chunk)
+SSD_CASES = [
+    (2, 64, 4, 16, 1, 16, 16),
+    (1, 128, 8, 32, 2, 64, 32),
+    (2, 40, 4, 8, 2, 16, 16),      # L not divisible by the chunk
+    (1, 256, 2, 64, 1, 128, 128),
+]
+
+
+def _ssd_inputs(seed, B, L, H, P, G, N):
+    """x, dt, A, B, C, D drawn as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P))
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, H))))
+    A = -np.exp(0.5 * rng.standard_normal(H))
+    Bm = rng.standard_normal((B, L, G, N))
+    Cm = rng.standard_normal((B, L, G, N))
+    arrs = [a.astype(np.float32) for a in (x, dt, A, Bm, Cm, np.ones(H))]
+    return [jnp.asarray(a) for a in arrs], [torch.tensor(a) for a in arrs]
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SSD_CASES)
+def test_ssd_scan_matches_jax_kernel_and_oracle(B, L, H, P, G, N, chunk):
+    jargs, targs = _ssd_inputs(L + H, B, L, H, P, G, N)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, s = ops.ssd_scan(*targs, chunk=chunk)
+    assert ops.LAUNCHES["ssd_scan"] == before
+    assert y.dtype == s.dtype == torch.float32
+    assert tuple(y.shape) == (B, L, H, P) and tuple(s.shape) == (B, H, P, N)
+    for jy, js in (jops.ssd_scan(*jargs, chunk=chunk),
+                   jref.ssd_scan_ref(*jargs, chunk=chunk)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_ssd_matches_stepwise_recurrence():
+    """The chunked SSD (any chunking) equals the sequential SSM."""
+    B, L, H, P, G, N = 1, 24, 2, 4, 1, 8
+    _, (x, dt, A, Bm, Cm, _) = _ssd_inputs(9, B, L, H, P, G, N)
+    y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, torch.zeros(H), chunk=8)
+    x, dt, A, Bm, Cm = (t.numpy().astype(np.float64)
+                        for t in (x, dt, A, Bm, Cm))
+    S = np.zeros((B, H, P, N))
+    Bf, Cf = np.repeat(Bm, H // G, 2), np.repeat(Cm, H // G, 2)
+    for t in range(L):
+        dA = np.exp(dt[:, t] * A[None])
+        S = S * dA[:, :, None, None] + np.einsum(
+            "bh,bhn,bhp->bhpn", dt[:, t], Bf[:, t], x[:, t])
+        np.testing.assert_allclose(y.numpy()[:, t],
+                                   np.einsum("bhn,bhpn->bhp", Cf[:, t], S),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bad", ["groups", "dt", "int", "grad", "empty",
+                                 "device"])
+def test_ssd_scan_rejects_what_the_kernel_does_not_take(bad):
+    _, args = _ssd_inputs(3, 1, 8, 4, 8, 2, 8)
+    err = ValueError
+    if bad == "groups":
+        args[3] = args[4] = torch.zeros(1, 8, 3, 8)
+    elif bad == "dt":
+        args[1] = torch.zeros(1, 8, 3)
+    elif bad == "int":
+        args[0], err = args[0].long(), TypeError
+    elif bad == "grad":
+        args[0].requires_grad_(True)
+        err = NotImplementedError
+    elif bad == "empty":
+        args = [a[:, :0] if a.dim() > 1 else a for a in args]
+    else:
+        args = [a.to("meta") for a in args]
+    with pytest.raises(err):
+        ops.ssd_scan(*args, chunk=4)

@@ -40,18 +40,28 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                          text=True, timeout=300, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 15 and bad.strip() == "[]"
+    assert int(n) >= 35 and bad.strip() == "[]"
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from repro_torch.core.t2drl import T2DRLCfg, policy_init
     from repro_torch.device import make_generator, resolve_device
     from repro_torch.serving import EdgeGateway
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.serving import Engine, ServeCfg
+    cfg = get_arch("qwen2-0.5b").make_smoke()
+    cs = _chip_smoke()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (resolve_device, lambda: resolve_device("cuda"),
                  lambda: make_generator(0),
                  lambda: policy_init(T2DRLCfg(), 0),
-                 lambda: EdgeGateway([], 1.0)):
+                 lambda: EdgeGateway([], 1.0),
+                 lambda: Engine(cfg, {}, ServeCfg()),
+                 lambda: serve_demo("qwen2-0.5b"),
+                 lambda: lm_params_from_numpy({}, cfg),
+                 lambda: cs.phase_lm_plane(None, make="make_smoke")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
@@ -62,12 +72,19 @@ def test_kernel_wrapper_has_no_fallback_for_other_devices():
     x = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.ddpm_step(x, x, x, 0.9, 0.5, 0.04, 1)
+    q = torch.zeros(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.flash_attention(q, q, q)
+    x, dt, h = (torch.zeros(s, device="meta") for s in
+                ((1, 8, 2, 4), (1, 8, 2), (2,)))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.ssd_scan(x, dt, h, x, x, h)
 
 
 def test_build_targets_sm90a_and_the_ignored_build_dir():
     from repro_torch.kernels import build
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build.sources() == ["ddpm_step"]
+    assert build.sources() == ["ddpm_step", "flash_attention", "ssd_scan"]
     assert build.BUILD_DIR == REPO / "build" / "torch_kernels"
     assert "build/" in (REPO / ".gitignore").read_text().split()
     assert build.library_path("ddpm_step").parent == build.BUILD_DIR
@@ -92,6 +109,57 @@ def test_chip_smoke_serving_phases_run_small_on_cpu():
     data = cs.phase_data_plane("cpu", cfg, image_dim=16, total_steps=20)
     assert len(data["slots"]) == 4 and data["ddpm_step_launches"] == 0
     assert data["expected_launches"] == 5 * 4 + data["image_steps"]
+
+
+def test_chip_smoke_lm_plane_runs_small_on_cpu():
+    """The LM plane at smoke widths: both engines behind the gateway, the
+    expected launch counts (none run on the CPU), kernel vs plain prefill."""
+    cs = _chip_smoke()
+    lm = cs.phase_lm_plane("cpu", make="make_smoke", n_requests=3,
+                           max_prompt=40, max_seq=64, max_new=4, slots=2,
+                           users=3, total_steps=160, image_dim=16)
+    assert lm["flash_attention_launches"] == lm["ssd_scan_launches"] == 0
+    gw = lm["gateway"]
+    assert gw["expected_launches"] == {
+        "flash_attention": 2 * gw["lm_requests"]["qwen2-0.5b"],
+        "ssd_scan": 2 * gw["lm_requests"]["mamba2-130m"]}
+    for name, run in lm["engine_runs"].items():
+        assert run["prefills"] == 3
+        kname = cs.LM_KERNEL[name]
+        assert run["expected_launches"][kname] == 2 * 3
+        kv = run["kernel_vs_plain_prefill"]
+        assert kv["rel_err"] <= cs.LM_PREFILL_TOL and kv["same_argmax"]
+        assert sum(lm["bucket_counts"][name].values()) == \
+            3 + gw["lm_requests"][name]
+    assert cs.modal_bucket({"8": 3, "64": 3, "16": 1}) == 64
+
+
+def test_chip_smoke_kernel_checks_run_on_cpu():
+    """Phase 3's flash/ssd cases run (plain against plain) on the CPU."""
+    cs = _chip_smoke()
+    fl = cs._check_flash("cpu")
+    assert len(fl["cases"]) == len(cs.FLASH_CHECK_CASES)
+    assert fl["constant_v_max_abs_err"] <= 1e-5
+    assert len(cs._check_ssd("cpu")["cases"]) == len(cs.SSD_CHECK_CASES)
+
+
+def test_lm_kernel_bounds():
+    cs = _chip_smoke()
+    ms, by, peak = cs.flash_bound_ms(1, 512, 512, 14, 2, 64, 2)
+    pairs = 512 * 513 // 2
+    assert by == "bytes" and "bf16" in peak
+    assert ms == pytest.approx(1e3 * 2 * (2 * 512 * 14 * 64 + 2 * 512 * 2 * 64)
+                               / 3.35e12)
+    assert cs.flash_bound_ms(1, 4096, 4096, 14, 2, 64, 2)[1] == "operations"
+    # a window keeps fewer pairs; f32 runs against the CUDA-core peak
+    w, _, p32 = cs.flash_bound_ms(1, 4096, 4096, 8, 8, 128, 4, window=64)
+    assert "f32" in p32 and w > 0
+    assert cs.flash_bound_ms(1, 8, 8, 1, 1, 64, 4, causal=False)[0] > 0
+    ms, by, _ = cs.ssd_bound_ms(1, 512, 24, 64, 1, 128, 128)
+    per_chunk = 8256 * (2 * 128 + 2 * 64) + 4 * 128 * 128 * 64 + 2 * 128 * 64
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 24 * 4 * per_chunk / 67e12)
+    assert pairs == 131328
 
 
 def _env(**extra):
