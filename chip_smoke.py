@@ -12,7 +12,9 @@ Phases, each printing one JSON line:
 3. kernel_check  — each kernel against its plain PyTorch version on the card
                (f32 to 2e-5, bf16 to 2e-2), at the serving path's shapes.
 4. kernel_timing — CUDA-event times of kernel and plain version, in turns,
-               beside the card's bound for the same bytes and flops.
+               beside the card's bound for the same bytes and flops, and
+               ``graph_ms``: the same launches replayed from one CUDA graph
+               (the device's own time, no Python or ctypes in it).
 5. control_plane — greedy T2DRL episodes at the paper's EnvCfg() (d3pg/ddqn,
                then rcars/random); checks stats, simplexes, and that the
                ddpm_step kernel ran exactly L*T*K times per d3pg episode.
@@ -32,9 +34,13 @@ Phases 3 and 4 cover every kernel: ddpm_step, flash_attention (at the
 prefill buckets of phase 7 and at tests/test_kernels.py's FLASH_CASES) and
 ssd_scan (likewise, SSD_CASES).  Then a ``kernels`` line (per kernel:
 route, source, the TPU kernel it replaces, launches on the serving path,
-error, times, bound and library time) and, last, ``{"ok": true,
-"device": {...}}``.  Launch counts are reset just before each serving path
-runs and read just after, so comparison and timing launches do not count.
+error, times, bound and library time at the most frequent shape; grids
+per call, as the C entry points report them on the serving path;
+``path_ms`` and ``path_bound_ms``, launches times ms or bound summed over
+the shapes the serving path ran; the times at L = 512 and 4096) and,
+last, ``{"ok": true, "device": {...}}``.  Launch and grid counts are reset
+just before each serving path runs and read just after, so comparison and
+timing launches do not count.
 Phases 5-7 take a device, so the CPU tests run them small.
 """
 from __future__ import annotations
@@ -73,6 +79,11 @@ from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import _bucket  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# flash_attention beside the allclose: ||out - ref|| / ||ref||, over all rows
+# and over the rows past L/2, whose outputs (means over many keys) are as
+# small as the bf16 allclose tolerance.  Rounding p and the output to bf16
+# gives ~1e-3; dropping one 64-key tile of a row near 4096 gives ~0.2.
+FLASH_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 SSD_TOL = 2e-4      # tests/test_kernels.py: the chunked SSD, f32
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -102,14 +113,26 @@ FLASH_CHECK_CASES = [
     (1, 4, 2, 128, 128, 64, None, torch.bfloat16, True),
     (1, 2, 1, 64, 64, 128, 32, torch.bfloat16, True),
     (2, 4, 2, 96, 96, 64, None, torch.float32, False),
+    # the bf16 tensor-core kernel: ragged L, batch, window, head dims 32 and
+    # 128, non-causal with S != L, qwen2's heads at a long prompt
+    (1, 14, 2, 77, 77, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 300, 300, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 511, 511, 64, None, torch.bfloat16, True),
+    (2, 14, 2, 256, 256, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 300, 300, 64, 100, torch.bfloat16, True),
+    (2, 4, 2, 200, 200, 32, None, torch.bfloat16, True),
+    (1, 8, 2, 200, 200, 128, None, torch.bfloat16, True),
+    (2, 4, 2, 40, 56, 64, None, torch.bfloat16, False),
 ] + [(1, 14, 2, Lb, Lb, 64, None, torch.bfloat16, True)
-     for Lb in PATH_BUCKETS]
-# (B, L, H, P, G, N, chunk): SSD_CASES of tests/test_kernels.py and
-# mamba2-130m's prefills (plus a ragged L = 300)
+     for Lb in PATH_BUCKETS + (LONG_L,)]
+# (B, L, H, P, G, N, chunk): SSD_CASES of tests/test_kernels.py, mamba2-130m's
+# prefills (plus a ragged L = 300 and L = 4096, 32 chunks), a ragged last
+# chunk at chunk 64, and two groups at batch 2
 SSD_CHECK_CASES = [
     (2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 64, 32),
     (2, 40, 4, 8, 2, 16, 16), (1, 256, 2, 64, 1, 128, 128),
-] + [(1, L, 24, 64, 1, 128, 128) for L in PATH_BUCKETS + (300,)]
+    (1, 300, 24, 64, 1, 128, 64), (2, 300, 8, 64, 2, 128, 128),
+] + [(1, L, 24, 64, 1, 128, 128) for L in PATH_BUCKETS + (300, LONG_L)]
 
 
 class SmokeError(RuntimeError):
@@ -228,6 +251,12 @@ def _allclose_err(out, expect, tol: float, what: str) -> float:
     return (out - expect).abs().max().item()
 
 
+def _rel_err(out, expect) -> float:
+    """||out - expect|| / ||expect||, in f64."""
+    out, expect = out.double(), expect.double()
+    return ((out - expect).norm() / expect.norm().clamp_min(1e-300)).item()
+
+
 def _check_flash(device) -> dict:
     cases = []
     for i, (B, H, Hkv, L, S, D, window, dtype, causal) in enumerate(
@@ -240,12 +269,18 @@ def _check_flash(device) -> dict:
         require(out.shape == q.shape and out.dtype == dtype,
                 f"flash_attention output {out.shape} {out.dtype}")
         shape = [B, H, Hkv, L, S, D]
-        err = _allclose_err(out, expect, TOL[dtype],
-                            f"flash_attention {shape} window={window} "
-                            f"{dtype} causal={causal}")
+        what = (f"flash_attention {shape} window={window} {dtype} "
+                f"causal={causal}")
+        err = _allclose_err(out, expect, TOL[dtype], what)
+        rel = _rel_err(out, expect)
+        rel_late = _rel_err(out[:, L // 2:], expect[:, L // 2:])
+        require(max(rel, rel_late) <= FLASH_REL_TOL[dtype],
+                f"{what}: relative error {rel}, {rel_late} past L/2 > "
+                f"{FLASH_REL_TOL[dtype]}")
         cases.append({"B_H_Hkv_L_S_D": shape, "window": window,
                       "dtype": str(dtype), "causal": causal,
-                      "max_abs_err": err})
+                      "max_abs_err": err, "rel_err": rel,
+                      "rel_err_past_half": rel_late})
     # online softmax renormalises exactly: constant V comes back unchanged
     q, k, _ = _flash_inputs(1, 2, 2, 128, 128, 64, torch.float32, device, 7)
     out = ops.flash_attention(q, k, torch.ones_like(k), causal=True)
@@ -253,10 +288,38 @@ def _check_flash(device) -> dict:
     ones_err = (out - 1.0).abs().max().item()
     require(ones_err <= 1e-5, f"flash_attention of constant V: {ones_err}")
     return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "rel_err": max(max(c["rel_err"], c["rel_err_past_half"])
+                           for c in cases),
             "cases": cases, "constant_v_max_abs_err": ones_err}
 
 
+def ssd_exact(x, dt, A, Bm, Cm, D):
+    """The SSM step by step in float64, no chunks: the answer that the
+    kernel and the plain version (both f32, chunked) approximate."""
+    x, dt, A, Bm, Cm, D = (t.double() for t in (x, dt, A, Bm, Cm, D))
+    B, L, H, P = x.shape
+    rep = H // Bm.shape[2]
+    Bh, Ch = (t.repeat_interleave(rep, dim=2) for t in (Bm, Cm))
+    S = x.new_zeros((B, H, P, Bm.shape[3]))
+    ys = []
+    for t in range(L):
+        S = S * torch.exp(dt[:, t] * A)[:, :, None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dt[:, t], x[:, t], Bh[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], S))
+    return torch.stack(ys, dim=1) + x * D[None, None, :, None], S
+
+
+def _tol_ratio(out, exact, tol: float) -> float:
+    """max |out - exact| / (tol + tol |exact|): 1 is the edge of the
+    allclose tolerance."""
+    return ((out.double() - exact).abs() / (tol + tol * exact.abs())) \
+        .max().item()
+
+
 def _check_ssd(device) -> dict:
+    """Kernel against plain version at SSD_TOL, and kernel against the
+    exact f64 answer within the same tolerance (``kernel_vs_exact`` <= 1);
+    beside it, how far the plain version lies from the exact answer."""
     cases = []
     for i, (B, L, H, P, G, N, chunk) in enumerate(SSD_CHECK_CASES):
         args = _ssd_inputs(B, L, H, P, G, N, device, 300 + i)
@@ -269,8 +332,18 @@ def _check_ssd(device) -> dict:
         err = max(_allclose_err(y, y_ref, SSD_TOL, f"ssd_scan y {shape}"),
                   _allclose_err(st, st_ref, SSD_TOL,
                                 f"ssd_scan state {shape}"))
-        cases.append({"B_L_H_P_G_N_chunk": shape, "max_abs_err": err})
+        y64, st64 = ssd_exact(*args)
+        exact = max(_tol_ratio(y, y64, SSD_TOL), _tol_ratio(st, st64,
+                                                            SSD_TOL))
+        require(exact <= 1.0, f"ssd_scan {shape}: {exact} of the tolerance "
+                f"{SSD_TOL} from the exact answer")
+        cases.append({"B_L_H_P_G_N_chunk": shape, "max_abs_err": err,
+                      "kernel_vs_exact": exact,
+                      "plain_vs_exact": max(_tol_ratio(y_ref, y64, SSD_TOL),
+                                            _tol_ratio(st_ref, st64,
+                                                       SSD_TOL))})
     return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "kernel_vs_exact": max(c["kernel_vs_exact"] for c in cases),
             "cases": cases}
 
 
@@ -338,11 +411,40 @@ def ssd_bound_ms(B, L, H, P, G, N, chunk: int):
             "bytes" if t_bytes >= t_ops else "operations", "f32 67 TFLOP/s")
 
 
+def _graph_ms(fn, n: int) -> float:
+    """Per-launch device time of ``fn``: n launches captured in one CUDA
+    graph, replayed, timed with CUDA events.  Python, ctypes and the launch
+    queue stay out of it, so against the back-to-back ``ms`` it shows what
+    of a launch is host time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _time_ms(graph.replay, 5) / n
+
+
+def _grids_per_call(kernel, name: str) -> float:
+    """Grids that one call of ``kernel`` started, as its C entry point
+    reports them (``ops.GRIDS``)."""
+    before = ops.GRIDS[name], ops.LAUNCHES[name]
+    kernel()
+    return (ops.GRIDS[name] - before[0]) / (ops.LAUNCHES[name] - before[1])
+
+
 def _timed_turns(kernel, plain, library=None) -> dict:
     """CUDA-event ms of kernel, plain version and library call, in turns
     (plain, kernel, library, library, kernel, plain), after a warm-up; the
     launch count per measurement is set from one timed kernel run to take
-    ~20 ms."""
+    ~20 ms.  Then ``graph_ms``, the kernel's launches from a CUDA graph
+    (as many as take ~10 ms back to back, 10 to 200)."""
     fns = [f for f in (kernel, plain, library) if f is not None]
     for fn in fns:
         for _ in range(3):
@@ -358,6 +460,9 @@ def _timed_turns(kernel, plain, library=None) -> dict:
     if library:
         out["library_ms"] = (t[2] + t[3]) / 2
         out["library_ms_runs"] = [t[2], t[3]]
+    n_graph = int(min(200, max(10, 10.0 / max(out["ms"], 1e-3))))
+    out["graph_ms"] = _graph_ms(kernel, n_graph)
+    out["graph_launches"] = n_graph
     return out
 
 
@@ -388,13 +493,18 @@ def _flash_timing(device) -> list:
         q, k, v = _flash_inputs(1, H, Hkv, L, L, D, torch.bfloat16, device,
                                 seed=L)
         library, call = _sdpa_call(q, k, v)
+        def kernel():
+            ops.flash_attention(q, k, v, causal=True)
+
         t = _timed_turns(
-            lambda: ops.flash_attention(q, k, v, causal=True),
-            lambda: ref.flash_attention_ref(q, k, v, causal=True), library)
+            kernel, lambda: ref.flash_attention_ref(q, k, v, causal=True),
+            library)
         bound, by, peak = flash_bound_ms(1, L, L, H, Hkv, D, 2)
         rows.append({"shape": [1, L, H, Hkv, D], "dtype": "bfloat16",
                      **t, "bound_ms": bound, "bound_by": by, "peak": peak,
-                     "library_call": call})
+                     "library_call": call,
+                     "grids_per_call": _grids_per_call(kernel,
+                                                       "flash_attention")})
     return rows
 
 
@@ -403,11 +513,16 @@ def _ssd_timing(device) -> list:
     rows = []
     for L in PATH_BUCKETS + (LONG_L,):
         args = _ssd_inputs(1, L, H, P, G, N, device, seed=L)
-        t = _timed_turns(lambda: ops.ssd_scan(*args, chunk=chunk),
+
+        def kernel():
+            ops.ssd_scan(*args, chunk=chunk)
+
+        t = _timed_turns(kernel,
                          lambda: ref.ssd_scan_ref(*args, chunk=chunk))
         bound, by, peak = ssd_bound_ms(1, L, H, P, G, N, chunk)
         rows.append({"shape": [1, L, H, P, G, N, chunk], "dtype": "float32",
-                     **t, "bound_ms": bound, "bound_by": by, "peak": peak})
+                     **t, "bound_ms": bound, "bound_by": by, "peak": peak,
+                     "grids_per_call": _grids_per_call(kernel, "ssd_scan")})
     return rows
 
 
@@ -437,7 +552,10 @@ def phase_kernel_timing(device) -> dict:
                      "iters": iters, "ms": (k1 + k2) / 2,
                      "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2,
                      "plain_ms_runs": [p1, p2], "bound_ms": bound,
-                     "bound_by": by, "library_ms": None})
+                     "bound_by": by, "library_ms": None,
+                     "graph_ms": _graph_ms(kernel, 200 if numel <= 1 << 20
+                                           else 20),
+                     "grids_per_call": None})
     return {"phase": "kernel_timing", "ddpm_step": rows,
             "flash_attention": _flash_timing(device),
             "ssd_scan": _ssd_timing(device)}
@@ -739,6 +857,9 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
         return {k: ops.LAUNCHES[k] for k in ("flash_attention", "ssd_scan",
                                              "ddpm_step")}
 
+    def grids():
+        return dict(ops.GRIDS)
+
     def expect(prefills: dict) -> dict:
         return {LM_KERNEL[n]: n_layers[n] * prefills.get(n, 0)
                 for n in engines}
@@ -771,7 +892,7 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
                                                   for r in res]})
         sync(dev)
         gw_wall = time.perf_counter() - t0
-        gw_launches = launches()
+        gw_launches, gw_grids = launches(), grids()
         finite = fin.all_finite()
     require(finite, "non-finite logits in the gateway's LM requests")
     diffusion_steps = sum(st for row in slot_rows for m, st in
@@ -797,7 +918,7 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
             sync(dev)
             done, stats = eng.run(reqs)
             sync(dev)
-            got = launches()
+            got, got_grids = launches(), grids()
             finite = fin.all_finite()
         require(finite, f"{name}: non-finite logits in Engine.run")
         require(sorted(done) == list(range(n_requests)) and all(
@@ -824,7 +945,7 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
             "prefill_ms_per_request": 1e3 * stats["prefill_s"]
             / stats["prefills"],
             "decode_tokens_per_s": decoded / stats["decode_s"],
-            "wall_s": stats["wall_s"], "launches": got,
+            "wall_s": stats["wall_s"], "launches": got, "grids": got_grids,
             "expected_launches": want,
             "params": count_params(eng.params),
             "kernel_vs_plain_prefill": _prefill_kernel_vs_plain(
@@ -834,19 +955,63 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
         r["launches"]["flash_attention"] for r in runs.values())
     ssd = gw_launches["ssd_scan"] + sum(
         r["launches"]["ssd_scan"] for r in runs.values())
+    path_grids = {k: gw_grids[k] + sum(r["grids"][k] for r in runs.values())
+                  for k in gw_grids}
     return {"phase": "lm_plane", "make": make, "load": load,
             "gateway": {"slots": slot_rows, "wall_s": gw_wall,
                         "lm_requests": served, "launches": gw_launches,
+                        "grids": gw_grids,
                         "expected_launches": expect(served)},
             "engine_runs": runs, "bucket_counts": {
                 n: {str(b): bs.count(b) for b in sorted(set(bs))}
                 for n, bs in buckets.items()},
-            "flash_attention_launches": flash, "ssd_scan_launches": ssd}
+            "flash_attention_launches": flash, "ssd_scan_launches": ssd,
+            "grids": path_grids, "n_layers": n_layers}
 
 
 def modal_bucket(counts: dict) -> int:
     """The most frequent prefill length (the larger on a tie)."""
     return max((c, int(b)) for b, c in counts.items())[1]
+
+
+_TIMES = ("ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
+          "grids_per_call")
+
+
+def kernel_summary(rows: list, launches_by_shape: dict, modal,
+                   long_shapes=(), path_grids=None) -> dict:
+    """One kernel's entry of the ``kernels`` line from its timing rows
+    (``(key, row)`` pairs): the times at the modal shape, ``path_ms`` and
+    ``path_bound_ms`` (launches times ms or bound, summed over the shapes
+    the serving path ran), the times at ``long_shapes``, and
+    ``grids_per_call``: ``path_grids``, the grids the serving path's
+    launches started, over those launches (None where the kernel's entry
+    point reports no grids).  ``path_grids`` must equal the launches of
+    each shape times the grids one timed call there started."""
+    by = {str(k): r for k, r in rows}
+    out = {k: by[str(modal)][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "graph_ms", "shape")}
+    path = []
+    for shape, n in sorted(launches_by_shape.items()):
+        r = by[str(shape)]
+        path.append({"shape": r["shape"], "launches": n, "ms": r["ms"],
+                     "graph_ms": r["graph_ms"], "bound_ms": r["bound_ms"],
+                     "grids_per_call": r["grids_per_call"]})
+    out["path"] = path
+    out["grids_per_call"] = None
+    if path_grids is not None:
+        timed = sum(p["launches"] * p["grids_per_call"] for p in path)
+        require(path_grids == timed, f"the serving path started "
+                f"{path_grids} grids; its shapes' timed calls make {timed}")
+        out["grids_per_call"] = path_grids / sum(launches_by_shape.values())
+    out["path_ms"] = sum(p["launches"] * p["ms"] for p in path)
+    out["path_graph_ms"] = sum(p["launches"] * p["graph_ms"] for p in path)
+    out["path_bound_ms"] = sum(p["launches"] * p["bound_ms"] for p in path)
+    out["at"] = {str(k): {"shape": by[str(k)]["shape"],
+                          **{t: by[str(k)][t] for t in _TIMES}}
+                 for k in long_shapes}
+    return out
 
 
 # -- main -----------------------------------------------------------------------
@@ -868,20 +1033,32 @@ def main() -> int:
     emit(data)
     lm = phase_lm_plane(device)
     emit(lm)
-    # the kernels line: ddpm_step's times at the gateway's per-step shape
-    # (256,), the shape of most of its launches; flash_attention's and
-    # ssd_scan's at the most frequent prefill length of the LM plane
-    rows = {"ddpm_step": next(r for r in timing["ddpm_step"]
-                              if r["shape"] == [256])}
-    for kname, model in (("flash_attention", "qwen2-0.5b"),
-                         ("ssd_scan", "mamba2-130m")):
-        L = modal_bucket(lm["bucket_counts"][model])
-        rows[kname] = next(r for r in timing[kname] if r["shape"][1] == L)
-    launches = {"ddpm_step": control["ddpm_step_launches"]
-                + data["ddpm_step_launches"]
-                + lm["gateway"]["launches"]["ddpm_step"],
+    # the kernels line: ddpm_step at the gateway's per-step shape (256,),
+    # the shape of most of its launches (the control plane's are at (20,));
+    # flash_attention and ssd_scan at the most frequent prefill length of
+    # the LM plane, with the path summed over its buckets (24 launches per
+    # prefill) and the times at L = 512 and 4096 beside it
+    ddpm_launches = {20: control["ddpm_step_launches"],
+                     256: data["ddpm_step_launches"]
+                     + lm["gateway"]["launches"]["ddpm_step"]}
+    summary = {"ddpm_step": kernel_summary(
+        [(r["shape"][-1] if len(r["shape"]) == 1 else
+          "x".join(map(str, r["shape"])), r) for r in timing["ddpm_step"]],
+        ddpm_launches, 256, ("65536x256",))}
+    launches = {"ddpm_step": sum(ddpm_launches.values()),
                 "flash_attention": lm["flash_attention_launches"],
                 "ssd_scan": lm["ssd_scan_launches"]}
+    for kname, model in (("flash_attention", "qwen2-0.5b"),
+                         ("ssd_scan", "mamba2-130m")):
+        counts = lm["bucket_counts"][model]
+        per_bucket = {int(b): lm["n_layers"][model] * c
+                      for b, c in counts.items()}
+        require(sum(per_bucket.values()) == launches[kname],
+                f"{kname}: {launches[kname]} launches but the buckets "
+                f"account for {sum(per_bucket.values())}")
+        summary[kname] = kernel_summary(
+            [(r["shape"][1], r) for r in timing[kname]], per_bucket,
+            modal_bucket(counts), (512, LONG_L), lm["grids"][kname])
     replaces = {"ddpm_step": "src/repro/kernels/ddpm_step.py:20",
                 "flash_attention": "src/repro/kernels/flash_attention.py:27",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:22"}
@@ -889,10 +1066,7 @@ def main() -> int:
         "name": k, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{k}.cu",
         "replaces": replaces[k], "launches": launches[k],
-        "max_abs_err": check[k]["max_abs_err"],
-        "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
-        "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
-        "library_ms": rows[k]["library_ms"], "shape": rows[k]["shape"]}
+        "max_abs_err": check[k]["max_abs_err"], **summary[k]}
         for k in ("ddpm_step", "flash_attention", "ssd_scan")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,23 +4,36 @@ A wrapper checks its inputs, then launches its kernel for CUDA tensors or
 runs the plain version in ``ref.py`` for CPU tensors — only because the
 tensors lie on the CPU.  For a CUDA tensor it launches or raises; there is
 no fallback.  ``LAUNCHES[name]`` counts the kernel's launches (and nothing
-else), so a run can show that its path went through the kernel.
+else), so a run can show that its path went through the kernel.  One
+launch is one call of the kernel's C entry point, however many grids it
+starts: ``ssd_scan`` runs one grid for a single chunk and three (chunk
+states, state recurrence, outputs) for more, and counts one either way.
+``GRIDS[name]`` adds up the grids that the C entry points of
+``flash_attention`` and ``ssd_scan`` report they started.
+``reset_launches`` zeroes both.
+
+``flash_plan`` (which kernel a dtype takes) and ``ssd_plan`` (chunks,
+scratch, shared memory) hold the host-side choices of a launch, so the
+CPU tests reach them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import build, ref
 
 LAUNCHES = {"ddpm_step": 0, "flash_attention": 0, "ssd_scan": 0}
+GRIDS = {"flash_attention": 0, "ssd_scan": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_GRIDS = ctypes.POINTER(ctypes.c_int)   # out: grids the entry point started
 
 # c_void_p for every pointer and the stream: a bare Python int would be
 # passed as a 32-bit C int and cut the address
@@ -32,9 +45,10 @@ _SIGNATURES = {
                                               _I64, _I64, _I64, _I64,
                                               ctypes.c_int, _I64,
                                               ctypes.c_float, ctypes.c_int,
-                                              _P]),
-    "ssd_scan_launch": (ctypes.c_int, [_P] * 8 + [_I64] * 7 + [_P]),
-    "ssd_scan_smem_bytes": (_I64, [_I64, _I64, _I64]),
+                                              _GRIDS, _P]),
+    "ssd_scan_launch": (ctypes.c_int, [_P] * 10 + [_I64] * 7
+                        + [_GRIDS, _P]),
+    "ssd_scan_smem_bytes": (_I64, [_I64, _I64]),
 }
 
 FLASH_HEAD_DIMS = (32, 64, 128)
@@ -42,8 +56,9 @@ SMEM_LIMIT = 232448          # H100: 227 KB of shared memory per block
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, GRIDS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _fn(lib: str, name: str):
@@ -87,6 +102,10 @@ def _check_device(name: str, *tensors) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     return dev
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 # -- ddpm_step ------------------------------------------------------------------
@@ -169,6 +188,22 @@ def _check_flash(q, k, v, window):
     _check_no_grad("flash_attention", q, k, v)
 
 
+class FlashPlan(NamedTuple):
+    kernel: str        # "mma_bf16" (tensor cores) or "simt_f32" (CUDA cores)
+    dtype_code: int    # what flash_attention_launch dispatches on
+
+
+def flash_plan(dtype) -> FlashPlan:
+    """The kernel ``flash_attention`` takes for q/k/v of ``dtype``: bf16
+    goes to the tensor-core kernel, f32 to the CUDA-core one (TF32 would
+    miss the f32 tolerance)."""
+    if dtype == torch.bfloat16:
+        return FlashPlan("mma_bf16", 1)
+    if dtype == torch.float32:
+        return FlashPlan("simt_f32", 0)
+    raise TypeError(f"flash_attention takes float32 or bfloat16, not {dtype}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """Causal (or full) GQA attention with an optional sliding window.
@@ -184,15 +219,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check_cuda("flash_attention", q, k, v)
     B, L, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    plan = flash_plan(q.dtype)
+    if plan.kernel == "mma_bf16" and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: the bf16 kernel takes q/k/v "
+                         "aligned to 16 bytes")
     out = torch.empty_like(q)
+    grids = ctypes.c_int(0)
     err = _fn("flash_attention", "flash_attention_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, S, H,
         Hkv, D, int(causal), -1 if window is None else int(window),
-        1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], _stream(q))
+        1.0 / math.sqrt(D), plan.dtype_code, ctypes.byref(grids), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["flash_attention"] += 1
+    GRIDS["flash_attention"] += grids.value
     return out
 
 
@@ -221,6 +263,38 @@ def _check_ssd(x, dt, A, Bm, Cm, D, chunk):
     _check_no_grad("ssd_scan", x, dt, A, Bm, Cm, D)
 
 
+class SSDPlan(NamedTuple):
+    chunk: int            # Q = min(chunk, L)
+    n_chunks: int
+    one_chunk: bool       # L <= chunk: one grid, no scratch
+    scratch: tuple        # shapes of the f32 scratch: chunk states, decays
+    smem_bytes: int       # dynamic shared memory of the largest CTA
+
+
+_SSD_ROWS, _SSD_PCOLS, _SSD_SP, _SSD_SN, _SSD_WARPS = 32, 64, 32, 64, 8
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_plan(B: int, L: int, H: int, P: int, N: int,
+             chunk: int) -> SSDPlan:
+    """What ``ssd_scan`` needs before it launches: the chunk, the f32
+    scratch of the three-grid split (none for one chunk), and the shared
+    memory of the largest CTA, a copy of the C ``ssd_scan_smem_bytes``
+    (the card tests hold the two equal) so the wrapper can refuse a shape
+    with a message."""
+    Q = min(chunk, L)
+    nc = _cdiv(L, Q)
+    n_stride = _cdiv(N, 4) * 4 + 4
+    # a_cs in f64 (Q doubles), the scan's warp totals (in f64), dt (Q)
+    scan = 3 * Q + 2 * _SSD_WARPS
+    states = _SSD_ROWS * (_SSD_SP + 1) + _SSD_ROWS * (_SSD_SN + 1) + scan
+    out = (2 * _SSD_ROWS * n_stride + _SSD_PCOLS * 36
+           + _SSD_ROWS * (_SSD_PCOLS + 1) + _SSD_ROWS * (_SSD_ROWS + 1)
+           + scan)
+    scratch = () if nc == 1 else ((B, nc, H, P, N), (B, nc, H))
+    return SSDPlan(Q, nc, nc == 1, scratch, 4 * max(states, out))
+
+
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     """Mamba2 chunked SSD.  x: (B, L, H, P); dt: (B, L, H); A/D: (H,);
     Bm/Cm: (B, L, G, N).  Inputs are cast to f32 (as the JAX wrapper does);
@@ -234,18 +308,22 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     _check_cuda("ssd_scan", *f32)
     B, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    Q = min(chunk, L)
-    smem = _fn("ssd_scan", "ssd_scan_smem_bytes")(Q, P, N)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: chunk {Q}, head dim {P} and state {N} "
-                         f"need {smem} bytes of shared memory, above the "
-                         f"card's {SMEM_LIMIT}")
+    plan = ssd_plan(B, L, H, P, N, chunk)
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan: chunk {plan.chunk}, head dim {P} and "
+                         f"state {N} need {plan.smem_bytes} bytes of shared "
+                         f"memory, above the card's {SMEM_LIMIT}")
     y = torch.empty((B, L, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    scratch = [torch.empty(s, dtype=torch.float32, device=dev)
+               for s in plan.scratch]
+    ptrs = [t.data_ptr() for t in scratch] or [None, None]
+    grids = ctypes.c_int(0)
     err = _fn("ssd_scan", "ssd_scan_launch")(
-        *(t.data_ptr() for t in f32), y.data_ptr(), state.data_ptr(), B, L,
-        H, G, P, N, Q, _stream(y))
+        *(t.data_ptr() for t in f32), y.data_ptr(), state.data_ptr(), *ptrs,
+        B, L, H, G, P, N, plan.chunk, ctypes.byref(grids), _stream(y))
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd_scan"] += 1
+    GRIDS["ssd_scan"] += grids.value
     return y, state

@@ -31,6 +31,8 @@ from repro_torch.serving import CatalogEntry, EdgeGateway, \
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# ||out - ref|| / ||ref|| of flash_attention (bf16 rounding gives ~1e-3)
+FLASH_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -151,20 +153,37 @@ def _randn(seed, *shape, device, dtype=torch.float32):
     (2, 4, 2, 40, 56, 32, None, torch.float32, False),
     (1, 14, 2, 8, 8, 64, None, torch.bfloat16, True),
     (1, 14, 2, 512, 512, 64, None, torch.bfloat16, True),
-    (1, 14, 2, 300, 300, 64, 100, torch.float32, True)])
+    (1, 14, 2, 300, 300, 64, 100, torch.float32, True),
+    # the bf16 tensor-core kernel: ragged L, batch, window, head dims,
+    # non-causal with S != L, and qwen2's heads at a long prompt
+    (1, 14, 2, 77, 77, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 300, 300, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 511, 511, 64, None, torch.bfloat16, True),
+    (2, 14, 2, 256, 256, 64, None, torch.bfloat16, True),
+    (1, 14, 2, 300, 300, 64, 100, torch.bfloat16, True),
+    (2, 4, 2, 200, 200, 32, None, torch.bfloat16, True),
+    (1, 8, 2, 200, 200, 128, None, torch.bfloat16, True),
+    (2, 4, 2, 40, 56, 64, None, torch.bfloat16, False),
+    (1, 14, 2, 4096, 4096, 64, None, torch.bfloat16, True)])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, L, S, D,
                                               window, dtype, causal):
     q = _randn(1, B, L, H, D, device=cuda, dtype=dtype)
     k = _randn(2, B, S, Hkv, D, device=cuda, dtype=dtype)
     v = _randn(3, B, S, Hkv, D, device=cuda, dtype=dtype)
-    before = ops.LAUNCHES["flash_attention"]
+    before = ops.LAUNCHES["flash_attention"], ops.GRIDS["flash_attention"]
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert ops.LAUNCHES["flash_attention"] == before[0] + 1
+    assert ops.GRIDS["flash_attention"] == before[1] + 1
     assert out.dtype == dtype and out.shape == q.shape
     tol = TOL[dtype]
     assert torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol)
+    # the rows past L/2 average many keys, so their outputs are about as
+    # small as the bf16 tolerance: hold the error to the outputs' norm too
+    for rows in (slice(None), slice(L // 2, None)):
+        o, e = out[:, rows].double(), expect[:, rows].double()
+        assert (o - e).norm() <= FLASH_REL_TOL[dtype] * e.norm()
 
 
 def test_flash_attention_constant_v_and_rejections(cuda):
@@ -184,7 +203,10 @@ def test_flash_attention_constant_v_and_rejections(cuda):
     (2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 64, 32),
     (2, 40, 4, 8, 2, 16, 16), (1, 256, 2, 64, 1, 128, 128),
     (1, 8, 24, 64, 1, 128, 128), (1, 300, 24, 64, 1, 128, 128),
-    (1, 512, 24, 64, 1, 128, 128)])
+    (1, 512, 24, 64, 1, 128, 128),
+    # 32 chunks; a ragged last chunk of 44 at chunk 64; two groups, batch 2
+    (1, 4096, 24, 64, 1, 128, 128), (1, 300, 24, 64, 1, 128, 64),
+    (2, 300, 8, 64, 2, 128, 128)])
 def test_ssd_scan_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk):
     x = _randn(1, B, L, H, P, device=cuda)
     dt = F.softplus(_randn(2, B, L, H, device=cuda))
@@ -192,22 +214,36 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk):
     Bm, Cm = _randn(4, B, L, G, N, device=cuda), _randn(5, B, L, G, N,
                                                          device=cuda)
     D = torch.ones(H, device=cuda)
-    before = ops.LAUNCHES["ssd_scan"]
+    before = ops.LAUNCHES["ssd_scan"], ops.GRIDS["ssd_scan"]
     y, s = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
     yr, sr = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    # one launch; one grid for one chunk, else chunk states, recurrence
+    # and outputs
+    assert ops.LAUNCHES["ssd_scan"] == before[0] + 1
+    assert ops.GRIDS["ssd_scan"] == before[1] + (1 if L <= chunk else 3)
     assert torch.allclose(y, yr, rtol=2e-4, atol=2e-4)
     assert torch.allclose(s, sr, rtol=2e-4, atol=2e-4)
 
 
 def test_ssd_scan_rejects_too_much_shared_memory(cuda):
+    # N = 1024: the C and B blocks alone (2 x 32 x 1028 floats) pass 227 KB
     x = torch.zeros(1, 256, 1, 128, device=cuda)
     dt = torch.zeros(1, 256, 1, device=cuda)
     h = torch.zeros(1, device=cuda)
-    bc = torch.zeros(1, 256, 1, 256, device=cuda)
+    bc = torch.zeros(1, 256, 1, 1024, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ops.ssd_scan(x, dt, h, bc, bc, h, chunk=256)
+
+
+@pytest.mark.parametrize("L,P,N,chunk", [(8, 64, 128, 128),
+                                         (4096, 64, 128, 128),
+                                         (40, 8, 16, 16),
+                                         (256, 128, 1024, 256)])
+def test_ssd_plan_shared_memory_matches_the_kernel(cuda, L, P, N, chunk):
+    plan = ops.ssd_plan(1, L, 1, P, N, chunk)
+    smem = ops._fn("ssd_scan", "ssd_scan_smem_bytes")(plan.chunk, N)
+    assert smem == plan.smem_bytes
 
 
 @pytest.mark.parametrize("name,kernel", [("qwen2-0.5b", "flash_attention"),

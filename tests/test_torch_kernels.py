@@ -180,6 +180,18 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(bad):
         ops.flash_attention(q, k, v, **kw)
 
 
+@pytest.mark.parametrize("dtype,kernel,code", [
+    (torch.bfloat16, "mma_bf16", 1), (torch.float32, "simt_f32", 0)])
+def test_flash_plan_dispatches_by_dtype(dtype, kernel, code):
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core one."""
+    assert ops.flash_plan(dtype) == (kernel, code)
+
+
+def test_flash_plan_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        ops.flash_plan(torch.float16)
+
+
 # -- ssd_scan -------------------------------------------------------------------
 
 # SSD_CASES of tests/test_kernels.py: (B, L, H, P, G, N, chunk)
@@ -257,3 +269,64 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take(bad):
         args = [a.to("meta") for a in args]
     with pytest.raises(err):
         ops.ssd_scan(*args, chunk=4)
+
+
+def test_reset_launches_zeroes_launches_and_grids():
+    ops.LAUNCHES["ssd_scan"] += 2
+    ops.GRIDS["ssd_scan"] += 6
+    ops.reset_launches()
+    assert set(ops.LAUNCHES.values()) == set(ops.GRIDS.values()) == {0}
+    # a grid count exists for each kernel whose C entry point reports one
+    assert set(ops.GRIDS) <= set(ops.LAUNCHES)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+def test_a_cpu_call_starts_no_grids(name):
+    """On the CPU the plain version runs: no launch and no grid counted."""
+    torch.manual_seed(0)
+    before = dict(ops.LAUNCHES), dict(ops.GRIDS)
+    if name == "flash_attention":
+        q, k = torch.randn(1, 16, 2, 32), torch.randn(1, 16, 1, 32)
+        ops.flash_attention(q, k, k)
+    else:
+        x, dt = torch.randn(1, 16, 2, 4), torch.rand(1, 16, 2)
+        h, bc = -torch.ones(2), torch.randn(1, 16, 1, 8)
+        ops.ssd_scan(x, dt, h, bc, bc, h, chunk=8)
+    assert (ops.LAUNCHES, ops.GRIDS) == before
+
+
+# (B, L, H, P, N, chunk) -> chunks
+SSD_PLANS = [
+    ((1, 8, 24, 64, 128, 128), 1),      # mamba2, one chunk
+    ((1, 128, 24, 64, 128, 128), 1),
+    ((1, 512, 24, 64, 128, 128), 4),
+    ((1, 4096, 24, 64, 128, 128), 32),
+    ((1, 300, 24, 64, 128, 64), 5),     # ragged last chunk
+    ((2, 40, 4, 8, 16, 16), 3),
+]
+
+
+@pytest.mark.parametrize("shape,n_chunks", SSD_PLANS)
+def test_ssd_plan_splits_the_chunks_across_ctas(shape, n_chunks):
+    B, L, H, P, N, chunk = shape
+    plan = ops.ssd_plan(*shape)
+    assert plan.n_chunks == n_chunks
+    assert plan.chunk == min(chunk, L)
+    assert plan.one_chunk == (L <= chunk)
+    # no scratch for one chunk; chunk states and decays for more
+    if plan.one_chunk:
+        assert plan.scratch == ()
+    else:
+        assert plan.scratch == ((B, n_chunks, H, P, N), (B, n_chunks, H))
+    assert plan.smem_bytes <= ops.SMEM_LIMIT
+
+
+def test_ssd_plan_shared_memory_at_the_path_shape_and_above_the_limit():
+    """The shared memory grows with the chunk and the state N, not with
+    B, L past the chunk, H or P; N = 1024 passes the card's 227 KB."""
+    path = ops.ssd_plan(1, 512, 24, 64, 128, 128).smem_bytes
+    assert path == ops.ssd_plan(2, 4096, 8, 128, 128, 128).smem_bytes
+    assert path < ops.ssd_plan(1, 512, 24, 64, 256, 128).smem_bytes
+    assert path < ops.ssd_plan(1, 512, 24, 64, 128, 256).smem_bytes
+    assert ops.ssd_plan(1, 256, 1, 128, 1024, 256).smem_bytes \
+        > ops.SMEM_LIMIT
