@@ -8,36 +8,43 @@ Phases, each printing one JSON line:
 1. device   — requires CUDA (exits non-zero without it); card name and
                power limit from nvidia-smi.
 2. build    — builds every kernel in src/repro_torch/kernels/csrc with nvcc
-               for sm_90a, one nvcc per source, all started together.
+               for sm_90a, one nvcc per source, all started together; ptxas's
+               registers, stack and spills per kernel.
 3. kernel_check  — each kernel against its plain PyTorch version on the card
-               (f32 to 2e-5, bf16 to 2e-2), at the serving path's shapes.
+               (f32 to 2e-5, bf16 to 2e-2), at the serving path's shapes;
+               ddpm_chain and ssd_scan also against an exact f64 answer.
 4. kernel_timing — CUDA-event times of kernel and plain version, in turns,
                beside the card's bound for the same bytes and flops, and
                ``graph_ms``: the same launches replayed from one CUDA graph
-               (the device's own time, no Python or ctypes in it).
+               (the device's own time, no Python or ctypes in it); for
+               ddpm_chain also the step path's time for the same chain.
 5. control_plane — greedy T2DRL episodes at the paper's EnvCfg() (d3pg/ddqn,
-               then rcars/random); checks stats, simplexes, and that the
-               ddpm_step kernel ran exactly L*T*K times per d3pg episode.
+               then rcars/random); checks stats, simplexes, and that
+               ddpm_chain ran once per slot (T*K per d3pg episode); then one
+               episode with impl="step" from the same seed as one with the
+               default chain: L*T*K ddpm_step launches, the same actions.
 6. data_plane    — the edge gateway loop of examples/serve_edge.py against the
                port: 10 diffusion models at image_dim=256, total_steps=1000,
-               3 frames x 4 slots; checks the kernel ran once per reverse step.
+               3 frames x 4 slots; checks one ddpm_chain launch per chain
+               (the actor's per slot, one per served image).
 7. lm_plane      — the gateway's LM branch: qwen2-0.5b and mamba2-130m at full
                width (random weights from seeds), each behind an Engine
                (max_batch=4, max_seq=512), beside a diffusion model; a few
                gateway slots, then one Engine.run of 8 requests per model
                (prompt lengths 4-300); checks 24 flash_attention launches
                per qwen2 prefill, 24 ssd_scan launches per mamba2 prefill,
-               finite logits, and one prefill through the kernels against
-               the plain versions.
+               one ddpm_chain per image, finite logits, and one prefill
+               through the kernels against the plain versions.
 
-Phases 3 and 4 cover every kernel: ddpm_step, flash_attention (at the
+Phases 3 and 4 cover every kernel: ddpm_step, ddpm_chain (at the control
+and data planes' chains, R = 16, and odd widths), flash_attention (at the
 prefill buckets of phase 7 and at tests/test_kernels.py's FLASH_CASES) and
 ssd_scan (likewise, SSD_CASES).  Then a ``kernels`` line (per kernel:
 route, source, the TPU kernel it replaces, launches on the serving path,
 error, times, bound and library time at the most frequent shape; grids
 per call, as the C entry points report them on the serving path;
 ``path_ms`` and ``path_bound_ms``, launches times ms or bound summed over
-the shapes the serving path ran; the times at L = 512 and 4096) and,
+the shapes the serving path ran; times at other shapes under ``at``) and,
 last, ``{"ok": true, "device": {...}}``.  Launch and grid counts are reset
 just before each serving path runs and read just after, so comparison and
 timing launches do not count.
@@ -65,11 +72,14 @@ from repro_torch.core.d3pg import (amend_actions,  # noqa: E402
 from repro_torch.core.env import (EnvCfg, env_advance_frame,  # noqa: E402
                                   env_reset, env_set_cache, env_step_slot,
                                   make_models, observe)
+from repro_torch.core.networks import mlp_init  # noqa: E402
 from repro_torch.core.t2drl import (STAT_KEYS, T2DRLCfg,  # noqa: E402
                                     greedy_frame_cache, greedy_slot_action,
                                     policy_init, run_eval)
 from repro_torch.device import make_generator, resolve_device  # noqa: E402
-from repro_torch.diffusion import time_embedding  # noqa: E402
+from repro_torch.diffusion import (Denoiser, make_schedule,  # noqa: E402
+                                   reverse_sample, time_embedding)
+from repro_torch.diffusion.sampler import chain_tables  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.nn.core import count_params  # noqa: E402
@@ -97,6 +107,28 @@ KERNEL_CHECK_SHAPES = [((20,), torch.float32), ((1, 20), torch.float32),
                        ((4096, 256), torch.float32)]
 TIMING_SHAPES = [(20,), (256,), (65536, 256)]
 DDPM_COEF = (0.9, 0.5, 0.04)          # alpha, alpha_bar, beta_tilde
+
+# ddpm_chain cases (name, MLP widths, S, R, L, schedule): the control
+# plane's actor (86 -> 128x3 -> 20, L = 5) at R = 1 and 16, the data plane's
+# image chain (273 -> 128x3 -> 256) at L = 1, 50 and 1000, widths that the
+# cluster of 8 does not divide (90, 30) over two row blocks (R = 9), and
+# CTAs left with no column of the last layer (5 wide over 8 CTAs)
+CTRL_DIMS, DATA_DIMS = (86, 128, 128, 128, 20), (273, 128, 128, 128, 256)
+CHAIN_CASES = [("control", CTRL_DIMS, 50, 1, 5, "paper"),
+               ("control_R16", CTRL_DIMS, 50, 16, 5, "paper"),
+               ("data_L1", DATA_DIMS, 1, 1, 1, "linear"),
+               ("data_L50", DATA_DIMS, 1, 1, 50, "linear"),
+               ("data_L1000", DATA_DIMS, 1, 1, 1000, "linear"),
+               ("odd_widths", (53, 90, 90, 90, 30), 7, 9, 7, "paper"),
+               ("empty_slice", (25, 100, 100, 5), 4, 2, 3, "paper")]
+
+
+def chain_exact_tol(L: int) -> float:
+    """Tolerance of a chain against its exact f64 run: 2e-5 per 50 steps.
+    A long chain amplifies f32 rounding: x grows by up to the product of
+    c1 (~1/sqrt(abar), ~150 at L = 1000 of the linear schedule), and the
+    plain version itself lies ~3x 2e-5 from the exact answer there."""
+    return TOL[torch.float32] * max(1.0, L / 50)
 
 # prefill lengths of the LM plane: the engine's buckets at max_seq = 512
 PATH_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
@@ -347,8 +379,88 @@ def _check_ssd(device) -> dict:
             "cases": cases}
 
 
+def _chain_inputs(dims, S, R, L, kind, device, seed) -> dict:
+    """A random MLP of widths ``dims`` (biases too), x_L, state and noises
+    from ``seed`` on the CPU, moved to ``device``, and the schedule's
+    tables; ``denoiser`` wraps the same MLP for the step path."""
+    g = torch.Generator().manual_seed(seed)
+    net = mlp_init(list(dims), g)
+    with torch.no_grad():
+        for b in net.b:
+            b.copy_(0.1 * torch.randn(b.shape, generator=g))
+    net = net.to(device).requires_grad_(False)
+    A, T = dims[-1], dims[0] - dims[-1] - S
+    sched = make_schedule(L, kind=kind)
+    x_L, state = _randn(g, R, A), _randn(g, R, S)
+    noises = _randn(g, L, R, A)
+    coef, te = chain_tables(sched, T, torch.device(device))
+    return {"net": net, "x_L": x_L.to(device), "state": state.to(device),
+            "noises": noises.to(device), "coef": coef, "te": te,
+            "sched": sched, "denoiser": Denoiser(net, T)}
+
+
+def _chain_args(c: dict) -> tuple:
+    return c["net"], c["x_L"], c["state"], c["noises"], c["coef"], c["te"]
+
+
+def chain_exact(net, x_L, state, noises, coef, te):
+    """The same chain (same weights, draws and f32 tables) in float64:
+    the answer that the kernel and the plain version approximate."""
+    ws = [w.double() for w in net.w]
+    bs = [b.double() for b in net.b]
+    x, state, noises, coef, te = (t.double() for t in
+                                  (x_L, state, noises, coef, te))
+    L = coef.shape[0]
+    for i in range(L):
+        l_rev = L - 1 - i
+        h = torch.cat([x, state, te[l_rev].expand(x.shape[0], -1)], dim=-1)
+        for k, (w, b) in enumerate(zip(ws, bs)):
+            h = h @ w + b
+            if k < len(ws) - 1:
+                h = torch.relu(h)
+        c1, c2, sigma = coef[l_rev]
+        x = c1 * x - c2 * h + sigma * noises[i]
+    return x
+
+
+def _check_chain(device) -> dict:
+    """ddpm_chain against its plain version (rtol = atol = 2e-5 where
+    L <= 50) and both against the exact f64 chain (``kernel_vs_exact`` <=
+    1 of ``chain_exact_tol``), at every case of CHAIN_CASES."""
+    cases = []
+    for i, (name, dims, S, R, L, kind) in enumerate(CHAIN_CASES):
+        c = _chain_inputs(dims, S, R, L, kind, device, 400 + i)
+        out = ops.ddpm_chain(*_chain_args(c))
+        expect = ref.ddpm_chain_ref(*_chain_args(c))
+        sync(device)
+        require(out.shape == (R, dims[-1]) and out.dtype == torch.float32,
+                f"ddpm_chain {name}: output {out.shape} {out.dtype}")
+        require(bool(torch.isfinite(out).all()),
+                f"ddpm_chain {name}: non-finite output")
+        if L <= 50:
+            err = _allclose_err(out, expect, TOL[torch.float32],
+                                f"ddpm_chain {name}")
+        else:
+            err = (out - expect).abs().max().item()
+        exact = chain_exact(*_chain_args(c))
+        tol = chain_exact_tol(L)
+        k_exact = _tol_ratio(out, exact, tol)
+        require(k_exact <= 1.0, f"ddpm_chain {name}: {k_exact} of the "
+                f"tolerance {tol} from the exact f64 chain")
+        cases.append({"case": name, "dims": list(dims), "S": S, "R": R,
+                      "L": L, "plan": ops.chain_plan(dims, R)._asdict(),
+                      "max_abs_err": err, "exact_tol": tol,
+                      "kernel_vs_exact": k_exact,
+                      "plain_vs_exact": _tol_ratio(expect, exact, tol),
+                      "max_abs_x0": exact.abs().max().item()})
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "kernel_vs_exact": max(c["kernel_vs_exact"] for c in cases),
+            "cases": cases}
+
+
 def phase_kernel_check(device) -> dict:
     return {"phase": "kernel_check", "ddpm_step": _check_ddpm(device),
+            "ddpm_chain": _check_chain(device),
             "flash_attention": _check_flash(device),
             "ssd_scan": _check_ssd(device)}
 
@@ -409,6 +521,24 @@ def ssd_bound_ms(B, L, H, P, G, N, chunk: int):
     t_ops = flops / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", "f32 67 TFLOP/s")
+
+
+def chain_bound_ms(dims, S: int, R: int, L: int):
+    """Least time for one chain in f32: the weights, x_L, state, noises and
+    the two tables read once and x_0 written once over HBM, against the
+    kernel's flops (per row: the state's share of layer 0 once; per step
+    layer 0 over the x and time-embedding rows, the other layers, the
+    biases and the 5-flop update) at the f32 CUDA-core peak; returns
+    (ms, "bytes"|"operations")."""
+    A, T = dims[-1], dims[0] - dims[-1] - S
+    ins = [A + T] + list(dims[1:-1])
+    step = sum(2 * i * o + o for i, o in zip(ins, dims[1:])) + 5 * A
+    flops = R * (2 * S * dims[1] + L * step)
+    weights = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    nbytes = 4 * (weights + 2 * R * A + R * S + L * R * A + L * (3 + T))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _graph_ms(fn, n: int) -> float:
@@ -526,6 +656,39 @@ def _ssd_timing(device) -> list:
     return rows
 
 
+def _chain_timing(device) -> list:
+    """ddpm_chain at every CHAIN_CASES shape: the kernel, its plain version
+    and, as the yardstick, the step path for the same chain
+    (``reverse_sample(impl="step")``: eager denoiser and one ddpm_step a
+    step, plus the final tanh), in turns; ``ms_per_layer`` divides by the
+    L x layers dependent layers of the chain."""
+    rows = []
+    for i, (name, dims, S, R, L, kind) in enumerate(CHAIN_CASES):
+        c = _chain_inputs(dims, S, R, L, kind, device, 500 + i)
+        args = _chain_args(c)
+
+        def step():
+            reverse_sample(c["denoiser"], c["sched"], c["state"], dims[-1],
+                           x_L=c["x_L"], noises=c["noises"], impl="step")
+
+        t = _timed_turns(lambda: ops.ddpm_chain(*args),
+                         lambda: ref.ddpm_chain_ref(*args), step)
+        t["step_ms"], t["step_ms_runs"] = t.pop("library_ms"), \
+            t.pop("library_ms_runs")
+        t["library_ms"] = None
+        layers = L * (len(dims) - 1)
+        bound, by = chain_bound_ms(dims, S, R, L)
+        rows.append({"case": name, "shape": {"dims": list(dims), "S": S,
+                                             "R": R, "L": L},
+                     **t, "bound_ms": bound, "bound_by": by,
+                     "peak": "f32 67 TFLOP/s",
+                     "ms_per_layer": t["ms"] / layers,
+                     "graph_ms_per_layer": t["graph_ms"] / layers,
+                     "grids_per_call": _grids_per_call(
+                         lambda: ops.ddpm_chain(*args), "ddpm_chain")})
+    return rows
+
+
 def phase_kernel_timing(device) -> dict:
     alpha, abar, btilde = DDPM_COEF
     c1, c2, sigma = ops.ddpm_coefficients(alpha, abar, btilde, 3)
@@ -555,8 +718,9 @@ def phase_kernel_timing(device) -> dict:
                      "bound_by": by, "library_ms": None,
                      "graph_ms": _graph_ms(kernel, 200 if numel <= 1 << 20
                                            else 20),
-                     "grids_per_call": None})
+                     "grids_per_call": _grids_per_call(kernel, "ddpm_step")})
     return {"phase": "kernel_timing", "ddpm_step": rows,
+            "ddpm_chain": _chain_timing(device),
             "flash_attention": _flash_timing(device),
             "ssd_scan": _ssd_timing(device)}
 
@@ -592,13 +756,65 @@ def _check_simplexes(b, xi, env) -> None:
             f"xi sums to {xi.sum().item()}, expected {want}")
 
 
+def _episode_actions(policy, cfg: T2DRLCfg, models, dev, seed: int,
+                     impl: str):
+    """One greedy episode slot by slot, as ``greedy_episode`` runs it, with
+    the actor's chain through ``impl``: the (T*K, 2U) actions [b, xi]."""
+    ec = cfg.env
+    g = make_generator(seed, dev)
+    env = env_reset(g, ec)
+    actions = []
+    for _ in range(ec.T):
+        env = env_advance_frame(env, ec)
+        env = env_set_cache(env, greedy_frame_cache(policy, cfg, models,
+                                                    env.gamma_idx, g))
+        for _ in range(ec.K):
+            b, xi = greedy_slot_action(policy, cfg, env, models, g,
+                                       impl=impl)
+            actions.append(torch.cat([b, xi]))
+            env, _, _ = env_step_slot(env, ec, models, b, xi)
+    return torch.stack(actions)
+
+
+def _chain_vs_step_episode(policy, cfg: T2DRLCfg, models, dev) -> dict:
+    """The same greedy episode (same seed, same draws) with the default
+    chain and with ``impl="step"``: one ddpm_chain a slot against L
+    ddpm_step a slot, and the same actions to the f32 tolerance."""
+    ec = cfg.env
+    out = {}
+    for impl in ("chain", "step"):
+        ops.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        acts = _episode_actions(policy, cfg, models, dev, 7, impl)
+        sync(dev)
+        out[impl] = {"wall_s": time.perf_counter() - t0,
+                     "launches": {k: ops.LAUNCHES[k]
+                                  for k in ("ddpm_chain", "ddpm_step")},
+                     "grids": ops.GRIDS["ddpm_step"], "actions": acts}
+    want = {"chain": {"ddpm_chain": ec.T * ec.K, "ddpm_step": 0},
+            "step": {"ddpm_chain": 0, "ddpm_step": cfg.L * ec.T * ec.K}}
+    if dev.type == "cuda":
+        for impl in want:
+            require(out[impl]["launches"] == want[impl],
+                    f"greedy episode, impl={impl}: launches "
+                    f"{out[impl]['launches']}, expected {want[impl]}")
+    err = (out["chain"]["actions"] - out["step"]["actions"]).abs().max() \
+        .item()
+    require(err <= TOL[torch.float32],
+            f"greedy episode chain vs step: actions differ by {err}")
+    return {impl: {k: v for k, v in out[impl].items() if k != "actions"}
+            for impl in out} | {"slots": ec.T * ec.K,
+                                 "actions_max_abs_diff": err}
+
+
 def phase_control_plane(device, env_cfg: EnvCfg = EnvCfg(),
                         episodes: int = 3) -> dict:
     dev = resolve_device(device)
     cfg = T2DRLCfg(env=env_cfg)
     models = make_models(make_generator(1, dev), env_cfg)
     policy = policy_init(cfg, seed=0, device=dev)
-    per_episode = cfg.L * env_cfg.T * env_cfg.K
+    per_episode = env_cfg.T * env_cfg.K          # one chain per slot
 
     # the serving path: counts reset just before, read just after
     ops.reset_launches()
@@ -607,24 +823,26 @@ def phase_control_plane(device, env_cfg: EnvCfg = EnvCfg(),
     hist = run_eval(policy, models, cfg, episodes=episodes, device=dev)
     sync(dev)
     wall = time.perf_counter() - t0
-    launches = ops.LAUNCHES["ddpm_step"]
+    launches = {k: ops.LAUNCHES[k] for k in ("ddpm_chain", "ddpm_step")}
+    grids, clusters = ops.GRIDS["ddpm_chain"], ops.CLUSTERS["ddpm_chain"]
     base_cfg = T2DRLCfg(env=env_cfg, allocator="rcars", cacher="random")
     ops.reset_launches()
     t1 = time.perf_counter()
     base = run_eval({}, models, base_cfg, episodes=1, device=dev)
     sync(dev)
     base_wall = time.perf_counter() - t1
-    base_launches = ops.LAUNCHES["ddpm_step"]
+    base_launches = sum(ops.LAUNCHES.values())
 
     for name, h in (("d3pg/ddqn", hist), ("rcars/random", base)):
         require(all(math.isfinite(v) for vs in h.values() for v in vs),
                 f"{name}: non-finite episode stats {h}")
     if dev.type == "cuda":
-        require(launches == per_episode * episodes,
-                f"ddpm_step launched {launches} times in {episodes} d3pg "
-                f"episodes, expected {per_episode * episodes}")
-        require(base_launches == 0, f"rcars launched ddpm_step "
-                f"{base_launches} times")
+        require(launches == {"ddpm_chain": per_episode * episodes,
+                             "ddpm_step": 0},
+                f"{episodes} d3pg episodes launched {launches}, expected "
+                f"{per_episode * episodes} ddpm_chain and no ddpm_step")
+        require(base_launches == 0, f"rcars launched {base_launches} "
+                f"kernels")
 
     # simplexes over one frame, and one slot through kernel vs plain chain
     g = make_generator(5, dev)
@@ -654,12 +872,14 @@ def phase_control_plane(device, env_cfg: EnvCfg = EnvCfg(),
                                               "T": env_cfg.T, "K": env_cfg.K},
             "episodes": episodes, "wall_s": wall,
             "wall_s_per_episode": wall / episodes, "stats": means,
-            "ddpm_step_launches": launches,
+            "launches": launches, "grids": grids, "clusters": clusters,
             "expected_launches": per_episode * episodes,
             "rcars_random": {"wall_s": base_wall,
                              "stats": {k: base[k][0] for k in STAT_KEYS},
-                             "ddpm_step_launches": base_launches},
-            "slot_kernel_vs_plain_max_abs_err": slot_err}
+                             "launches": base_launches},
+            "slot_kernel_vs_plain_max_abs_err": slot_err,
+            "chain_vs_step_episode": _chain_vs_step_episode(policy, cfg,
+                                                            models, dev)}
 
 
 # -- 6. data plane --------------------------------------------------------------
@@ -683,7 +903,7 @@ def phase_data_plane(device, env_cfg: EnvCfg = EnvCfg(T=3, K=4),
     g = make_generator(3, dev)
     env = env_reset(g, env_cfg)
 
-    slots, frames, steps_run = [], [], 0
+    slots, frames, steps_run, images = [], [], 0, 0
     ops.reset_launches()
     sync(dev)
     t0 = time.perf_counter()
@@ -704,6 +924,7 @@ def phase_data_plane(device, env_cfg: EnvCfg = EnvCfg(T=3, K=4),
             slot_wall = time.perf_counter() - ts
             served = [x for x in results if x.cached]
             steps_run += sum(x.steps for x in served)
+            images += len(served)
             require(all(x.output_shape == (image_dim,) for x in served),
                     "gateway output shape")
             slots.append({
@@ -715,12 +936,14 @@ def phase_data_plane(device, env_cfg: EnvCfg = EnvCfg(T=3, K=4),
                 "slot_wall_s": slot_wall})
     sync(dev)
     wall = time.perf_counter() - t0
-    launches = ops.LAUNCHES["ddpm_step"]
-    expected = cfg.L * env_cfg.T * env_cfg.K + steps_run
+    launches = {k: ops.LAUNCHES[k] for k in ("ddpm_chain", "ddpm_step")}
+    grids, clusters = ops.GRIDS["ddpm_chain"], ops.CLUSTERS["ddpm_chain"]
+    expected = {"ddpm_chain": env_cfg.T * env_cfg.K + images,
+                "ddpm_step": 0}
     if dev.type == "cuda":
         require(launches == expected,
-                f"data plane launched ddpm_step {launches} times, expected "
-                f"{expected} (actor {cfg.L}/slot + one per image step)")
+                f"data plane launched {launches}, expected {expected} (one "
+                f"ddpm_chain per slot for the actor, one per served image)")
     require(all(math.isfinite(s["reward"]) for s in slots),
             "non-finite slot reward")
 
@@ -741,8 +964,12 @@ def phase_data_plane(device, env_cfg: EnvCfg = EnvCfg(T=3, K=4),
                 f"image chain kernel vs plain: max abs err {chain_err}")
     return {"phase": "data_plane", "image_dim": image_dim,
             "total_steps": total_steps, "frames": frames, "slots": slots,
-            "wall_s": wall, "image_steps": steps_run,
-            "ddpm_step_launches": launches, "expected_launches": expected,
+            "wall_s": wall, "image_steps": steps_run, "images": images,
+            "launches": launches, "grids": grids, "clusters": clusters,
+            "expected_launches": expected,
+            "ms_per_image_step": 1e3 * sum(s["measured_exec_s"]
+                                           for s in slots)
+            / max(steps_run, 1),
             "measured_exec_s": sum(s["measured_exec_s"] for s in slots),
             "modeled_delay_s": sum(s["modeled_delay_s"] for s in slots),
             "image_chain_kernel_vs_plain_max_abs_err": chain_err}
@@ -855,7 +1082,7 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
 
     def launches():
         return {k: ops.LAUNCHES[k] for k in ("flash_attention", "ssd_scan",
-                                             "ddpm_step")}
+                                             "ddpm_chain", "ddpm_step")}
 
     def grids():
         return dict(ops.GRIDS)
@@ -895,15 +1122,16 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
         gw_launches, gw_grids = launches(), grids()
         finite = fin.all_finite()
     require(finite, "non-finite logits in the gateway's LM requests")
-    diffusion_steps = sum(st for row in slot_rows for m, st in
-                          zip(row["requests"], row["steps"]) if m == 0)
+    images = sum(m == 0 for row in slot_rows for m in row["requests"])
     if dev.type == "cuda":
         for kname, n in expect(served).items():
             require(gw_launches[kname] == n, f"gateway: {kname} launched "
                     f"{gw_launches[kname]} times, expected {n}")
-        require(gw_launches["ddpm_step"] == diffusion_steps,
-                f"gateway: ddpm_step launched {gw_launches['ddpm_step']} "
-                f"times, expected {diffusion_steps}")
+        require(gw_launches["ddpm_chain"] == images
+                and gw_launches["ddpm_step"] == 0,
+                f"gateway: {gw_launches['ddpm_chain']} ddpm_chain and "
+                f"{gw_launches['ddpm_step']} ddpm_step launches, expected "
+                f"{images} (one per image) and 0")
 
     # one Engine.run per model: prompts of 4..max_prompt tokens from seed
     runs = {}
@@ -959,7 +1187,8 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
                   for k in gw_grids}
     return {"phase": "lm_plane", "make": make, "load": load,
             "gateway": {"slots": slot_rows, "wall_s": gw_wall,
-                        "lm_requests": served, "launches": gw_launches,
+                        "lm_requests": served, "images": images,
+                        "launches": gw_launches,
                         "grids": gw_grids,
                         "expected_launches": expect(served)},
             "engine_runs": runs, "bucket_counts": {
@@ -979,15 +1208,15 @@ _TIMES = ("ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
 
 
 def kernel_summary(rows: list, launches_by_shape: dict, modal,
-                   long_shapes=(), path_grids=None) -> dict:
+                   long_shapes, path_grids: int) -> dict:
     """One kernel's entry of the ``kernels`` line from its timing rows
     (``(key, row)`` pairs): the times at the modal shape, ``path_ms`` and
     ``path_bound_ms`` (launches times ms or bound, summed over the shapes
     the serving path ran), the times at ``long_shapes``, and
     ``grids_per_call``: ``path_grids``, the grids the serving path's
-    launches started, over those launches (None where the kernel's entry
-    point reports no grids).  ``path_grids`` must equal the launches of
-    each shape times the grids one timed call there started."""
+    launches started, over those launches.  ``path_grids`` must equal the
+    launches of each shape times the grids one timed call there
+    started."""
     by = {str(k): r for k, r in rows}
     out = {k: by[str(modal)][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
@@ -999,12 +1228,10 @@ def kernel_summary(rows: list, launches_by_shape: dict, modal,
                      "graph_ms": r["graph_ms"], "bound_ms": r["bound_ms"],
                      "grids_per_call": r["grids_per_call"]})
     out["path"] = path
-    out["grids_per_call"] = None
-    if path_grids is not None:
-        timed = sum(p["launches"] * p["grids_per_call"] for p in path)
-        require(path_grids == timed, f"the serving path started "
-                f"{path_grids} grids; its shapes' timed calls make {timed}")
-        out["grids_per_call"] = path_grids / sum(launches_by_shape.values())
+    timed = sum(p["launches"] * p["grids_per_call"] for p in path)
+    require(path_grids == timed, f"the serving path started {path_grids} "
+            f"grids; its shapes' timed calls make {timed}")
+    out["grids_per_call"] = path_grids / sum(launches_by_shape.values())
     out["path_ms"] = sum(p["launches"] * p["ms"] for p in path)
     out["path_graph_ms"] = sum(p["launches"] * p["graph_ms"] for p in path)
     out["path_bound_ms"] = sum(p["launches"] * p["bound_ms"] for p in path)
@@ -1033,19 +1260,39 @@ def main() -> int:
     emit(data)
     lm = phase_lm_plane(device)
     emit(lm)
-    # the kernels line: ddpm_step at the gateway's per-step shape (256,),
-    # the shape of most of its launches (the control plane's are at (20,));
+    # the kernels line.  ddpm_step: the impl="step" episode of the control
+    # plane, every launch at (20,).  ddpm_chain: at the control plane's
+    # chain (most of its launches), path sums over the control plane's
+    # launches (the data plane's chains vary in L: their times are under
+    # "at"), grids and clusters per call over every plane.
     # flash_attention and ssd_scan at the most frequent prefill length of
     # the LM plane, with the path summed over its buckets (24 launches per
     # prefill) and the times at L = 512 and 4096 beside it
-    ddpm_launches = {20: control["ddpm_step_launches"],
-                     256: data["ddpm_step_launches"]
-                     + lm["gateway"]["launches"]["ddpm_step"]}
+    step_run = control["chain_vs_step_episode"]["step"]
     summary = {"ddpm_step": kernel_summary(
         [(r["shape"][-1] if len(r["shape"]) == 1 else
           "x".join(map(str, r["shape"])), r) for r in timing["ddpm_step"]],
-        ddpm_launches, 256, ("65536x256",))}
-    launches = {"ddpm_step": sum(ddpm_launches.values()),
+        {20: step_run["launches"]["ddpm_step"]}, 20, (256, "65536x256"),
+        step_run["grids"])}
+    chain_rows = [(r["case"], r) for r in timing["ddpm_chain"]]
+    by_plane = {"control": control["launches"]["ddpm_chain"],
+                "data": data["launches"]["ddpm_chain"],
+                "lm_gateway": lm["gateway"]["launches"]["ddpm_chain"]}
+    chain = kernel_summary(chain_rows, {"control": by_plane["control"]},
+                           "control", [c[0] for c in CHAIN_CASES[1:]],
+                           control["grids"])
+    chain["step_ms"] = timing["ddpm_chain"][0]["step_ms"]
+    for k, row in chain_rows[1:]:
+        chain["at"][k]["step_ms"] = row["step_ms"]
+    chain["launches_by_plane"] = by_plane
+    chain["grids_per_call"] = (control["grids"] + data["grids"]
+                               + lm["gateway"]["grids"]["ddpm_chain"]) \
+        / sum(by_plane.values())
+    chain["clusters_per_call"] = (control["clusters"] + data["clusters"]) \
+        / (by_plane["control"] + by_plane["data"])
+    summary["ddpm_chain"] = chain
+    launches = {"ddpm_step": step_run["launches"]["ddpm_step"],
+                "ddpm_chain": sum(by_plane.values()),
                 "flash_attention": lm["flash_attention_launches"],
                 "ssd_scan": lm["ssd_scan_launches"]}
     for kname, model in (("flash_attention", "qwen2-0.5b"),
@@ -1060,6 +1307,8 @@ def main() -> int:
             [(r["shape"][1], r) for r in timing[kname]], per_bucket,
             modal_bucket(counts), (512, LONG_L), lm["grids"][kname])
     replaces = {"ddpm_step": "src/repro/kernels/ddpm_step.py:20",
+                "ddpm_chain": "src/repro/kernels/ddpm_step.py:20 with the "
+                              "lax.scan of src/repro/diffusion/sampler.py:26",
                 "flash_attention": "src/repro/kernels/flash_attention.py:27",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:22"}
     emit({"kernels": [{
@@ -1067,7 +1316,8 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/csrc/{k}.cu",
         "replaces": replaces[k], "launches": launches[k],
         "max_abs_err": check[k]["max_abs_err"], **summary[k]}
-        for k in ("ddpm_step", "flash_attention", "ssd_scan")]})
+        for k in ("ddpm_step", "ddpm_chain", "flash_attention",
+                  "ssd_scan")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -58,13 +58,14 @@ def actor_init(cfg: D3PGCfg, generator: torch.Generator):
 
 @torch.no_grad()
 def actor_act(actor, cfg: D3PGCfg, sched, state, generator=None, *,
-              x_L=None, noises=None):
+              x_L=None, noises=None, impl: str = "chain"):
     """Raw action in [0,1]^A.  state: (..., S).  ``x_L``/``noises`` inject
-    the diffusion chain's draws (see ``reverse_sample``)."""
+    the diffusion chain's draws, ``impl`` picks its kernels (see
+    ``reverse_sample``)."""
     if cfg.actor_kind == "diffusion":
         return reverse_sample_actions(actor, sched, state, cfg.action_dim,
                                       generator=generator, x_L=x_L,
-                                      noises=noises)
+                                      noises=noises, impl=impl)
     x = mlp_apply(actor, state, final_act=torch.tanh)
     return 0.5 * (x + 1.0)
 

@@ -15,8 +15,9 @@ classical cachers (lru/lfu/lru-ghost/arc) raise ``NotImplementedError``
 until their ROADMAP items are ported; the agent protocol (``agents/``)
 arrives with the training slice, so a small dispatch here stands in for it.
 
-Every D3PG action runs L reverse steps through the ``ddpm_step`` kernel,
-so a greedy d3pg episode launches it exactly L*T*K times.
+Every D3PG action runs its L-step reverse chain in one ``ddpm_chain``
+launch, so a greedy d3pg episode launches it exactly T*K times
+(``impl="step"`` in ``greedy_slot_action``: L*T*K ``ddpm_step`` launches).
 """
 from __future__ import annotations
 
@@ -128,17 +129,18 @@ def policy_init(cfg: T2DRLCfg, seed: int, device=None) -> dict:
 
 def greedy_slot_action(policy, cfg: T2DRLCfg, env: EnvState,
                        models: ModelParams, generator=None, mask=None, *,
-                       x_L=None, noises=None):
+                       x_L=None, noises=None, impl: str = "chain"):
     """Greedy (no exploration noise) per-slot allocation: the amended
     ``(b, xi)``.  ``generator`` drives the diffusion actor's reverse chain;
-    ``x_L``/``noises`` inject its draws instead."""
+    ``x_L``/``noises`` inject its draws instead; ``impl`` picks its kernels
+    (``reverse_sample``)."""
     _check_methods(cfg)
     if cfg.allocator == "rcars":
         return rcars_allocate(env, cfg.env)
     d3 = cfg.d3pg_cfg()
     s = observe(env, cfg.env, models, mask)
     raw = actor_act(policy["actor"], d3, _actor_schedule(d3), s, generator,
-                    x_L=x_L, noises=noises)
+                    x_L=x_L, noises=noises, impl=impl)
     return amend_actions(raw, env.req, env.rho, cfg.env.U, mask=mask)
 
 

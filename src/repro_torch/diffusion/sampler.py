@@ -5,12 +5,18 @@ Starting from x_L ~ N(0, I), iterate
 
     x_{l-1} = c1_l x_l - c2_l eps_hat(x_l, l, s) + sigma_l eps,   eps ~ N(0, I)
 
-with sigma_1 = 0.  Every step goes through ``kernels.ops.ddpm_step``: the
-hand-written kernel on the card, its plain version on the CPU.  Inference
-only — the chain runs under ``torch.no_grad`` (the kernel's backward comes
-with the training slice).
+with sigma_1 = 0.  ``impl="chain"`` (the default, as the JAX sampler's
+one ``lax.scan``) runs the whole chain in one ``kernels.ops.ddpm_chain``
+launch: denoiser MLP and update fused over all L steps.  ``impl="step"``
+runs the denoiser eagerly and one ``kernels.ops.ddpm_step`` a step, the
+loop the training slice will differentiate through.  On the CPU both run
+their kernels' plain versions.  Inference only: the chain runs under
+``torch.no_grad``.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -19,16 +25,36 @@ from repro_torch.kernels import ops as kops
 from .denoiser import Denoiser, time_embedding
 from .schedule import DiffusionSchedule
 
+IMPLS = ("chain", "step")
+
+
+@functools.lru_cache(maxsize=64)
+def chain_tables(sched: DiffusionSchedule, time_dim: int,
+                 device: torch.device):
+    """What ``ddpm_chain`` reads of a schedule on ``device``, built once
+    and cached: [c1, c2, sigma] per step (L, 3) f32, from
+    ``ddpm_coefficients`` (sigma exactly 0 at l_rev = 0), and the time
+    embedding of steps 1..L (L, time_dim)."""
+    coef = torch.tensor(
+        [kops.ddpm_coefficients(sched.alphas_host[l], sched.alpha_bars_host[l],
+                                sched.beta_tildes_host[l], l)
+         for l in range(sched.L)], dtype=torch.float32, device=device)
+    te = time_embedding(torch.arange(1, sched.L + 1, device=device), time_dim)
+    return coef, te
+
 
 @torch.no_grad()
 def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
                    action_dim: int, *, generator=None, x_L=None,
-                   noises=None):
+                   noises=None, impl: str = "chain"):
     """One reverse chain.  state: (..., S) -> x0: (..., A) in [-1, 1].
 
     ``x_L`` (shape ``(..., A)``) and ``noises`` (``(L, ..., A)``, consumed
     in chain order, ``noises[0]`` at the first step) may be injected;
-    otherwise they are drawn from ``generator`` on ``state``'s device."""
+    otherwise they are drawn from ``generator`` on ``state``'s device, the
+    same draws for either ``impl``."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
     L = sched.L
     shape = state.shape[:-1] + (action_dim,)
     dev = state.device
@@ -36,6 +62,14 @@ def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
         x_L = torch.randn(shape, generator=generator, device=dev)
     if noises is None:
         noises = torch.randn((L,) + shape, generator=generator, device=dev)
+    if impl == "chain":
+        R = math.prod(shape[:-1])
+        coef, te = chain_tables(sched, p.time_dim, dev)
+        x0 = kops.ddpm_chain(
+            p.net, x_L.reshape(R, action_dim).contiguous(),
+            state.reshape(R, state.shape[-1]).contiguous(),
+            noises.reshape(L, R, action_dim).contiguous(), coef, te)
+        return torch.tanh(x0.reshape(shape))
     te = time_embedding(torch.arange(1, L + 1, device=dev), p.time_dim)
     x = x_L
     for i in range(L):
@@ -49,8 +83,8 @@ def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
 
 def reverse_sample_actions(p: Denoiser, sched: DiffusionSchedule, state,
                            action_dim: int, *, generator=None, x_L=None,
-                           noises=None):
+                           noises=None, impl: str = "chain"):
     """Action in [0, 1]^A (the paper's raw action range)."""
     x0 = reverse_sample(p, sched, state, action_dim, generator=generator,
-                        x_L=x_L, noises=noises)
+                        x_L=x_L, noises=noises, impl=impl)
     return 0.5 * (x0 + 1.0)

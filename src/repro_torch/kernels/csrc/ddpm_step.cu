@@ -16,8 +16,10 @@
 // for 5 flops an element, so it is memory-bound on an H100 (3.35 TB/s).  At
 // the serving path's sizes (n = 20 per greedy D3PG action, n = 256 per
 // gateway image step) the bytes take nanoseconds and the launch latency is
-// the whole cost.  The design does nothing about that yet: fusing the
-// L-step chain (denoiser MLP + update) into one kernel is later work.
+// the whole cost.  The serving path therefore runs whole chains through
+// ddpm_chain.cu (denoiser MLP and this update fused over all L steps, one
+// launch a chain); this kernel serves reverse_sample(impl="step"), the
+// per-step loop the training slice differentiates through.
 //
 // Arithmetic: f32 throughout, each product and sum rounded on its own
 // (__fmul_rn / __fsub_rn / __fadd_rn forbid FMA contraction), in the same
@@ -73,12 +75,14 @@ constexpr int64_t kMaxBlocks = 132 * 8;
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaGetLastError() code
-// of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  *grids is set to the grids launched
+// (1, or 0 for n = 0).  Returns the cudaGetLastError() code of the launch
+// (0 on success).
 extern "C" int ddpm_step_launch(const void* x, const void* eps,
                                 const void* noise, void* out, int64_t n,
                                 float c1, float c2, float sigma, int dtype,
-                                void* stream) {
+                                int* grids, void* stream) {
+  *grids = 0;
   if (n <= 0) return 0;
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -97,5 +101,7 @@ extern "C" int ddpm_step_launch(const void* x, const void* eps,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) *grids = 1;
+  return err;
 }

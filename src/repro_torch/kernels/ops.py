@@ -8,12 +8,13 @@ else), so a run can show that its path went through the kernel.  One
 launch is one call of the kernel's C entry point, however many grids it
 starts: ``ssd_scan`` runs one grid for a single chunk and three (chunk
 states, state recurrence, outputs) for more, and counts one either way.
-``GRIDS[name]`` adds up the grids that the C entry points of
-``flash_attention`` and ``ssd_scan`` report they started.
-``reset_launches`` zeroes both.
+``GRIDS[name]`` adds up the grids that the C entry points report they
+started, and ``CLUSTERS["ddpm_chain"]`` the thread-block clusters of its
+grids.  ``reset_launches`` zeroes all three.
 
-``flash_plan`` (which kernel a dtype takes) and ``ssd_plan`` (chunks,
-scratch, shared memory) hold the host-side choices of a launch, so the
+``flash_plan`` (which kernel a dtype takes), ``ssd_plan`` (chunks,
+scratch, shared memory) and ``chain_plan`` (cluster size, rows per
+cluster, shared memory) hold the host-side choices of a launch, so the
 CPU tests reach them.
 """
 from __future__ import annotations
@@ -27,20 +28,36 @@ import torch
 
 from . import build, ref
 
-LAUNCHES = {"ddpm_step": 0, "flash_attention": 0, "ssd_scan": 0}
-GRIDS = {"flash_attention": 0, "ssd_scan": 0}
+LAUNCHES = {"ddpm_step": 0, "ddpm_chain": 0, "flash_attention": 0,
+            "ssd_scan": 0}
+GRIDS = dict(LAUNCHES)
+CLUSTERS = {"ddpm_chain": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _GRIDS = ctypes.POINTER(ctypes.c_int)   # out: grids the entry point started
 
+CHAIN_MAX_LAYERS = 8
+
+
+class _ChainNet(ctypes.Structure):
+    """``struct ChainNet`` of ddpm_chain.cu: the MLP's widths and the
+    pointers of its ``w`` (in, out) and ``b`` (out,), passed by value."""
+    _fields_ = [("n_layers", ctypes.c_int),
+                ("dims", ctypes.c_int * (CHAIN_MAX_LAYERS + 1)),
+                ("w", ctypes.c_void_p * CHAIN_MAX_LAYERS),
+                ("b", ctypes.c_void_p * CHAIN_MAX_LAYERS)]
+
+
 # c_void_p for every pointer and the stream: a bare Python int would be
 # passed as a 32-bit C int and cut the address
 _SIGNATURES = {
     "ddpm_step_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, ctypes.c_float,
                                         ctypes.c_float, ctypes.c_float,
-                                        ctypes.c_int, _P]),
+                                        ctypes.c_int, _GRIDS, _P]),
+    "ddpm_chain_launch": (ctypes.c_int, [_ChainNet] + [_P] * 6 + [_I64] * 4
+                          + [ctypes.c_int, ctypes.c_int, _I64, _GRIDS, _P]),
     "flash_attention_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, _I64,
                                               _I64, _I64, _I64, _I64,
                                               ctypes.c_int, _I64,
@@ -56,7 +73,7 @@ SMEM_LIMIT = 232448          # H100: 227 KB of shared memory per block
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GRIDS):
+    for counts in (LAUNCHES, GRIDS, CLUSTERS):
         for k in counts:
             counts[k] = 0
 
@@ -151,13 +168,152 @@ def ddpm_step(x, eps_hat, noise, alpha: float, alpha_bar: float,
         raise ValueError(f"ddpm_step runs on cuda or cpu, not {x.device}")
     _check_cuda("ddpm_step", x, eps_hat, noise)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    grids = ctypes.c_int(0)
     err = _fn("ddpm_step", "ddpm_step_launch")(
         x.data_ptr(), eps_hat.data_ptr(), noise.data_ptr(), out.data_ptr(),
-        x.numel(), c1, c2, sigma, _DTYPE_CODE[x.dtype], _stream(x))
+        x.numel(), c1, c2, sigma, _DTYPE_CODE[x.dtype], ctypes.byref(grids),
+        _stream(x))
     if err != 0:
         raise RuntimeError(f"ddpm_step kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["ddpm_step"] += 1
+    GRIDS["ddpm_step"] += grids.value
+    return out
+
+
+# -- ddpm_chain -------------------------------------------------------------------
+
+class ChainPlan(NamedTuple):
+    cluster: int       # CTAs per cluster, each owning a slice of every layer
+    rows: int          # rows of x per cluster
+    smem_bytes: int    # dynamic shared memory of one CTA
+
+
+_CHAIN_THREADS, _CHAIN_MAX_ROWS, _CHAIN_CLUSTERS = 256, 8, (2, 4, 8)
+
+
+def _chain_smem_bytes(dims, cluster: int, rows: int) -> int:
+    """The shared-memory layout that ddpm_chain.cu carves (its launch
+    refuses bytes that disagree): two mbarriers (16 bytes), every layer's
+    weight and bias slice, the rows' state share of layer 0, two input
+    buffers, the own slice of x, two noise slices and two time
+    embeddings."""
+    total = 4
+    for i, o in zip(dims[:-1], dims[1:]):
+        cs = _cdiv(o, cluster)
+        total = _cdiv(total, 4) * 4                    # 16-byte aligned
+        total += i * ((cs + 27) // 32 * 32 + 4) + cs   # padded weight rows
+    cs0, csl = _cdiv(dims[1], cluster), _cdiv(dims[-1], cluster)
+    total += (rows * cs0 + 2 * rows * max(dims) + 3 * rows * csl
+              + 2 * _CHAIN_THREADS)
+    return 4 * total
+
+
+@functools.lru_cache(maxsize=256)
+def chain_plan(dims: tuple, R: int, dtype=torch.float32) -> ChainPlan:
+    """Launch choices of ``ddpm_chain`` for an MLP of widths ``dims`` (in,
+    hidden..., A) over R rows: up to 8 rows per cluster, and the largest
+    cluster (2, 4 or 8 CTAs) that still gives each CTA at least 8 columns
+    of the widest hidden layer, among those whose slices fit in shared
+    memory (else the smallest that fits).  More CTAs split every layer's
+    dot products further, which is what a layer's latency follows.  Raises
+    when even 8 CTAs cannot hold the weights, or for a dtype other than
+    float32."""
+    if dtype != torch.float32:
+        raise TypeError(f"ddpm_chain takes float32, not {dtype}")
+    dims = tuple(int(d) for d in dims)
+    if not 2 <= len(dims) <= CHAIN_MAX_LAYERS + 1 or min(dims) < 1 or R < 1:
+        raise ValueError(f"ddpm_chain: widths {dims} (1 to "
+                         f"{CHAIN_MAX_LAYERS} layers) over {R} rows")
+    rows = min(R, _CHAIN_MAX_ROWS)
+    fits = [c for c in _CHAIN_CLUSTERS
+            if _chain_smem_bytes(dims, c, rows) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"ddpm_chain: widths {dims} need "
+            f"{_chain_smem_bytes(dims, 8, rows)} bytes of shared memory in "
+            f"each of 8 CTAs, above the card's {SMEM_LIMIT}")
+    widest = max(dims[1:-1] or dims[1:])
+    enough = [c for c in fits if widest // c >= 8]
+    cluster = enough[-1] if enough else fits[0]
+    return ChainPlan(cluster, rows, _chain_smem_bytes(dims, cluster, rows))
+
+
+def _check_chain(net, x_L, state, noises, coef, te) -> tuple:
+    """The MLP's widths, once every tensor is f32 and contiguous and
+    every shape fits the chain (on either device: the kernel reads the
+    tensors in place)."""
+    ws, bs = list(net.w), list(net.b)
+    for t in (x_L, state, noises, coef, te, *ws, *bs):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ddpm_chain takes float32 tensors, not "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("ddpm_chain: the kernel takes contiguous "
+                             "tensors")
+    if x_L.dim() != 2 or state.dim() != 2 or noises.dim() != 3:
+        raise ValueError("ddpm_chain: x_L (R, A), state (R, S) and noises "
+                         "(L, R, A)")
+    (R, A), L = x_L.shape, noises.shape[0]
+    if (R < 1 or L < 1 or state.shape[0] != R
+            or tuple(noises.shape) != (L, R, A)
+            or tuple(coef.shape) != (L, 3) or te.dim() != 2
+            or te.shape[0] != L):
+        raise ValueError(
+            f"ddpm_chain: x_L {tuple(x_L.shape)}, state "
+            f"{tuple(state.shape)}, noises {tuple(noises.shape)}, coef "
+            f"{tuple(coef.shape)}, te {tuple(te.shape)} do not fit")
+    dims = tuple([ws[0].shape[0]] + [w.shape[1] for w in ws]) if ws else ()
+    if (not 1 <= len(ws) <= CHAIN_MAX_LAYERS or len(bs) != len(ws)
+            or any(tuple(w.shape) != (i, o) or tuple(b.shape) != (o,)
+                   for w, b, i, o in zip(ws, bs, dims[:-1], dims[1:]))
+            or dims[0] != A + state.shape[1] + te.shape[1]
+            or dims[-1] != A):
+        raise ValueError(f"ddpm_chain: the MLP's layers "
+                         f"{[tuple(w.shape) for w in ws]} do not map "
+                         f"[x, state, te] of widths {A}, {state.shape[1]}, "
+                         f"{te.shape[1]} to {A}")
+    _check_no_grad("ddpm_chain", x_L, state, noises, *ws, *bs)
+    return dims
+
+
+def ddpm_chain(net, x_L, state, noises, coef, te):
+    """A whole reverse chain: for l_rev = L-1 .. 0, eps_hat =
+    ``net([x, state, te[l_rev]])`` and the ``ddpm_step`` update with
+    ``coef[l_rev]`` = [c1, c2, sigma] and ``noises[L-1-l_rev]``.
+
+    net: the denoiser's ``MLP`` (``w`` (in, out), ``b`` (out,)); x_L (R, A),
+    state (R, S), noises (L, R, A), coef (L, 3), te (L, T): float32, one
+    device.  Returns x_0 (R, A), before the sampler's tanh.  One launch on
+    the card, however long the chain."""
+    ws, bs = list(net.w), list(net.b)
+    tensors = (x_L, state, noises, coef, te, *ws, *bs)
+    dev = _check_device("ddpm_chain", *tensors)
+    dims = _check_chain(net, x_L, state, noises, coef, te)
+    if dev.type == "cpu":
+        return ref.ddpm_chain_ref(net, x_L, state, noises, coef, te)
+    _check_cuda("ddpm_chain", *tensors)
+    (R, A), L = x_L.shape, noises.shape[0]
+    plan = chain_plan(dims, R)
+    pad = [None] * (CHAIN_MAX_LAYERS - len(ws))
+    cnet = _ChainNet(len(ws), (ctypes.c_int * (CHAIN_MAX_LAYERS + 1))(*dims),
+                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(
+                         *[w.data_ptr() for w in ws], *pad),
+                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(
+                         *[b.data_ptr() for b in bs], *pad))
+    out = torch.empty_like(x_L)
+    started = (ctypes.c_int * 2)()
+    err = _fn("ddpm_chain", "ddpm_chain_launch")(
+        cnet, x_L.data_ptr(), state.data_ptr(), noises.data_ptr(),
+        coef.data_ptr(), te.data_ptr(), out.data_ptr(), R, L,
+        state.shape[1], te.shape[1], plan.cluster, plan.rows,
+        plan.smem_bytes, started, _stream(x_L))
+    if err != 0:
+        raise RuntimeError(f"ddpm_chain kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["ddpm_chain"] += 1
+    GRIDS["ddpm_chain"] += started[0]
+    CLUSTERS["ddpm_chain"] += started[1]
     return out
 
 

@@ -2,8 +2,8 @@
 
 The CPU tests and ``chip_smoke.py`` hold the kernels against these.
 ``ddpm_step_ref`` repeats its kernel's arithmetic op for op, so on the card
-the two agree bit for bit; attention and the SSD scan sum in another order
-than their kernels and agree to a tolerance.
+the two agree bit for bit; the chain's MLP, attention and the SSD scan sum
+in another order than their kernels and agree to a tolerance.
 """
 from __future__ import annotations
 
@@ -54,3 +54,19 @@ def ddpm_step_ref(x, eps_hat, noise, c1: float, c2: float, sigma: float):
     back to ``x.dtype``.  See ``ops.ddpm_coefficients`` for c1, c2, sigma."""
     xf, ef, nf = x.float(), eps_hat.float(), noise.float()
     return (c1 * xf - c2 * ef + sigma * nf).to(x.dtype)
+
+
+def ddpm_chain_ref(net, x_L, state, noises, coef, te):
+    """A whole reverse chain as the sampler's step loop runs it: for
+    l_rev = L-1 .. 0, ``eps_hat = net([x, state, te[l_rev]])`` and
+    ``ddpm_step_ref`` with ``coef[l_rev]`` = [c1, c2, sigma] and
+    ``noises[L-1-l_rev]``.  Returns x_0, before the sampler's tanh."""
+    L = coef.shape[0]
+    coefs = coef.tolist()
+    x = x_L
+    for i in range(L):
+        l_rev = L - 1 - i
+        t = te[l_rev].expand(x.shape[:-1] + te.shape[-1:])
+        eps_hat = net(torch.cat([x, state, t], dim=-1))
+        x = ddpm_step_ref(x, eps_hat, noises[i], *coefs[l_rev])
+    return x

@@ -5,7 +5,7 @@ The gateway keeps a catalogue of GenAI models, applies the cacher's rho by
 loading and evicting real models against a byte budget, and runs each
 cached request under its compute share xi, ``steps = round(xi *
 total_steps)``: a diffusion model runs a DDPM reverse chain of ``steps``
-steps, every step through the ``ddpm_step`` kernel; an LM (``kind="lm"``,
+steps in one ``ddpm_chain`` launch; an LM (``kind="lm"``,
 its builder returns an :class:`~repro_torch.serving.engine.Engine`)
 generates ``max(1, steps // 16)`` tokens through its engine, every prefill
 through the ``flash_attention`` or ``ssd_scan`` kernel.  It reports the

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each hand-written kernel against its plain
 version on the card, its launch counter and its rejections, and the
-serving paths' launch counts (one ddpm_step per reverse step, 24
-flash_attention or ssd_scan launches per full-width prefill).
+serving paths' launch counts (one ddpm_chain per reverse chain, or one
+ddpm_step per reverse step with ``impl="step"``; 24 flash_attention or
+ssd_scan launches per full-width prefill).
 
 Run on a machine with an NVIDIA GPU (it has no JAX, so skip the suite's
 conftest, which imports it):
@@ -22,7 +23,7 @@ from repro_torch.core.env import EnvCfg, make_models
 from repro_torch.core.t2drl import T2DRLCfg, policy_init, run_eval
 from repro_torch.device import make_generator
 from repro_torch.diffusion import (denoiser_init, make_schedule,
-                                   reverse_sample_actions)
+                                   reverse_sample, reverse_sample_actions)
 from repro_torch.kernels import build, ops, ref
 from repro_torch.models.lm import lm_init, lm_init_cache, lm_prefill
 from repro_torch.serving import CatalogEntry, EdgeGateway, \
@@ -96,44 +97,165 @@ def test_ddpm_step_rejects_what_the_kernel_does_not_take(cuda):
         ops.ddpm_step(x, e.cpu(), n, 0.9, 0.5, 0.04, 1)
 
 
-def test_sampler_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("impl", ["chain", "step"])
+def test_sampler_on_card_matches_cpu(cuda, impl):
+    """64 actor chains on the card, through one ddpm_chain launch (5
+    ddpm_step launches with impl="step"), against the CPU."""
     p = denoiser_init(50, 20, torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     s, x_L = torch.randn(64, 50, generator=g), torch.randn(64, 20, generator=g)
     noises = torch.randn(5, 64, 20, generator=g)
     sched = make_schedule(5)
-    before = ops.LAUNCHES["ddpm_step"]
+    ops.reset_launches()
     on_card = reverse_sample_actions(p.to(cuda), sched, s.to(cuda), 20,
-                                     x_L=x_L.to(cuda), noises=noises.to(cuda))
-    assert ops.LAUNCHES["ddpm_step"] == before + 5
+                                     x_L=x_L.to(cuda), noises=noises.to(cuda),
+                                     impl=impl)
+    want = {"chain": {"ddpm_chain": 1, "ddpm_step": 0},
+            "step": {"ddpm_chain": 0, "ddpm_step": 5}}[impl]
+    assert {k: ops.LAUNCHES[k] for k in want} == want
     on_cpu = reverse_sample_actions(p.cpu(), sched, s, 20, x_L=x_L,
-                                    noises=noises)
+                                    noises=noises, impl=impl)
     assert (on_card.cpu() - on_cpu).abs().max().item() <= 2e-5
 
 
+def _greedy_episode_launches(cuda, impl):
+    """Launch counts of 2 greedy episodes (T = 3, K = 2) run slot by slot
+    through ``greedy_slot_action(impl=...)``."""
+    from repro_torch.core.env import (env_advance_frame, env_reset,
+                                      env_set_cache, env_step_slot)
+    from repro_torch.core.t2drl import greedy_frame_cache, greedy_slot_action
+    cfg = T2DRLCfg(env=EnvCfg(U=4, M=4, T=3, K=2))
+    pol = policy_init(cfg, seed=0, device=cuda)
+    models = make_models(make_generator(1, cuda), cfg.env)
+    g = make_generator(2, cuda)
+    ops.reset_launches()
+    for _ in range(2):
+        env = env_reset(g, cfg.env)
+        for _ in range(cfg.env.T):
+            env = env_advance_frame(env, cfg.env)
+            env = env_set_cache(env, greedy_frame_cache(pol, cfg, models,
+                                                        env.gamma_idx, g))
+            for _ in range(cfg.env.K):
+                b, xi = greedy_slot_action(pol, cfg, env, models, g,
+                                           impl=impl)
+                env, _, _ = env_step_slot(env, cfg.env, models, b, xi)
+    return cfg, dict(ops.LAUNCHES)
+
+
 def test_greedy_episode_launches_l_t_k(cuda):
+    """Default serving: one ddpm_chain per slot, T*K per episode, through
+    run_eval."""
     cfg = T2DRLCfg(env=EnvCfg(U=4, M=4, T=3, K=2))
     pol = policy_init(cfg, seed=0, device=cuda)
     models = make_models(make_generator(1, cuda), cfg.env)
     ops.reset_launches()
     hist = run_eval(pol, models, cfg, episodes=2, device=cuda)
-    assert ops.LAUNCHES["ddpm_step"] == 2 * cfg.L * 3 * 2
+    assert ops.LAUNCHES["ddpm_chain"] == ops.GRIDS["ddpm_chain"] == 2 * 3 * 2
+    assert ops.LAUNCHES["ddpm_step"] == 0
     assert all(len(v) == 2 for v in hist.values())
 
 
-def test_gateway_launches_one_per_image_step(cuda):
+@pytest.mark.parametrize("impl", ["step", "chain"])
+def test_greedy_episode_launches_l_t_k_step_impl(cuda, impl):
+    """The same episodes slot by slot: impl="step" launches ddpm_step
+    L*T*K times per episode, the chain T*K times."""
+    cfg, got = _greedy_episode_launches(cuda, impl)
+    want = ({"ddpm_step": 2 * cfg.L * 3 * 2, "ddpm_chain": 0}
+            if impl == "step" else {"ddpm_step": 0, "ddpm_chain": 2 * 3 * 2})
+    assert {k: got[k] for k in want} == want
+
+
+def _gateway(cuda):
     cat = [CatalogEntry(model_id=i, name=f"m{i}", kind="diffusion",
                         size_gb=4.0, builder=toy_diffusion_builder(i, 64))
            for i in range(2)]
     gw = EdgeGateway(cat, capacity_gb=8.0, image_dim=64, total_steps=100,
                      device=cuda)
     gw.apply_caching([1.0, 1.0])
+    return gw
+
+
+def test_gateway_launches_one_per_image_step(cuda):
+    """The gateway's default path: one ddpm_chain launch per image, none
+    of ddpm_step (an image of 25, 50 and 25 steps)."""
+    gw = _gateway(cuda)
     ops.reset_launches()
     res = gw.serve_slot([0, 1, 0], [0.25, 0.5, 0.25],
                         make_generator(0, cuda))
     assert [r.steps for r in res] == [25, 50, 25]
-    assert ops.LAUNCHES["ddpm_step"] == 100
+    assert ops.LAUNCHES["ddpm_chain"] == 3 and ops.LAUNCHES["ddpm_step"] == 0
     assert all(r.measured_wall_s > 0 for r in res)
+
+
+def test_gateway_image_chain_step_impl_launches_one_per_step(cuda):
+    """The same image chains with impl="step": one ddpm_step per image
+    step (100), and the same images as the chain to 2e-5."""
+    gw = _gateway(cuda)
+    out = {}
+    for impl in ("step", "chain"):
+        ops.reset_launches()
+        out[impl] = [
+            reverse_sample(gw.loaded[m], gw._schedule(n), gw._state, 64,
+                           generator=make_generator(3, cuda), impl=impl)
+            for m, n in ((0, 25), (1, 50), (0, 25))]
+        if impl == "step":
+            assert ops.LAUNCHES["ddpm_step"] == 100
+            assert ops.GRIDS["ddpm_step"] == 100
+    for a, b in zip(out["step"], out["chain"]):
+        assert (a - b).abs().max().item() <= 2e-5
+
+
+# -- ddpm_chain ------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHAIN_CASE_NAMES = ["control", "control_R16", "data_L1", "data_L50",
+                    "data_L1000", "odd_widths", "empty_slice"]
+
+
+@pytest.mark.parametrize("name", CHAIN_CASE_NAMES)
+def test_ddpm_chain_kernel_matches_plain(cuda, name):
+    """chip_smoke's kernel_check cases: 2e-5 against the plain version
+    where L <= 50, and every case within ``chain_exact_tol`` of the exact
+    f64 chain (L = 1000 included); one launch, one grid, ceil(R / 8)
+    clusters."""
+    cs = _chip_smoke()
+    i = CHAIN_CASE_NAMES.index(name)
+    _, dims, S, R, L, kind = cs.CHAIN_CASES[i]
+    c = cs._chain_inputs(dims, S, R, L, kind, cuda, 400 + i)
+    args = cs._chain_args(c)
+    ops.reset_launches()
+    out = ops.ddpm_chain(*args)
+    expect = ref.ddpm_chain_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ddpm_chain"] == ops.GRIDS["ddpm_chain"] == 1
+    assert ops.CLUSTERS["ddpm_chain"] == -(-R // 8)
+    assert out.shape == (R, dims[-1]) and bool(torch.isfinite(out).all())
+    if L <= 50:
+        assert torch.allclose(out, expect, rtol=2e-5, atol=2e-5)
+    exact = cs.chain_exact(*args)
+    assert cs._tol_ratio(out, exact, cs.chain_exact_tol(L)) <= 1.0
+
+
+def test_ddpm_chain_rejects_on_the_card(cuda):
+    cs = _chip_smoke()
+    c = cs._chain_inputs(cs.CTRL_DIMS, 50, 2, 5, "paper", cuda, 3)
+    net, x, s, n, coef, te = cs._chain_args(c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ddpm_chain(net, x, s, n.transpose(0, 1).contiguous()
+                       .transpose(0, 1), coef, te)
+    with pytest.raises(ValueError):
+        ops.ddpm_chain(net, x, s.cpu(), n, coef, te)
+    with pytest.raises(TypeError):
+        ops.ddpm_chain(net, x.double(), s, n, coef, te)
 
 
 # -- flash_attention and ssd_scan ------------------------------------------------

@@ -1,5 +1,8 @@
 """Diffusion actor parity: schedules, time embedding, denoiser and the
 reverse chain of the port (CPU) against the JAX package, on shared inputs.
+The port's chain runs through either ``impl``: ``"chain"`` (the plain
+version of the one-launch ``ddpm_chain``) and ``"step"`` (the denoiser
+and one ``ddpm_step`` a step), against both JAX ``impl``s.
 
 The chain's draws (x_L and the L noises) are rebuilt from the JAX key the
 way ``repro.diffusion.sampler`` draws them and injected into the port.
@@ -82,10 +85,12 @@ def test_denoiser_apply_matches_jax(batch):
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **TOL)
 
 
+@pytest.mark.parametrize("timpl", ["chain", "step"])
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
-@pytest.mark.parametrize("batch,S,A,L", [((), 50, 20, 5), ((4,), 8, 4, 4),
+@pytest.mark.parametrize("batch,S,A,L", [((), 50, 20, 5), ((1,), 50, 20, 5),
+                                         ((3,), 50, 20, 5), ((4,), 8, 4, 4),
                                          ((64,), 50, 20, 5)])
-def test_reverse_sample_actions_matches_jax(impl, batch, S, A, L):
+def test_reverse_sample_actions_matches_jax(timpl, impl, batch, S, A, L):
     from repro.core import D3PGCfg, make_actor_schedule
     key = jax.random.PRNGKey(7)
     jsched = make_actor_schedule(D3PGCfg(state_dim=S, action_dim=A, L=L))
@@ -96,23 +101,65 @@ def test_reverse_sample_actions_matches_jax(impl, batch, S, A, L):
     x_L, noises = chain_draws(key, batch, A, L)
     t = reverse_sample_actions(denoiser_from_numpy(_np(jp), device="cpu"),
                                make_schedule(L), torch.from_numpy(s), A,
-                               x_L=x_L, noises=noises)
+                               x_L=x_L, noises=noises, impl=timpl)
     assert t.shape == batch + (A,)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
-def test_reverse_sample_gateway_chain_matches_jax():
+@pytest.mark.parametrize("timpl", ["chain", "step"])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_reverse_sample_gateway_chain_matches_jax(timpl, impl):
     """The gateway's unconditional image chain: linear schedule, state
     (1,) of zeros, 40 steps."""
     key = jax.random.PRNGKey(5)
     jp = jden.denoiser_init(jax.random.PRNGKey(9), 1, 32)
     j = jreverse_sample(jp, jmake_schedule(40, kind="linear"),
-                        jnp.zeros((1,)), key, 32)
+                        jnp.zeros((1,)), key, 32, impl=impl)
     x_L, noises = chain_draws(key, (), 32, 40)
     t = reverse_sample(denoiser_from_numpy(_np(jp), device="cpu"),
                        make_schedule(40, kind="linear"), torch.zeros(1), 32,
-                       x_L=x_L, noises=noises)
+                       x_L=x_L, noises=noises, impl=timpl)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
+
+
+@pytest.mark.parametrize("batch,S,A,L,kind", [((3,), 50, 20, 5, "paper"),
+                                              ((), 1, 32, 40, "linear")])
+def test_chain_plain_version_matches_jax_scan(batch, S, A, L, kind):
+    """``ref.ddpm_chain_ref`` itself, called with the sampler's cached
+    tables, against the JAX scan (its x_0 before the tanh)."""
+    from repro_torch.diffusion.sampler import chain_tables
+    from repro_torch.kernels import ref
+    key = jax.random.PRNGKey(11)
+    jp = jden.denoiser_init(jax.random.PRNGKey(3), S, A)
+    s = np.random.default_rng(4).standard_normal(batch + (S,)).astype(
+        np.float32)
+    j = jreverse_sample(jp, jmake_schedule(L, kind=kind), s, key, A)
+    x_L, noises = chain_draws(key, batch, A, L)
+    p = denoiser_from_numpy(_np(jp), device="cpu")
+    sched = make_schedule(L, kind=kind)
+    coef, te = chain_tables(sched, p.time_dim, torch.device("cpu"))
+    R = int(np.prod(batch))
+    with torch.no_grad():
+        x0 = ref.ddpm_chain_ref(p.net, x_L.reshape(R, A),
+                                torch.from_numpy(s).reshape(R, S),
+                                noises.reshape(L, R, A), coef, te)
+    np.testing.assert_allclose(torch.tanh(x0).reshape(batch + (A,)).numpy(),
+                               np.asarray(j), **TOL)
+    assert chain_tables(sched, p.time_dim, torch.device("cpu"))[0] is coef
+
+
+def test_chain_and_step_agree_and_draw_alike():
+    """From one generator seed both impls draw the same x_L and noises and
+    give the same chain; a bad impl is refused."""
+    p = denoiser_init(50, 20, torch.Generator().manual_seed(0))
+    s = torch.randn(3, 50, generator=torch.Generator().manual_seed(1))
+    out = {impl: reverse_sample(p, make_schedule(5), s, 20, impl=impl,
+                                generator=torch.Generator().manual_seed(2))
+           for impl in ("chain", "step")}
+    np.testing.assert_allclose(out["chain"].numpy(), out["step"].numpy(),
+                               **TOL)
+    with pytest.raises(ValueError, match="impl"):
+        reverse_sample(p, make_schedule(5), s, 20, impl="scan")
 
 
 def test_reverse_sample_draws_from_generator():

@@ -1,5 +1,7 @@
 """ddpm_step: the port's wrapper on CPU tensors (its plain version) against
-the JAX package's Pallas kernel (interpret mode on the CPU) and its oracle.
+the JAX package's Pallas kernel (interpret mode on the CPU) and its oracle;
+ddpm_chain's wrapper, plan and plain version (its JAX parity is in
+tests/test_torch_diffusion.py); flash_attention and ssd_scan likewise.
 
 Same numpy inputs on both sides; tolerances of tests/test_kernels.py
 (2e-5 for f32, 2e-2 for bf16).
@@ -98,6 +100,106 @@ def test_ddpm_step_rejects_bad_inputs(bad):
         err = NotImplementedError
     with pytest.raises(err):
         ops.ddpm_step(x, e, n, 0.9, 0.5, 0.04, 1)
+
+
+# -- ddpm_chain -----------------------------------------------------------------
+
+def _chain_args(dims=(32, 16, 16, 8), S=4, R=3, L=6, seed=0):
+    """A small MLP (T = dims[0] - A - S) and a chain's inputs, from numpy."""
+    from repro_torch.core.networks import MLP
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    net = MLP([f32(i, o) / np.sqrt(i) for i, o in zip(dims[:-1], dims[1:])],
+              [0.1 * f32(o) for o in dims[1:]]).requires_grad_(False)
+    A, T = dims[-1], dims[0] - dims[-1] - S
+    coef = torch.tensor([ops.ddpm_coefficients(0.9, 0.5, 0.04, l)
+                         for l in range(L)], dtype=torch.float32)
+    return [net, f32(R, A), f32(R, S), f32(L, R, A), coef, f32(L, T)]
+
+
+def test_ddpm_chain_is_the_step_loop_on_the_cpu():
+    """On CPU tensors the wrapper runs the plain version, which is the
+    step loop: denoiser MLP then ddpm_step's update; no launch counted."""
+    net, x, s, n, coef, te = _chain_args()
+    before = dict(ops.LAUNCHES), dict(ops.GRIDS), dict(ops.CLUSTERS)
+    out = ops.ddpm_chain(net, x, s, n, coef, te)
+    assert (ops.LAUNCHES, ops.GRIDS, ops.CLUSTERS) == before
+    L = coef.shape[0]
+    for i in range(L):
+        l_rev = L - 1 - i
+        eps = net(torch.cat([x, s, te[l_rev].expand(3, -1)], dim=-1))
+        x = ops.ddpm_step(x, eps, n[i], 0.9, 0.5, 0.04, l_rev)
+    assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("bad", ["bf16", "shape", "noises", "widths",
+                                 "non_contiguous", "grad", "meta"])
+def test_ddpm_chain_rejects_what_the_kernel_does_not_take(bad):
+    args = _chain_args()
+    err = ValueError
+    if bad == "bf16":
+        args[1], err = args[1].to(torch.bfloat16), TypeError
+    elif bad == "shape":
+        args[2] = args[2][:2]
+    elif bad == "noises":
+        args[3] = args[3][:, :, :4]
+    elif bad == "widths":
+        args[5] = torch.zeros(6, 15)          # dims[0] != A + S + T
+    elif bad == "non_contiguous":
+        args[3] = args[3].transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "grad":
+        args[1].requires_grad_(True)
+        err = NotImplementedError
+    else:
+        args[1:] = [t.to("meta") for t in args[1:]]
+    with pytest.raises(err):
+        ops.ddpm_chain(*args)
+
+
+# (widths, R) -> (cluster, rows, shared-memory bytes).  Floats per CTA:
+# two mbarriers (4 floats); each layer's weight slice (in rows of a stride
+# >= its ceil(out / C) columns and = 4 mod 32) and bias slice; the rows'
+# state share of layer 0; two input buffers of max(widths); the own x
+# slice; two noise slices; 2 x 256 time-embedding slots.
+CHAIN_PLANS = [
+    # control plane over 8 CTAs of 16 columns (3 of the last layer's 20):
+    # 4 + 86*36+16 + 2*(128*36+16) + 128*4+3, + 16 + 2*128 + 3*3 + 512
+    # = 13672 floats
+    (((86, 128, 128, 128, 20), 1), (8, 1, 54688)),
+    # data plane: 4 + 273*36+16 + 2*(128*36+16) + 128*36+32, + 16 + 2*273
+    # + 3*32 + 512 = 24906 floats
+    (((273, 128, 128, 128, 256), 1), (8, 1, 99624)),
+    # 16 rows: two clusters of 8 rows; 12879 + 8*16 + 16*128 + 24*3 + 512
+    (((86, 128, 128, 128, 20), 16), (8, 8, 62556)),
+    # 8 columns a CTA: 64 wide over 8 CTAs, 32 over 4, 16 over 2
+    (((40, 64, 64, 8), 3), (8, 3, None)),
+    (((24, 32, 32, 8), 2), (4, 2, None)),
+    (((20, 16, 4), 1), (2, 1, None)),
+    # narrower still: the smallest cluster
+    (((12, 8, 4), 1), (2, 1, None)),
+    # 512 wide: 8 CTAs, and only 8 hold the weights
+    (((528, 512, 16), 1), (8, 1, None)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", CHAIN_PLANS)
+def test_chain_plan_picks_cluster_rows_and_bytes(shape, plan):
+    got = ops.chain_plan(*shape)
+    assert (got.cluster, got.rows) == plan[:2]
+    if plan[2] is not None:
+        assert got.smem_bytes == plan[2]
+    assert got.smem_bytes <= ops.SMEM_LIMIT
+
+
+def test_chain_plan_raises_past_8_ctas_and_for_other_dtypes():
+    with pytest.raises(ValueError, match="8 CTAs"):
+        ops.chain_plan((2048, 2048, 2048), 1)
+    with pytest.raises(TypeError, match="float32"):
+        ops.chain_plan((86, 128, 20), 1, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.chain_plan((86, 128, 20), 0)
 
 
 # -- flash_attention ------------------------------------------------------------
@@ -280,12 +382,16 @@ def test_reset_launches_zeroes_launches_and_grids():
     assert set(ops.GRIDS) <= set(ops.LAUNCHES)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+@pytest.mark.parametrize("name", ["ddpm_step", "flash_attention",
+                                  "ssd_scan"])
 def test_a_cpu_call_starts_no_grids(name):
     """On the CPU the plain version runs: no launch and no grid counted."""
     torch.manual_seed(0)
     before = dict(ops.LAUNCHES), dict(ops.GRIDS)
-    if name == "flash_attention":
+    if name == "ddpm_step":
+        x = torch.randn(20)
+        ops.ddpm_step(x, x, x, 0.9, 0.5, 0.04, 1)
+    elif name == "flash_attention":
         q, k = torch.randn(1, 16, 2, 32), torch.randn(1, 16, 1, 32)
         ops.flash_attention(q, k, k)
     else:

@@ -84,7 +84,8 @@ def test_kernel_wrapper_has_no_fallback_for_other_devices():
 def test_build_targets_sm90a_and_the_ignored_build_dir():
     from repro_torch.kernels import build
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build.sources() == ["ddpm_step", "flash_attention", "ssd_scan"]
+    assert build.sources() == ["ddpm_chain", "ddpm_step", "flash_attention",
+                               "ssd_scan"]
     assert build.BUILD_DIR == REPO / "build" / "torch_kernels"
     assert "build/" in (REPO / ".gitignore").read_text().split()
     assert build.library_path("ddpm_step").parent == build.BUILD_DIR
@@ -103,12 +104,19 @@ def test_chip_smoke_serving_phases_run_small_on_cpu():
     from repro_torch.core.env import EnvCfg
     cfg = EnvCfg(U=4, M=4, T=2, K=2)
     ctrl = cs.phase_control_plane("cpu", cfg, episodes=1)
-    assert ctrl["expected_launches"] == 5 * 2 * 2
-    assert ctrl["ddpm_step_launches"] == 0          # CPU: plain version only
+    assert ctrl["expected_launches"] == 2 * 2       # one chain per slot
+    # CPU: plain versions only, no launch
+    assert ctrl["launches"] == {"ddpm_chain": 0, "ddpm_step": 0}
     assert ctrl["slot_kernel_vs_plain_max_abs_err"] <= 2e-5
+    episode = ctrl["chain_vs_step_episode"]
+    assert episode["slots"] == 4 and episode["actions_max_abs_diff"] <= 2e-5
     data = cs.phase_data_plane("cpu", cfg, image_dim=16, total_steps=20)
-    assert len(data["slots"]) == 4 and data["ddpm_step_launches"] == 0
-    assert data["expected_launches"] == 5 * 4 + data["image_steps"]
+    assert len(data["slots"]) == 4
+    assert data["launches"] == {"ddpm_chain": 0, "ddpm_step": 0}
+    # the actor's chain per slot and one per served image
+    assert data["expected_launches"] == {"ddpm_chain": 4 + data["images"],
+                                         "ddpm_step": 0}
+    assert 1 <= data["images"] <= data["image_steps"]
 
 
 def test_chip_smoke_lm_plane_runs_small_on_cpu():
@@ -180,6 +188,57 @@ def test_ssd_exact_matches_the_chunked_plain_version():
     y, s = ref_ssd(*args)
     assert cs._tol_ratio(y, y64, cs.SSD_TOL) < 0.1
     assert cs._tol_ratio(s, s64, cs.SSD_TOL) < 0.1
+
+
+def test_chip_smoke_chain_checks_run_on_cpu(monkeypatch):
+    """Phase 3's ddpm_chain cases run (plain against plain) on the CPU,
+    each within its tolerance of the exact f64 chain; the 1000-step case
+    (thousands of small ops twice over) is left to the card."""
+    cs = _chip_smoke()
+    short = [c for c in cs.CHAIN_CASES if c[4] <= 50]
+    assert len(short) == len(cs.CHAIN_CASES) - 1
+    monkeypatch.setattr(cs, "CHAIN_CASES", short)
+    out = cs._check_chain("cpu")
+    assert [c["case"] for c in out["cases"]] == [c[0] for c in short]
+    assert out["max_abs_err"] == 0.0
+    assert all(c["kernel_vs_exact"] == c["plain_vs_exact"] <= 1.0
+               for c in out["cases"])
+    # 2e-5 per 50 steps
+    assert cs.chain_exact_tol(5) == 2e-5 and cs.chain_exact_tol(1000) == 4e-4
+    # two row blocks and widths the cluster of 8 does not divide
+    odd = out["cases"][4]
+    assert odd["case"] == "odd_widths" and odd["R"] == 9
+    assert odd["plan"]["rows"] == 8 and odd["plan"]["cluster"] == 8
+
+
+def test_chain_check_catches_a_chain_off_by_1e4(monkeypatch):
+    """x_0 1e-4 too large (relative) passes no case: the allclose at 2e-5
+    catches it where L <= 50, the f64 chain where L > 50 (a small net at
+    L = 60 here)."""
+    cs = _chip_smoke()
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(cs.ops, "ddpm_chain",
+                        lambda *a: ref.ddpm_chain_ref(*a) * (1 + 1e-4))
+    for case in (cs.CHAIN_CASES[0],
+                 ("long", (24, 16, 16, 4), 4, 1, 60, "linear")):
+        monkeypatch.setattr(cs, "CHAIN_CASES", [case])
+        with pytest.raises(cs.SmokeError, match="ddpm_chain"):
+            cs._check_chain("cpu")
+
+
+def test_chain_bound_counts_the_kernels_work():
+    cs = _chip_smoke()
+    ms, by = cs.chain_bound_ms(cs.DATA_DIMS, 1, 1, 1000)
+    # per step: 272x128, 2 x 128x128, 128x256 products, biases, update
+    step = 2 * (272 * 128 + 2 * 128 * 128 + 128 * 256) + 3 * 128 + 256 \
+        + 5 * 256
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * (2 * 1 * 128 + 1000 * step) / 67e12)
+    ms, by = cs.chain_bound_ms(cs.CTRL_DIMS, 50, 1, 5)
+    weights = 86 * 128 + 2 * 128 * 128 + 128 * 20 + 3 * 128 + 20
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * 4 * (weights + 40 + 50 + 100 + 5 * 19)
+                               / 3.35e12)
 
 
 def test_lm_kernel_bounds():
@@ -256,13 +315,13 @@ def test_kernels_line_sums_the_path_over_buckets():
 
 def test_kernels_line_grids_come_from_the_path_run():
     """``grids_per_call`` is the serving path's grids over its launches; a
-    count that the shapes' timed calls do not account for fails, and a
-    kernel whose entry point reports no grids gets None."""
+    count that the shapes' timed calls do not account for fails."""
     cs = _chip_smoke()
     rows = [(L, {"shape": [1, L], "ms": 1.0, "graph_ms": 1.0,
                  "plain_ms": 1.0, "bound_ms": 1.0, "bound_by": "bytes",
                  "library_ms": None, "grids_per_call": 1 + 2 * (L > 128)})
             for L in (8, 512)]
     with pytest.raises(cs.SmokeError, match="grids"):
-        cs.kernel_summary(rows, {8: 24, 512: 24}, 8, path_grids=48)
-    assert cs.kernel_summary(rows, {8: 24}, 8)["grids_per_call"] is None
+        cs.kernel_summary(rows, {8: 24, 512: 24}, 8, (), path_grids=48)
+    assert cs.kernel_summary(rows, {8: 24, 512: 24}, 8, (),
+                             path_grids=24 + 3 * 24)["grids_per_call"] == 2
