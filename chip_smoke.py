@@ -11,23 +11,35 @@ Phases, each printing one JSON line:
                for sm_90a, one nvcc per source, all started together; ptxas's
                registers, stack and spills per kernel.
 3. kernel_check  — each kernel against its plain PyTorch version on the card
-               (f32 to 2e-5, bf16 to 2e-2), at the serving path's shapes;
-               ddpm_chain and ssd_scan also against an exact f64 answer.
+               (f32 to 2e-5, bf16 to 2e-2; ddpm_step_bwd bit for bit), at
+               the paths' shapes; ddpm_chain and ssd_scan also against an
+               exact f64 answer; the gradients of reverse_sample(impl=
+               "step") at the paper's actor (R = 64) through the forward
+               and backward kernels against the plain step loop.
 4. kernel_timing — CUDA-event times of kernel and plain version, in turns,
                beside the card's bound for the same bytes and flops, and
                ``graph_ms``: the same launches replayed from one CUDA graph
                (the device's own time, no Python or ctypes in it); for
                ddpm_chain also the step path's time for the same chain.
-5. control_plane — greedy T2DRL episodes at the paper's EnvCfg() (d3pg/ddqn,
+5. train         — single-cell training at the paper's EnvCfg(): t2drl
+               (d3pg/ddqn) for 8 episodes under benchmarks/common.py's
+               method_cfg settings (tuned lrs, warmup 100), export_policy
+               and 2 greedy eval_t2drl episodes, then 2 episodes each of
+               ddpg/ddqn and rcars/static; requires the gates' update
+               counts (700 D3PG, 40 DDQN), every learned parameter changed,
+               finite losses, and the exact launch counts: ddpm_chain
+               T*K*episodes + updates, ddpm_step = ddpm_step_bwd = L per
+               update.
+6. control_plane — greedy T2DRL episodes at the paper's EnvCfg() (d3pg/ddqn,
                then rcars/random); checks stats, simplexes, and that
                ddpm_chain ran once per slot (T*K per d3pg episode); then one
                episode with impl="step" from the same seed as one with the
                default chain: L*T*K ddpm_step launches, the same actions.
-6. data_plane    — the edge gateway loop of examples/serve_edge.py against the
+7. data_plane    — the edge gateway loop of examples/serve_edge.py against the
                port: 10 diffusion models at image_dim=256, total_steps=1000,
                3 frames x 4 slots; checks one ddpm_chain launch per chain
                (the actor's per slot, one per served image).
-7. lm_plane      — the gateway's LM branch: qwen2-0.5b and mamba2-130m at full
+8. lm_plane      — the gateway's LM branch: qwen2-0.5b and mamba2-130m at full
                width (random weights from seeds), each behind an Engine
                (max_batch=4, max_seq=512), beside a diffusion model; a few
                gateway slots, then one Engine.run of 8 requests per model
@@ -36,22 +48,24 @@ Phases, each printing one JSON line:
                one ddpm_chain per image, finite logits, and one prefill
                through the kernels against the plain versions.
 
-Phases 3 and 4 cover every kernel: ddpm_step, ddpm_chain (at the control
-and data planes' chains, R = 16, and odd widths), flash_attention (at the
-prefill buckets of phase 7 and at tests/test_kernels.py's FLASH_CASES) and
-ssd_scan (likewise, SSD_CASES).  Then a ``kernels`` line (per kernel:
-route, source, the TPU kernel it replaces, launches on the serving path,
-error, times, bound and library time at the most frequent shape; grids
-per call, as the C entry points report them on the serving path;
+Phases 3 and 4 cover every kernel: ddpm_step, ddpm_step_bwd, ddpm_chain
+(at the control and data planes' chains, R = 16 and 64, and odd widths),
+flash_attention (at the prefill buckets of phase 8 and at
+tests/test_kernels.py's FLASH_CASES) and ssd_scan (likewise, SSD_CASES).
+Then a ``kernels`` line (per kernel: route, source, the TPU kernel it
+replaces, launches on the paths, error, times, bound and library time at
+the most frequent shape; grids per call, as the C entry points report
+them on the paths;
 ``path_ms`` and ``path_bound_ms``, launches times ms or bound summed over
-the shapes the serving path ran; times at other shapes under ``at``) and,
-last, ``{"ok": true, "device": {...}}``.  Launch and grid counts are reset
-just before each serving path runs and read just after, so comparison and
-timing launches do not count.
-Phases 5-7 take a device, so the CPU tests run them small.
+the shapes the paths ran; times at other shapes under ``at``) and, last,
+``{"ok": true, "device": {...}}``.  Launch and grid counts are reset just
+before each path runs (training, serving) and read just after, so
+comparison and timing launches do not count.
+Phases 5-8 take a device, so the CPU tests run them small.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -73,9 +87,12 @@ from repro_torch.core.env import (EnvCfg, env_advance_frame,  # noqa: E402
                                   env_reset, env_set_cache, env_step_slot,
                                   make_models, observe)
 from repro_torch.core.networks import mlp_init  # noqa: E402
+from repro_torch.core.buffers import buffer_sample  # noqa: E402
 from repro_torch.core.t2drl import (STAT_KEYS, T2DRLCfg,  # noqa: E402
+                                    eval_t2drl, export_policy,
                                     greedy_frame_cache, greedy_slot_action,
-                                    policy_init, run_eval)
+                                    policy_init, run_eval, t2drl_init,
+                                    train_t2drl)
 from repro_torch.device import make_generator, resolve_device  # noqa: E402
 from repro_torch.diffusion import (Denoiser, make_schedule,  # noqa: E402
                                    reverse_sample, time_embedding)
@@ -105,11 +122,14 @@ KERNEL_CHECK_SHAPES = [((20,), torch.float32), ((1, 20), torch.float32),
                        ((1, 7), torch.float32), ((256,), torch.float32),
                        ((8, 256), torch.bfloat16),
                        ((4096, 256), torch.float32)]
-TIMING_SHAPES = [(20,), (256,), (65536, 256)]
+TIMING_SHAPES = [(20,), (64, 20), (256,), (65536, 256)]
+# the backward: its training-path shape (64, 20) and the forward's shapes
+BWD_SHAPES = [(20,), (64, 20), (256,), (65536 * 256,)]
 DDPM_COEF = (0.9, 0.5, 0.04)          # alpha, alpha_bar, beta_tilde
 
 # ddpm_chain cases (name, MLP widths, S, R, L, schedule): the control
-# plane's actor (86 -> 128x3 -> 20, L = 5) at R = 1 and 16, the data plane's
+# plane's actor (86 -> 128x3 -> 20, L = 5) at R = 1, 16 and 64 (a D3PG
+# update's target chain over its minibatch), the data plane's
 # image chain (273 -> 128x3 -> 256) at L = 1, 50 and 1000, widths that the
 # cluster of 8 does not divide (90, 30) over two row blocks (R = 9), and
 # CTAs left with no column of the last layer (5 wide over 8 CTAs)
@@ -120,7 +140,8 @@ CHAIN_CASES = [("control", CTRL_DIMS, 50, 1, 5, "paper"),
                ("data_L50", DATA_DIMS, 1, 1, 50, "linear"),
                ("data_L1000", DATA_DIMS, 1, 1, 1000, "linear"),
                ("odd_widths", (53, 90, 90, 90, 30), 7, 9, 7, "paper"),
-               ("empty_slice", (25, 100, 100, 5), 4, 2, 3, "paper")]
+               ("empty_slice", (25, 100, 100, 5), 4, 2, 3, "paper"),
+               ("control_R64", CTRL_DIMS, 50, 64, 5, "paper")]
 
 
 def chain_exact_tol(L: int) -> float:
@@ -250,6 +271,84 @@ def _check_ddpm(device) -> dict:
     require(torch.equal(o1, o2), "ddpm_step at l_rev=0 depends on noise")
     return {"max_abs_err": max(errs), "cases": cases,
             "last_step_deterministic": True}
+
+
+def _check_ddpm_bwd(device) -> dict:
+    """ddpm_step_bwd against its plain version at BWD_SHAPES in f32 and
+    bf16, bit for bit (each output is one rounded product of g)."""
+    cases = []
+    for i, shape in enumerate(BWD_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = _ddpm_inputs(shape, dtype, device, seed=300 + i)[0]
+            for l_rev in (0, 3):
+                c1, c2, _ = ops.ddpm_coefficients(*DDPM_COEF, l_rev)
+                dx, de = ops.ddpm_step_bwd(g, c1, c2)
+                wx, we = ref.ddpm_step_bwd_ref(g, c1, c2)
+                sync(device)
+                require(dx.shape == de.shape == g.shape
+                        and dx.dtype == de.dtype == dtype,
+                        f"ddpm_step_bwd output {dx.shape} {dx.dtype}")
+                err = max((dx.float() - wx.float()).abs().max().item(),
+                          (de.float() - we.float()).abs().max().item())
+                require(torch.equal(dx, wx) and torch.equal(de, we),
+                        f"ddpm_step_bwd {shape} {dtype} l_rev={l_rev}: not "
+                        f"bit-exact (max abs err {err})")
+                cases.append({"shape": list(shape), "dtype": str(dtype),
+                              "l_rev": l_rev, "max_abs_err": err})
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "bit_exact": True, "cases": cases}
+
+
+def _plain_step_chain(p, sched, state, x_L, noises):
+    """reverse_sample(impl="step") with the plain ddpm_step, which autograd
+    differentiates itself: the reference for the kernels' gradients."""
+    L = sched.L
+    te = time_embedding(torch.arange(1, L + 1, device=state.device),
+                        p.time_dim)
+    x = x_L
+    for i in range(L):
+        l_rev = L - 1 - i
+        eps_hat = p(x, None, state, te=te[l_rev])
+        c = ops.ddpm_coefficients(sched.alphas_host[l_rev],
+                                  sched.alpha_bars_host[l_rev],
+                                  sched.beta_tildes_host[l_rev], l_rev)
+        x = ref.ddpm_step_ref(x, eps_hat, noises[i], *c)
+    return torch.tanh(x)
+
+
+GRAD_TOL = 2e-5     # of each gradient's largest magnitude
+
+
+def _check_step_grad(device, R: int = 64) -> dict:
+    """Gradients of a fixed scalar loss, sum(w * x_0), with respect to
+    every denoiser parameter of the paper's actor (86 -> 128x3 -> 20,
+    L = 5) at R rows: through reverse_sample(impl="step") (L ddpm_step and
+    L ddpm_step_bwd launches on the card) against the plain step loop, on
+    the same device with the same draws; within GRAD_TOL of each
+    gradient's max."""
+    c = _chain_inputs(CTRL_DIMS, 50, R, 5, "paper", device, 450)
+    p = c["denoiser"].requires_grad_(True)
+    w = torch.randn(R, 20, generator=torch.Generator().manual_seed(451))
+    w = w.to(device)
+    ops.reset_launches()
+    x0 = reverse_sample(p, c["sched"], c["state"], 20, x_L=c["x_L"],
+                        noises=c["noises"], impl="step")
+    got = torch.autograd.grad(torch.sum(w * x0), list(p.parameters()))
+    sync(device)
+    launches = {k: ops.LAUNCHES[k] for k in ("ddpm_step", "ddpm_step_bwd")}
+    if torch.device(device).type == "cuda":
+        require(launches == {"ddpm_step": 5, "ddpm_step_bwd": 5},
+                f"step-chain gradient launched {launches}")
+    x0p = _plain_step_chain(p, c["sched"], c["state"], c["x_L"],
+                            c["noises"])
+    want = torch.autograd.grad(torch.sum(w * x0p), list(p.parameters()))
+    rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+              for a, b in zip(got, want))
+    require(rel <= GRAD_TOL, f"step-chain gradients: {rel} of each "
+            f"gradient's max apart (tolerance {GRAD_TOL})")
+    p.requires_grad_(False)
+    return {"R": R, "leaves": len(got), "rel_err": rel, "tol": GRAD_TOL,
+            "launches": launches}
 
 
 def _randn(g, *shape):
@@ -460,6 +559,8 @@ def _check_chain(device) -> dict:
 
 def phase_kernel_check(device) -> dict:
     return {"phase": "kernel_check", "ddpm_step": _check_ddpm(device),
+            "ddpm_step_bwd": _check_ddpm_bwd(device),
+            "step_chain_grad": _check_step_grad(device),
             "ddpm_chain": _check_chain(device),
             "flash_attention": _check_flash(device),
             "ssd_scan": _check_ssd(device)}
@@ -483,6 +584,16 @@ def ddpm_bound_ms(n: int, itemsize: int):
     against 5 f32 flops an element; returns (ms, "bytes"|"operations")."""
     t_bytes = 4 * n * itemsize / HBM_BYTES_PER_S
     t_ops = 5 * n / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ddpm_bwd_bound_ms(n: int, itemsize: int):
+    """Least time for the backward of one update of n elements: g read
+    once, dx and d(eps_hat) written once, against 2 f32 flops an
+    element; returns (ms, "bytes"|"operations")."""
+    t_bytes = 3 * n * itemsize / HBM_BYTES_PER_S
+    t_ops = 2 * n / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -689,6 +800,30 @@ def _chain_timing(device) -> list:
     return rows
 
 
+def _ddpm_bwd_timing(device) -> list:
+    """ddpm_step_bwd at BWD_SHAPES (f32): kernel, plain version and library
+    call in turns, graph_ms, the bytes bound.  The library call is one
+    ``torch.outer`` of (c1, -c2) with g: rows c1*g and -c2*g, one rounded
+    product an element, the kernel's function."""
+    c1, c2, _ = ops.ddpm_coefficients(*DDPM_COEF, 3)
+    coef = torch.tensor([c1, -c2], dtype=torch.float32, device=device)
+    rows = []
+    for shape in BWD_SHAPES:
+        g = _ddpm_inputs(shape, torch.float32, device, seed=12)[0]
+
+        def kernel():
+            ops.ddpm_step_bwd(g, c1, c2)
+
+        t = _timed_turns(kernel, lambda: ref.ddpm_step_bwd_ref(g, c1, c2),
+                         lambda: torch.outer(coef, g.view(-1)))
+        bound, by = ddpm_bwd_bound_ms(g.numel(), 4)
+        rows.append({"shape": list(shape), "dtype": "float32", **t,
+                     "bound_ms": bound, "bound_by": by,
+                     "grids_per_call": _grids_per_call(kernel,
+                                                       "ddpm_step_bwd")})
+    return rows
+
+
 def phase_kernel_timing(device) -> dict:
     alpha, abar, btilde = DDPM_COEF
     c1, c2, sigma = ops.ddpm_coefficients(alpha, abar, btilde, 3)
@@ -720,29 +855,229 @@ def phase_kernel_timing(device) -> dict:
                                            else 20),
                      "grids_per_call": _grids_per_call(kernel, "ddpm_step")})
     return {"phase": "kernel_timing", "ddpm_step": rows,
+            "ddpm_step_bwd": _ddpm_bwd_timing(device),
             "ddpm_chain": _chain_timing(device),
             "flash_attention": _flash_timing(device),
             "ssd_scan": _ssd_timing(device)}
 
 
-# -- 5. control plane -----------------------------------------------------------
+# -- 5. training ---------------------------------------------------------------
+
+# method t2drl as benchmarks/common.py:method_cfg sets it up (copied here:
+# the port imports nothing from benchmarks/)
+TUNED = dict(lr_actor=1e-4, lr_critic=1e-3, lr_ddqn=1e-3)
+
+
+def method_cfg(allocator: str, cacher: str, env_cfg: EnvCfg,
+               episodes: int, L: int = 5) -> T2DRLCfg:
+    return T2DRLCfg(env=env_cfg, allocator=allocator, cacher=cacher,
+                    episodes=episodes, L=L,
+                    eps_decay_episodes=max(1, int(episodes * 0.6)),
+                    warmup=100, **TUNED)
+
+
+def predicted_updates(cfg: T2DRLCfg, episodes: int) -> list:
+    """(D3PG, DDQN) update counts of each episode by the reference's gates
+    (``repro.core.t2drl._episode_core``): a slot updates when
+    min(size0 + k + 1, cap) > warmup and size0 > 0 (size0: the slot buffer
+    at the frame start, K writes a frame); each of the T-1 frame
+    transitions added after the frames is followed by an update when the
+    frame buffer then holds more than a DDQN batch."""
+    e, d3, dq = cfg.env, cfg.d3pg_cfg(), cfg.ddqn_cfg()
+    size = fsize = 0
+    out = []
+    for _ in range(episodes):
+        n_d3 = n_dq = 0
+        for _ in range(e.T):
+            n_d3 += sum(min(size + k + 1, d3.buffer) > cfg.warmup
+                        and size > 0 for k in range(e.K))
+            size = min(size + e.K, d3.buffer)
+        for _ in range(e.T - 1):
+            fsize = min(fsize + 1, dq.buffer)
+            n_dq += fsize > dq.batch
+        out.append((n_d3 * cfg.updates_per_slot, n_dq))
+    return out
+
+
+def _learned_params(ts) -> dict:
+    return {f"{slot}.{name}": [p.detach().clone()
+                               for p in ts[slot][name].parameters()]
+            for slot, names in (("d3pg", ("actor", "actor_t", "critic",
+                                          "critic_t")),
+                                ("ddqn", ("q", "q_target")))
+            for name in names}
+
+
+def _timed_training(cfg: T2DRLCfg, episodes: int, dev) -> dict:
+    """train_t2drl with the launch counts reset just before and read just
+    after, and each episode's wall time (host clock, the episode ends in
+    its one host read of the stats)."""
+    marks = []
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    ts, hist = train_t2drl(cfg, episodes=episodes, device=dev,
+                           callback=lambda ep, st: marks.append(
+                               time.perf_counter()))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] for k in ("ddpm_chain", "ddpm_step",
+                                             "ddpm_step_bwd")}
+    grids = dict(ops.GRIDS)
+    per_ep = np.diff([t0] + marks).tolist()
+    return {"ts": ts, "hist": hist, "wall_s": wall,
+            "wall_s_per_episode": per_ep, "launches": launches,
+            "grids": grids}
+
+
+def _update_timing(ts, cfg: T2DRLCfg, dev, n: int = 50) -> dict:
+    """n D3PG updates on a copy of the trained learner, minibatches from
+    its replay buffer: host-clock s per update (ending in a synchronise)
+    and the losses of the last one; on the card also the update's device
+    time (torch.profiler), the device's idle share of the host-clock
+    time, and the eight largest device events."""
+    from repro_torch.core.t2drl import _agents
+    alloc, _ = _agents(cfg)
+    state = copy.deepcopy(ts["d3pg"])
+    g = make_generator(99, dev)
+    batch = cfg.d3pg_cfg().batch
+    for _ in range(3):                       # warm-up
+        state, m = alloc.update(state, buffer_sample(ts["ebuf"], g, batch),
+                                g)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = alloc.update(state, buffer_sample(ts["ebuf"], g, batch),
+                                g)
+    sync(dev)
+    wall = (time.perf_counter() - t0) / n
+    out = {"updates": n, "s_per_update": wall,
+           "losses": {k: v.item() for k, v in m.items()}}
+    if dev.type == "cuda":
+        def one():
+            nonlocal state
+            state, _ = alloc.update(state,
+                                    buffer_sample(ts["ebuf"], g, batch), g)
+        events = device_ms_per_call(one, 20)
+        busy = sum(events.values())
+        out["device_ms_per_update"] = busy if events else None
+        out["device_idle_share"] = (1.0 - busy / (1e3 * wall) if events
+                                    else None)
+        out["device_ms_top"] = dict(sorted(events.items(),
+                                           key=lambda kv: -kv[1])[:8])
+    return out
+
+
+def device_ms_per_call(fn, n: int) -> dict:
+    """Device time of one call of ``fn``, by event name: the time of every
+    event that torch.profiler records on the card over n calls (kernels,
+    copies, fills), over n.  Only the card's own events count: the CPU op
+    that launched a kernel carries the kernel's time as well, and summing
+    both would count it twice.  The profiler's own overhead lands on the
+    host, not in these times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0}
+
+
+def phase_train(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 8,
+                short: int = 2, eval_episodes: int = 2) -> dict:
+    """Single-cell training at the paper's width: t2drl (d3pg/ddqn) for
+    ``episodes`` episodes under method_cfg's settings, then export_policy
+    and eval_t2drl; then ddpg/ddqn and rcars/static for ``short``
+    episodes.  Requires finite stats and losses, every learned parameter
+    changed, the optimizers' steps equal to the gates' update counts and,
+    on the card, exact launch counts over the t2drl run: ddpm_chain
+    T*K*episodes (acting) + D3PG updates (target chains), ddpm_step and
+    ddpm_step_bwd L per D3PG update."""
+    dev = resolve_device(device)
+    ec = env_cfg
+    cfg = method_cfg("d3pg", "ddqn", ec, episodes)
+    init = _learned_params(t2drl_init(make_generator(cfg.seed, dev), cfg))
+    run = _timed_training(cfg, episodes, dev)
+    ts, hist = run["ts"], run["hist"]
+    per_episode = predicted_updates(cfg, episodes)
+    n_d3, n_dq = (sum(c) for c in zip(*per_episode))
+    steps = {"opt_a": ts["d3pg"]["opt_a"]["step"],
+             "opt_c": ts["d3pg"]["opt_c"]["step"],
+             "ddqn": ts["ddqn"]["opt"]["step"]}
+    require(steps == {"opt_a": n_d3, "opt_c": n_d3, "ddqn": n_dq},
+            f"optimizer steps {steps}, the gates predict {n_d3} D3PG and "
+            f"{n_dq} DDQN updates")
+    want = {"ddpm_chain": ec.T * ec.K * episodes + n_d3,
+            "ddpm_step": cfg.L * n_d3, "ddpm_step_bwd": cfg.L * n_d3}
+    if dev.type == "cuda":
+        require(run["launches"] == want, f"training launched "
+                f"{run['launches']}, expected {want}")
+    require(all(math.isfinite(v) for vs in hist.values() for v in vs),
+            f"non-finite training stats {hist}")
+    final = _learned_params(ts)
+    updated = {"d3pg": n_d3 > 0, "ddqn": n_dq > 0}
+    unchanged = [k for k in init if updated[k.split(".")[0]]
+                 and any(torch.equal(a, b) for a, b in zip(init[k], final[k]))]
+    require(not unchanged, f"learned parameters left unchanged: {unchanged}")
+    upd = _update_timing(ts, cfg, dev)
+    require(all(math.isfinite(v) for v in upd["losses"].values()),
+            f"non-finite losses {upd['losses']}")
+    policy = export_policy(ts, cfg)
+    t1 = time.perf_counter()
+    ev = eval_t2drl(policy, ts["models"], cfg, episodes=eval_episodes,
+                    device=dev)
+    eval_wall = time.perf_counter() - t1
+    require(all(math.isfinite(v) for v in ev.values()),
+            f"non-finite eval stats {ev}")
+    per_ep = run["wall_s_per_episode"]
+    updating = [w for w, (n, _) in zip(per_ep, per_episode)
+                if n == ec.T * ec.K]
+    others = {}
+    for alloc, cacher in (("ddpg", "ddqn"), ("rcars", "static")):
+        c = method_cfg(alloc, cacher, ec, short)
+        r = _timed_training(c, short, dev)
+        require(all(math.isfinite(v) for vs in r["hist"].values()
+                    for v in vs), f"{alloc}/{cacher}: non-finite stats")
+        if dev.type == "cuda":
+            require(sum(r["launches"].values()) == 0,
+                    f"{alloc}/{cacher} launched {r['launches']}")
+        others[f"{alloc}/{cacher}"] = {
+            "wall_s": r["wall_s"], "wall_s_per_episode":
+            r["wall_s_per_episode"], "launches": r["launches"],
+            "d3pg_updates": r["ts"]["d3pg"]["opt_a"]["step"],
+            "last_episode": {k: v[-1] for k, v in r["hist"].items()}}
+    return {"phase": "train", "env": {"U": ec.U, "M": ec.M, "T": ec.T,
+                                      "K": ec.K},
+            "L": cfg.L, "episodes": episodes, "settings": {
+                **TUNED, "warmup": cfg.warmup,
+                "eps_decay_episodes": cfg.eps_decay_episodes,
+                "d3pg_batch": cfg.d3pg_cfg().batch,
+                "ddqn_batch": cfg.ddqn_cfg().batch},
+            "wall_s": run["wall_s"], "wall_s_per_episode": per_ep,
+            "wall_s_per_updating_episode": (sum(updating) / len(updating)
+                                            if updating else None),
+            "d3pg_updates": n_d3, "ddqn_updates": n_dq,
+            "update_timing": upd,
+            "last_episode": {k: v[-1] for k, v in hist.items()},
+            "launches": run["launches"], "expected_launches": want,
+            "grids": {k: run["grids"][k] for k in want},
+            "eval": {"episodes": eval_episodes, "wall_s": eval_wall,
+                     "stats": ev},
+            "short_runs": others}
+
+
+# -- 6. control plane -----------------------------------------------------------
 
 def _plain_chain(p, sched, state, x_L, noises):
-    """The reverse chain with the plain ddpm_step (no kernel): the
-    reference for the sampler on the card."""
-    L = sched.L
-    te = time_embedding(torch.arange(1, L + 1, device=state.device),
-                        p.time_dim)
-    x = x_L
+    """The reverse chain with the plain ddpm_step (no kernel), no
+    gradient: the reference for the sampler on the card."""
     with torch.no_grad():
-        for i in range(L):
-            l_rev = L - 1 - i
-            eps_hat = p(x, None, state, te=te[l_rev])
-            c = ops.ddpm_coefficients(sched.alphas_host[l_rev],
-                                      sched.alpha_bars_host[l_rev],
-                                      sched.beta_tildes_host[l_rev], l_rev)
-            x = ref.ddpm_step_ref(x, eps_hat, noises[i], *c)
-    return torch.tanh(x)
+        return _plain_step_chain(p, sched, state, x_L, noises)
 
 
 def _check_simplexes(b, xi, env) -> None:
@@ -882,7 +1217,7 @@ def phase_control_plane(device, env_cfg: EnvCfg = EnvCfg(),
                                                             models, dev)}
 
 
-# -- 6. data plane --------------------------------------------------------------
+# -- 7. data plane --------------------------------------------------------------
 
 def phase_data_plane(device, env_cfg: EnvCfg = EnvCfg(T=3, K=4),
                      image_dim: int = 256, total_steps: int = 1000) -> dict:
@@ -975,7 +1310,7 @@ def phase_data_plane(device, env_cfg: EnvCfg = EnvCfg(T=3, K=4),
             "image_chain_kernel_vs_plain_max_abs_err": chain_err}
 
 
-# -- 7. LM plane ----------------------------------------------------------------
+# -- 8. LM plane ----------------------------------------------------------------
 
 LM_MODELS = {1: "qwen2-0.5b", 2: "mamba2-130m"}    # gateway model ids
 LM_KERNEL = {"qwen2-0.5b": "flash_attention", "mamba2-130m": "ssd_scan"}
@@ -1243,55 +1578,75 @@ def kernel_summary(rows: list, launches_by_shape: dict, modal,
 
 # -- main -----------------------------------------------------------------------
 
-def main() -> int:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev_info = phase_device()
-    emit(dev_info)
-    device = resolve_device()
-    emit(phase_build())
-    check = phase_kernel_check(device)
-    emit(check)
-    timing = phase_kernel_timing(device)
-    emit(timing)
-    control = phase_control_plane(device)
-    emit(control)
-    data = phase_data_plane(device)
-    emit(data)
-    lm = phase_lm_plane(device)
-    emit(lm)
-    # the kernels line.  ddpm_step: the impl="step" episode of the control
-    # plane, every launch at (20,).  ddpm_chain: at the control plane's
-    # chain (most of its launches), path sums over the control plane's
-    # launches (the data plane's chains vary in L: their times are under
-    # "at"), grids and clusters per call over every plane.
-    # flash_attention and ssd_scan at the most frequent prefill length of
-    # the LM plane, with the path summed over its buckets (24 launches per
-    # prefill) and the times at L = 512 and 4096 beside it
+def _shape_key(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+REPLACES = {
+    "ddpm_step": "src/repro/kernels/ddpm_step.py:20",
+    "ddpm_step_bwd": "src/repro/kernels/ddpm_step.py:20 (its VJP, which "
+                     "jax.grad derives through the sampler, "
+                     "src/repro/diffusion/sampler.py:22)",
+    "ddpm_chain": "src/repro/kernels/ddpm_step.py:20 with the lax.scan of "
+                  "src/repro/diffusion/sampler.py:26",
+    "flash_attention": "src/repro/kernels/flash_attention.py:27",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:22"}
+SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+SOURCES["ddpm_step_bwd"] = SOURCES["ddpm_step"]
+
+
+def kernels_line(check, timing, train, control, data, lm) -> dict:
+    """The ``kernels`` line.  ddpm_step: the control plane's impl="step"
+    episode (at (20,)) and the training run's policy chains (at (64, 20)).
+    ddpm_step_bwd: the training run's policy gradients (at (64, 20)).
+    ddpm_chain: the modal shape is the control plane's chain (R = 1); the
+    path sums the control plane's and the training run's launches (acting
+    at R = 1, each update's target chain at R = 64); the data plane's
+    chains vary in L (their times are under "at"); grids per call over
+    every plane.  flash_attention and ssd_scan at the most frequent
+    prefill length of the LM plane, with the path summed over its buckets
+    (24 launches per prefill) and the times at L = 512 and 4096 beside
+    it."""
     step_run = control["chain_vs_step_episode"]["step"]
+    tl = train["launches"]
+    step_rows = [(_shape_key(r["shape"]), r) for r in timing["ddpm_step"]]
+    step_path = {"20": step_run["launches"]["ddpm_step"],
+                 "64x20": tl["ddpm_step"]}
     summary = {"ddpm_step": kernel_summary(
-        [(r["shape"][-1] if len(r["shape"]) == 1 else
-          "x".join(map(str, r["shape"])), r) for r in timing["ddpm_step"]],
-        {20: step_run["launches"]["ddpm_step"]}, 20, (256, "65536x256"),
-        step_run["grids"])}
+        step_rows, step_path, max(step_path, key=step_path.get),
+        ("20", "256", "65536x256"),
+        step_run["grids"] + train["grids"]["ddpm_step"])}
+    summary["ddpm_step"]["launches_by_path"] = {
+        "control_step_episode": step_path["20"], "train": step_path["64x20"]}
+    summary["ddpm_step_bwd"] = kernel_summary(
+        [(_shape_key(r["shape"]), r) for r in timing["ddpm_step_bwd"]],
+        {"64x20": tl["ddpm_step_bwd"]}, "64x20",
+        ("20", "256", _shape_key(BWD_SHAPES[-1])),
+        train["grids"]["ddpm_step_bwd"])
     chain_rows = [(r["case"], r) for r in timing["ddpm_chain"]]
     by_plane = {"control": control["launches"]["ddpm_chain"],
+                "train": tl["ddpm_chain"],
                 "data": data["launches"]["ddpm_chain"],
                 "lm_gateway": lm["gateway"]["launches"]["ddpm_chain"]}
-    chain = kernel_summary(chain_rows, {"control": by_plane["control"]},
-                           "control", [c[0] for c in CHAIN_CASES[1:]],
-                           control["grids"])
+    acting = train["env"]["T"] * train["env"]["K"] * train["episodes"]
+    chain = kernel_summary(
+        chain_rows, {"control": by_plane["control"] + acting,
+                     "control_R64": tl["ddpm_chain"] - acting},
+        "control", [c[0] for c in CHAIN_CASES[1:]],
+        control["grids"] + train["grids"]["ddpm_chain"])
     chain["step_ms"] = timing["ddpm_chain"][0]["step_ms"]
     for k, row in chain_rows[1:]:
         chain["at"][k]["step_ms"] = row["step_ms"]
     chain["launches_by_plane"] = by_plane
     chain["grids_per_call"] = (control["grids"] + data["grids"]
+                               + train["grids"]["ddpm_chain"]
                                + lm["gateway"]["grids"]["ddpm_chain"]) \
         / sum(by_plane.values())
     chain["clusters_per_call"] = (control["clusters"] + data["clusters"]) \
         / (by_plane["control"] + by_plane["data"])
     summary["ddpm_chain"] = chain
-    launches = {"ddpm_step": step_run["launches"]["ddpm_step"],
+    launches = {"ddpm_step": sum(step_path.values()),
+                "ddpm_step_bwd": tl["ddpm_step_bwd"],
                 "ddpm_chain": sum(by_plane.values()),
                 "flash_attention": lm["flash_attention_launches"],
                 "ssd_scan": lm["ssd_scan_launches"]}
@@ -1306,18 +1661,34 @@ def main() -> int:
         summary[kname] = kernel_summary(
             [(r["shape"][1], r) for r in timing[kname]], per_bucket,
             modal_bucket(counts), (512, LONG_L), lm["grids"][kname])
-    replaces = {"ddpm_step": "src/repro/kernels/ddpm_step.py:20",
-                "ddpm_chain": "src/repro/kernels/ddpm_step.py:20 with the "
-                              "lax.scan of src/repro/diffusion/sampler.py:26",
-                "flash_attention": "src/repro/kernels/flash_attention.py:27",
-                "ssd_scan": "src/repro/kernels/ssd_scan.py:22"}
-    emit({"kernels": [{
-        "name": k, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{k}.cu",
-        "replaces": replaces[k], "launches": launches[k],
+    return {"kernels": [{
+        "name": k, "route": "cuda", "source": SOURCES[k],
+        "replaces": REPLACES[k], "launches": launches[k],
         "max_abs_err": check[k]["max_abs_err"], **summary[k]}
-        for k in ("ddpm_step", "ddpm_chain", "flash_attention",
-                  "ssd_scan")]})
+        for k in ("ddpm_step", "ddpm_step_bwd", "ddpm_chain",
+                  "flash_attention", "ssd_scan")]}
+
+
+def main() -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev_info = phase_device()
+    emit(dev_info)
+    device = resolve_device()
+    emit(phase_build())
+    check = phase_kernel_check(device)
+    emit(check)
+    timing = phase_kernel_timing(device)
+    emit(timing)
+    train = phase_train(device)
+    emit(train)
+    control = phase_control_plane(device)
+    emit(control)
+    data = phase_data_plane(device)
+    emit(data)
+    lm = phase_lm_plane(device)
+    emit(lm)
+    emit(kernels_line(check, timing, train, control, data, lm))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

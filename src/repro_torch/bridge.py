@@ -34,6 +34,13 @@ def denoiser_from_numpy(tree, device=None,
     return Denoiser(mlp_from_numpy(tree["layers"], device), time_dim)
 
 
+def actor_from_numpy(tree, device=None):
+    """``{"layers": [...]}`` (D3PG denoiser) -> ``Denoiser``, ``[...]``
+    (DDPG MLP) -> ``MLP``."""
+    return (denoiser_from_numpy(tree, device) if isinstance(tree, dict)
+            else mlp_from_numpy(tree, device))
+
+
 def policy_from_numpy(tree, device=None) -> dict:
     """An ``export_policy`` tree -> the port's policy dict.
 
@@ -42,15 +49,61 @@ def policy_from_numpy(tree, device=None) -> dict:
     cacher's ``{"cache": ...}`` raises until that cacher is ported."""
     if "cache" in tree:
         raise NotImplementedError("classical cachers are not ported yet "
-                                  "(ROADMAP queue A, item 4)")
+                                  "(ROADMAP queue A, item 7)")
     pol = {}
     if "actor" in tree:
-        a = tree["actor"]
-        pol["actor"] = (denoiser_from_numpy(a, device) if isinstance(a, dict)
-                        else mlp_from_numpy(a, device))
+        pol["actor"] = actor_from_numpy(tree["actor"], device)
     if "ddqn" in tree:
         pol["ddqn"] = {"q": mlp_from_numpy(tree["ddqn"]["q"], device)}
     return pol
+
+
+def _adam_state_from_numpy(opt, to_module) -> dict:
+    """A JAX ``adam_init``/``adam_update`` state -> the port's: ``mu`` and
+    ``nu`` as lists in the port module's parameter order (each moment tree
+    is built into a module by ``to_module`` and its parameters taken),
+    ``step`` a host int."""
+    def leaves(tree):
+        return [p.detach() for p in to_module(tree).parameters()]
+    return {"mu": leaves(opt["mu"]), "nu": leaves(opt["nu"]),
+            "step": int(np.asarray(opt["step"]))}
+
+
+def _buffer_from_numpy(buf, dev) -> dict:
+    def leaf(a):
+        a = np.asarray(a)
+        return torch.tensor(a.astype(np.int64) if a.dtype.kind in "iu"
+                            else a.astype(np.float32), device=dev)
+    return {"data": {k: leaf(v) for k, v in buf["data"].items()},
+            "ptr": int(np.asarray(buf["ptr"])),
+            "size": int(np.asarray(buf["size"]))}
+
+
+def train_state_from_numpy(ts, cfg, device=None) -> dict:
+    """A JAX ``t2drl_init`` (or trained, single-cell) train state with
+    numpy leaves -> the port's (``repro_torch.core.t2drl.t2drl_init``
+    layout): model zoo, D3PG networks, targets and Adam states, DDQN
+    networks, target and Adam state, and both replay buffers (integer
+    leaves as int64).  ``cfg`` is the port's ``T2DRLCfg``.  The classical
+    cachers' ``cache`` state is not carried (ROADMAP A.7)."""
+    dev = resolve_device(device)
+    d3, dq = ts["d3pg"], ts["ddqn"]
+    actor = lambda t: actor_from_numpy(t, dev)  # noqa: E731
+    mlp = lambda t: mlp_from_numpy(t, dev)  # noqa: E731
+    return {
+        "models": models_from_numpy(ts["models"], dev),
+        "d3pg": {"actor": actor(d3["actor"]),
+                 "actor_t": actor(d3["actor_t"]).requires_grad_(False),
+                 "critic": mlp(d3["critic"]),
+                 "critic_t": mlp(d3["critic_t"]).requires_grad_(False),
+                 "opt_a": _adam_state_from_numpy(d3["opt_a"], actor),
+                 "opt_c": _adam_state_from_numpy(d3["opt_c"], mlp)},
+        "ddqn": {"q": mlp(dq["q"]),
+                 "q_target": mlp(dq["q_target"]).requires_grad_(False),
+                 "opt": _adam_state_from_numpy(dq["opt"], mlp)},
+        "ebuf": _buffer_from_numpy(ts["ebuf"], dev),
+        "fbuf": _buffer_from_numpy(ts["fbuf"], dev),
+        "cache": {}}
 
 
 def models_from_numpy(mp, device=None) -> ModelParams:

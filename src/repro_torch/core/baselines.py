@@ -1,7 +1,7 @@
 """Benchmark solutions (paper Sec. 7.2), port of ``repro.core.baselines``:
 the static and random caches and the RCARS allocation.
 
-SCHRS' per-slot genetic algorithm waits for ROADMAP queue A item 2; its
+SCHRS' per-slot genetic algorithm waits for ROADMAP queue A item 5; its
 configuration is here so ``T2DRLCfg`` keeps the JAX fields.
 """
 from __future__ import annotations

@@ -1,20 +1,29 @@
-"""D3PG actor for inference (paper Sec. 6.2), port of the acting half of
-``repro.core.d3pg``.
+"""D3PG — diffusion-based deep deterministic policy gradient (paper Sec. 6.2),
+port of ``repro.core.d3pg``.
 
 The actor is a conditional DDPM reverse chain (``repro_torch.diffusion``):
 action = L denoising steps from N(0, I), conditioned on the slot state.
-``actor_kind="mlp"`` recovers the DDPG baseline's tanh MLP actor.  The
-critic and ``d3pg_update`` arrive with the training slice (ROADMAP A).
+The critic is the paper's 2x256 MLP.  ``actor_kind="mlp"`` recovers the
+DDPG baseline's tanh MLP actor.
+
+Acting (``actor_act``) runs the whole chain in one ``ddpm_chain`` launch
+under ``torch.no_grad``; the actor's loss in ``d3pg_update`` goes through
+``actor_forward``, the grad-enabled step chain (``ddpm_step`` forward and
+backward kernels around the eager denoiser).  The telemetry variant
+(``diag=True``) waits for ROADMAP A.8, the stacked B-learner functions for
+A.6.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 
 from repro_torch.diffusion import (denoiser_init, make_schedule,
                                    reverse_sample_actions)
-from .networks import mlp_apply, mlp_init
+from repro_torch.optim import adam_init, adam_update
+from .networks import mlp_apply, mlp_init, soft_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,18 +65,54 @@ def actor_init(cfg: D3PGCfg, generator: torch.Generator):
     return mlp_init(dims, generator)
 
 
+def _frozen(module):
+    """A copy that never takes a gradient (the target networks)."""
+    return copy.deepcopy(module).requires_grad_(False)
+
+
+def d3pg_init(cfg: D3PGCfg, generator: torch.Generator) -> dict:
+    """Fresh D3PG state on the generator's device: ``actor`` (denoiser or
+    MLP), ``critic`` (S + A -> 256x2 -> 1), their targets ``actor_t`` and
+    ``critic_t`` (copies, no gradient) and Adam states ``opt_a``,
+    ``opt_c``; the init distribution of the JAX ``d3pg_init``."""
+    actor = actor_init(cfg, generator)
+    critic = mlp_init([cfg.state_dim + cfg.action_dim]
+                      + [cfg.critic_hidden] * cfg.critic_layers + [1],
+                      generator)
+    return {"actor": actor, "actor_t": _frozen(actor),
+            "critic": critic, "critic_t": _frozen(critic),
+            "opt_a": adam_init(actor), "opt_c": adam_init(critic)}
+
+
+def actor_forward(actor, cfg: D3PGCfg, sched, state, generator=None, *,
+                  x_L=None, noises=None):
+    """Raw action in [0,1]^A with the graph to the actor's parameters: the
+    diffusion actor through ``reverse_sample(impl="step")``, the DDPG
+    actor through its tanh MLP.  What the actor's loss differentiates."""
+    if cfg.actor_kind == "diffusion":
+        return reverse_sample_actions(actor, sched, state, cfg.action_dim,
+                                      generator=generator, x_L=x_L,
+                                      noises=noises, impl="step")
+    x = mlp_apply(actor, state, final_act=torch.tanh)
+    return 0.5 * (x + 1.0)
+
+
 @torch.no_grad()
 def actor_act(actor, cfg: D3PGCfg, sched, state, generator=None, *,
               x_L=None, noises=None, impl: str = "chain"):
-    """Raw action in [0,1]^A.  state: (..., S).  ``x_L``/``noises`` inject
-    the diffusion chain's draws, ``impl`` picks its kernels (see
-    ``reverse_sample``)."""
+    """Raw action in [0,1]^A, no gradient.  state: (..., S).
+    ``x_L``/``noises`` inject the diffusion chain's draws, ``impl`` picks
+    its kernels (see ``reverse_sample``)."""
     if cfg.actor_kind == "diffusion":
         return reverse_sample_actions(actor, sched, state, cfg.action_dim,
                                       generator=generator, x_L=x_L,
                                       noises=noises, impl=impl)
-    x = mlp_apply(actor, state, final_act=torch.tanh)
-    return 0.5 * (x + 1.0)
+    return actor_forward(actor, cfg, sched, state)
+
+
+def critic_q(critic, state, action):
+    """Q(s, a): the critic on ``[s, a]``, (...,)."""
+    return mlp_apply(critic, torch.cat([state, action], dim=-1))[..., 0]
 
 
 def amend_actions(raw, req, rho, U: int, *, b_floor: float = 0.01,
@@ -87,3 +132,87 @@ def amend_actions(raw, req, rho, U: int, *, b_floor: float = 0.01,
         gate = gate * mask
     xi = xi_t * gate / (torch.sum(gate * xi_t, dim=-1, keepdim=True) + 1e-9)
     return b, xi
+
+
+def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
+                generator: torch.Generator = None, *, lr_a=None, lr_c=None,
+                mask=None, diag: bool = False, draws=None):
+    """One minibatch step of Eqs. (24)-(29), in the reference's order:
+
+    1. the target action for ``s1``: ``actor_t``'s chain under no-grad
+       (one ``ddpm_chain`` launch for the whole minibatch), re-amended
+       with ``req1``/``rho1``;
+    2. ``y_hat = r + omega Q_t(s1, a1)``, detached;
+    3. the critic's loss ``mean(0.5 (y_hat - Q(s, a))^2)`` and its Adam
+       step;
+    4. the actor's loss ``-mean Q(s, amend(pi(s)))`` against the
+       **updated** critic, through ``actor_forward`` (the step chain with
+       the ``ddpm_step`` forward and backward kernels);
+    5. the actor's Adam step;
+    6. the soft updates of both targets at ``eps_target``.
+
+    batch: {s, a, r, s1, req, rho, req1, rho1}; ``a`` is the amended action
+    that was executed.  ``mask`` is a (U,) or per-row (batch, U)
+    active-user mask.  ``draws`` injects the chains' draws as
+    ``{"target": (x_L, noises), "policy": (x_L, noises)}``; otherwise the
+    target's then the policy's are drawn from ``generator``.  Parameters,
+    targets and Adam states are updated in place and returned in a new
+    dict, with ``{"critic_loss", "actor_loss"}`` (0-dim tensors)."""
+    if diag:
+        raise NotImplementedError(
+            "d3pg_update(diag=True): the update's telemetry is not ported "
+            "yet (ROADMAP queue A, item 8)")
+    lr_a = cfg.lr_actor if lr_a is None else lr_a
+    lr_c = cfg.lr_critic if lr_c is None else lr_c
+    U = cfg.action_dim // 2
+    draws = draws or {}
+    x_t, n_t = draws.get("target", (None, None))
+    x_pi, n_pi = draws.get("policy", (None, None))
+
+    def amend(raw, req, rho):
+        return torch.cat(amend_actions(raw, req, rho, U, mask=mask), dim=-1)
+
+    # --- critic (24) ---------------------------------------------------------
+    with torch.no_grad():
+        raw1 = actor_act(params["actor_t"], cfg, sched, batch["s1"],
+                         generator, x_L=x_t, noises=n_t)
+        a1 = amend(raw1, batch["req1"], batch["rho1"])
+        y_hat = batch["r"] + cfg.omega * critic_q(params["critic_t"],
+                                                  batch["s1"], a1)
+    critic = params["critic"]
+    y = critic_q(critic, batch["s"], batch["a"])
+    c_loss = torch.mean(0.5 * (y_hat - y) ** 2)
+    c_grads = torch.autograd.grad(c_loss, list(critic.parameters()))
+    _, opt_c, _ = adam_update(c_grads, params["opt_c"], critic, lr=lr_c)
+
+    # --- actor (26)-(27): maximise Q(s, amend(pi(s))) ------------------------
+    actor = params["actor"]
+    raw = actor_forward(actor, cfg, sched, batch["s"], generator, x_L=x_pi,
+                        noises=n_pi)
+    act = amend(raw, batch["req"], batch["rho"])
+    a_loss = -torch.mean(critic_q(critic, batch["s"], act))
+    a_grads = torch.autograd.grad(a_loss, list(actor.parameters()))
+    _, opt_a, _ = adam_update(a_grads, params["opt_a"], actor, lr=lr_a)
+
+    new = {"actor": actor,
+           "actor_t": soft_update(params["actor_t"], actor, cfg.eps_target),
+           "critic": critic,
+           "critic_t": soft_update(params["critic_t"], critic,
+                                   cfg.eps_target),
+           "opt_a": opt_a, "opt_c": opt_c}
+    return new, {"critic_loss": c_loss.detach(),
+                 "actor_loss": a_loss.detach()}
+
+
+def _stacked(name: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name}: the fused B-learner D3PG is not ported yet; it comes "
+            "with the vector-env modes (ROADMAP queue A, item 6)")
+    fn.__name__ = name
+    return fn
+
+
+actor_act_stacked = _stacked("actor_act_stacked")
+critic_q_stacked = _stacked("critic_q_stacked")
+d3pg_update_stacked = _stacked("d3pg_update_stacked")

@@ -1,19 +1,21 @@
-"""DDQN cacher for inference (paper Sec. 6.3), port of the acting half of
-``repro.core.ddqn``.
+"""DDQN for the long-timescale model-caching subproblem P3 (paper Sec. 6.3),
+port of ``repro.core.ddqn``.
 
 State: the popularity state gamma(t) (one-hot over J).  Action: an integer
 in [0, 2^M) decoded to the caching vector rho by the paper's floor/mod
 amender; ``feasible_amender`` additionally evicts the largest cached model
-until the storage constraint (11d) holds.  ``ddqn_update`` arrives with the
-training slice (ROADMAP A).
+until the storage constraint (11d) holds.  The telemetry variant of
+``ddqn_update`` (``diag=True``) waits for ROADMAP A.8.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 
-from .networks import mlp_apply, mlp_init
+from repro_torch.optim import adam_init, adam_update
+from .networks import mlp_apply, mlp_init, soft_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,10 +37,22 @@ class DDQNCfg:
 
 
 def qnet_init(cfg: DDQNCfg, generator: torch.Generator) -> dict:
-    """``{"q": MLP}`` (J -> 128x2 -> 2^M), the inference slice of the JAX
-    ``ddqn_init`` (its target net and optimizer state wait for training)."""
+    """``{"q": MLP}`` (J -> 128x2 -> 2^M), the inference slice of
+    ``ddqn_init`` (what ``export_policy`` keeps)."""
     dims = [cfg.J] + [cfg.hidden] * cfg.n_hidden + [cfg.n_actions]
     return {"q": mlp_init(dims, generator)}
+
+
+def ddqn_init(cfg: DDQNCfg, generator: torch.Generator) -> dict:
+    """Fresh DDQN state on the generator's device: ``q``, its target
+    ``q_target`` (a copy, no gradient) and the Adam state ``opt``."""
+    q = qnet_init(cfg, generator)["q"]
+    return {"q": q, "q_target": copy.deepcopy(q).requires_grad_(False),
+            "opt": adam_init(q)}
+
+
+def _obs(gamma_idx, cfg: DDQNCfg):
+    return torch.nn.functional.one_hot(gamma_idx, cfg.J).to(torch.float32)
 
 
 @torch.no_grad()
@@ -46,8 +60,8 @@ def ddqn_act(params, cfg: DDQNCfg, gamma_idx, generator=None,
              eps: float = 0.0):
     """epsilon-greedy over the 2^M caching actions; ``gamma_idx`` may carry
     leading batch axes.  ``eps == 0`` is greedy and draws nothing."""
-    obs = torch.nn.functional.one_hot(gamma_idx, cfg.J).to(torch.float32)
-    greedy = torch.argmax(mlp_apply(params["q"], obs), dim=-1)
+    greedy = torch.argmax(mlp_apply(params["q"], _obs(gamma_idx, cfg)),
+                          dim=-1)
     if eps <= 0.0:
         return greedy
     dev = greedy.device
@@ -73,3 +87,31 @@ def amend_caching(a_int, cfg: DDQNCfg, c=None, C: float = 0.0):
                 torch.argmax(rho * c), cfg.M).to(torch.float32)
             rho = rho * (1.0 - over * largest)
     return rho
+
+
+def ddqn_update(params: dict, cfg: DDQNCfg, batch: dict, *, lr=None,
+                diag: bool = False):
+    """One minibatch step of Eq. (33); batch: {s, a, r, s1}, with s/s1
+    the gamma indices and a the integer actions.  The online net selects
+    the next action and the target net evaluates it (33a); ``y_hat`` is
+    detached; then Adam and the soft update of the target at ``kappa``,
+    in place.  Returns ``(params, loss)``."""
+    if diag:
+        raise NotImplementedError(
+            "ddqn_update(diag=True): the update's telemetry is not ported "
+            "yet (ROADMAP queue A, item 8)")
+    lr = cfg.lr if lr is None else lr
+    q = params["q"]
+    s, s1 = _obs(batch["s"], cfg), _obs(batch["s1"], cfg)
+    y = torch.gather(mlp_apply(q, s), 1, batch["a"][:, None])[:, 0]
+    with torch.no_grad():
+        a1 = torch.argmax(mlp_apply(q, s1), dim=1)
+        q1 = mlp_apply(params["q_target"], s1)
+        y_hat = batch["r"] + cfg.rho * torch.gather(q1, 1, a1[:, None])[:, 0]
+    loss = torch.mean(0.5 * (y_hat - y) ** 2)
+    grads = torch.autograd.grad(loss, list(q.parameters()))
+    _, opt, _ = adam_update(grads, params["opt"], q, lr=lr)
+    return {"q": q, "q_target": soft_update(params["q_target"], q,
+                                            cfg.kappa),
+            "opt": opt}, loss.detach()
+

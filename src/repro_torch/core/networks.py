@@ -41,3 +41,13 @@ def mlp_init(dims, generator: torch.Generator) -> MLP:
 
 def mlp_apply(mlp: MLP, x, *, final_act=None):
     return mlp(x, final_act=final_act)
+
+
+@torch.no_grad()
+def soft_update(target: nn.Module, online: nn.Module, rate: float):
+    """Polyak averaging, Eqs. (28)-(29)/(35): ``target <- target +
+    rate * (online - target)``, in place (one ``lerp`` over every
+    parameter); returns ``target``."""
+    torch._foreach_lerp_(list(target.parameters()),
+                         list(online.parameters()), rate)
+    return target

@@ -8,10 +8,12 @@ Starting from x_L ~ N(0, I), iterate
 with sigma_1 = 0.  ``impl="chain"`` (the default, as the JAX sampler's
 one ``lax.scan``) runs the whole chain in one ``kernels.ops.ddpm_chain``
 launch: denoiser MLP and update fused over all L steps.  ``impl="step"``
-runs the denoiser eagerly and one ``kernels.ops.ddpm_step`` a step, the
-loop the training slice will differentiate through.  On the CPU both run
-their kernels' plain versions.  Inference only: the chain runs under
-``torch.no_grad``.
+runs the denoiser eagerly and one ``kernels.ops.ddpm_step`` a step, and
+is differentiable: the actor's policy gradient flows through the tanh,
+the L ``ddpm_step`` updates (forward and backward kernels) and the eager
+denoiser, as ``jax.grad`` differentiates the reference's sampler.
+``ddpm_chain`` has no backward, so ``impl="chain"`` runs under
+``torch.no_grad``.  On the CPU both run their kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -43,7 +45,6 @@ def chain_tables(sched: DiffusionSchedule, time_dim: int,
     return coef, te
 
 
-@torch.no_grad()
 def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
                    action_dim: int, *, generator=None, x_L=None,
                    noises=None, impl: str = "chain"):
@@ -52,7 +53,9 @@ def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
     ``x_L`` (shape ``(..., A)``) and ``noises`` (``(L, ..., A)``, consumed
     in chain order, ``noises[0]`` at the first step) may be injected;
     otherwise they are drawn from ``generator`` on ``state``'s device, the
-    same draws for either ``impl``."""
+    same draws for either ``impl``.  With ``impl="step"`` the result
+    carries the graph to ``p``'s parameters (and to ``state``) when grad
+    mode is on; ``impl="chain"`` never does."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
     L = sched.L
@@ -65,12 +68,13 @@ def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
     if impl == "chain":
         R = math.prod(shape[:-1])
         coef, te = chain_tables(sched, p.time_dim, dev)
-        x0 = kops.ddpm_chain(
-            p.net, x_L.reshape(R, action_dim).contiguous(),
-            state.reshape(R, state.shape[-1]).contiguous(),
-            noises.reshape(L, R, action_dim).contiguous(), coef, te)
-        return torch.tanh(x0.reshape(shape))
-    te = time_embedding(torch.arange(1, L + 1, device=dev), p.time_dim)
+        with torch.no_grad():
+            x0 = kops.ddpm_chain(
+                p.net, x_L.reshape(R, action_dim).contiguous(),
+                state.reshape(R, state.shape[-1]).contiguous(),
+                noises.reshape(L, R, action_dim).contiguous(), coef, te)
+            return torch.tanh(x0.reshape(shape))
+    _, te = chain_tables(sched, p.time_dim, dev)
     x = x_L
     for i in range(L):
         l_rev = L - 1 - i          # 0-based step index, L-1 .. 0

@@ -19,13 +19,28 @@
 // the whole cost.  The serving path therefore runs whole chains through
 // ddpm_chain.cu (denoiser MLP and this update fused over all L steps, one
 // launch a chain); this kernel serves reverse_sample(impl="step"), the
-// per-step loop the training slice differentiates through.
+// per-step loop that training differentiates through (the backward
+// below).
 //
 // Arithmetic: f32 throughout, each product and sum rounded on its own
 // (__fmul_rn / __fsub_rn / __fadd_rn forbid FMA contraction), in the same
 // order as the plain version kernels/ref.py::ddpm_step_ref, so the two agree
 // bit for bit on the card.  bf16 inputs are widened, bf16 output is rounded
 // to nearest even.
+//
+// Backward (ddpm_step_bwd_kernel): the update is linear in x and eps_hat,
+// so for an upstream gradient g
+//
+//     dx = c1 * g,    d(eps_hat) = -c2 * g,
+//
+// and nothing flows to the noise, a drawn constant.  One grid-stride pass
+// reads g once and writes both outputs: 1 read and 2 writes of n elements
+// (12 n bytes in f32) for 2 flops an element, memory-bound like the
+// forward.  It replaces what jax.grad derives for the reference's sampler
+// (repro/diffusion/sampler.py, impl="xla"); the Pallas kernel itself never
+// had a backward.  Each product is one __fmul_rn (with -c2 negated exactly
+// on the host side of the launch), the arithmetic of the plain version
+// kernels/ref.py::ddpm_step_bwd_ref, so the two agree bit for bit.
 //
 // Interface: plain C, loaded with ctypes (kernels/ops.py).  The wrapper
 // allocates the output, checks shapes/dtypes/contiguity, and passes
@@ -68,6 +83,20 @@ __global__ void ddpm_step_kernel(const T* __restrict__ x,
   }
 }
 
+template <typename T>
+__global__ void ddpm_step_bwd_kernel(const T* __restrict__ g,
+                                     T* __restrict__ dx,
+                                     T* __restrict__ deps, int64_t n,
+                                     float c1, float neg_c2) {
+  const int64_t stride = (int64_t)blockDim.x * gridDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float gv = to_f32(g[i]);
+    dx[i] = from_f32<T>(__fmul_rn(c1, gv));
+    deps[i] = from_f32<T>(__fmul_rn(neg_c2, gv));
+  }
+}
+
 constexpr int kThreads = 256;
 // 132 SMs x 8 resident blocks of 256 threads fill an H100; larger tensors
 // are covered by the grid-stride loop.
@@ -98,6 +127,34 @@ extern "C" int ddpm_step_launch(const void* x, const void* eps,
         static_cast<const __nv_bfloat16*>(eps),
         static_cast<const __nv_bfloat16*>(noise),
         static_cast<__nv_bfloat16*>(out), n, c1, c2, sigma);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) *grids = 1;
+  return err;
+}
+
+// The backward: dx = c1 * g and deps = -c2 * g over n elements of dtype
+// (0 = float32, 1 = bfloat16).  *grids and the return code as for
+// ddpm_step_launch.
+extern "C" int ddpm_step_bwd_launch(const void* g, void* dx, void* deps,
+                                    int64_t n, float c1, float c2, int dtype,
+                                    int* grids, void* stream) {
+  *grids = 0;
+  if (n <= 0) return 0;
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    ddpm_step_bwd_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(g), static_cast<float*>(dx),
+        static_cast<float*>(deps), n, c1, -c2);
+  } else if (dtype == 1) {
+    ddpm_step_bwd_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(g),
+        static_cast<__nv_bfloat16*>(dx), static_cast<__nv_bfloat16*>(deps),
+        n, c1, -c2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

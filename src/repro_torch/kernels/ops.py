@@ -12,6 +12,11 @@ states, state recurrence, outputs) for more, and counts one either way.
 started, and ``CLUSTERS["ddpm_chain"]`` the thread-block clusters of its
 grids.  ``reset_launches`` zeroes all three.
 
+``ddpm_step`` is differentiable in x and eps_hat: its
+``torch.autograd.Function`` (``DdpmStep``) launches ``ddpm_step_bwd`` in
+the backward (the plain version for CPU tensors).  The other kernels are
+forward-only and refuse grad-enabled inputs.
+
 ``flash_plan`` (which kernel a dtype takes), ``ssd_plan`` (chunks,
 scratch, shared memory) and ``chain_plan`` (cluster size, rows per
 cluster, shared memory) hold the host-side choices of a launch, so the
@@ -28,8 +33,8 @@ import torch
 
 from . import build, ref
 
-LAUNCHES = {"ddpm_step": 0, "ddpm_chain": 0, "flash_attention": 0,
-            "ssd_scan": 0}
+LAUNCHES = {"ddpm_step": 0, "ddpm_step_bwd": 0, "ddpm_chain": 0,
+            "flash_attention": 0, "ssd_scan": 0}
 GRIDS = dict(LAUNCHES)
 CLUSTERS = {"ddpm_chain": 0}
 
@@ -56,6 +61,9 @@ _SIGNATURES = {
     "ddpm_step_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, ctypes.c_float,
                                         ctypes.c_float, ctypes.c_float,
                                         ctypes.c_int, _GRIDS, _P]),
+    "ddpm_step_bwd_launch": (ctypes.c_int, [_P, _P, _P, _I64, ctypes.c_float,
+                                            ctypes.c_float, ctypes.c_int,
+                                            _GRIDS, _P]),
     "ddpm_chain_launch": (ctypes.c_int, [_ChainNet] + [_P] * 6 + [_I64] * 4
                           + [ctypes.c_int, ctypes.c_int, _I64, _GRIDS, _P]),
     "flash_attention_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, _I64,
@@ -104,11 +112,20 @@ def _check_cuda(name: str, *tensors) -> None:
                              f"cuda:{torch.cuda.current_device()}")
 
 
+# where the backward of each forward-only kernel would come from
+_NO_BACKWARD = {
+    "ddpm_chain": "a chain backward (ROADMAP A.4's note); training samples "
+                  "through reverse_sample(impl='step')",
+    "flash_attention": "the LM training path (ROADMAP A.11)",
+    "ssd_scan": "the LM training path (ROADMAP A.11)",
+}
+
+
 def _check_no_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward yet (the training slice adds it, "
-            "ROADMAP queue A); call it under torch.no_grad()")
+            f"{name} has no backward yet ({_NO_BACKWARD[name]}); call it "
+            "under torch.no_grad()")
 
 
 def _check_device(name: str, *tensors) -> torch.device:
@@ -151,7 +168,67 @@ def _check_ddpm(x, eps_hat, noise):
                              f"{tuple(t.shape)}, x {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"ddpm_step takes float32 or bfloat16, not {x.dtype}")
-    _check_no_grad("ddpm_step", x, eps_hat, noise)
+    if torch.is_grad_enabled() and noise.requires_grad:
+        raise ValueError("ddpm_step gives no gradient to noise (a drawn "
+                         "constant); pass it detached")
+
+
+def _launch_elementwise(name: str, ptrs, n: int, scalars, dtype, t):
+    """One call of ``<name>_launch`` from ddpm_step.cu on ``t``'s stream;
+    counts the launch and its grids."""
+    _check_cuda(name, t)
+    grids = ctypes.c_int(0)
+    err = _fn("ddpm_step", f"{name}_launch")(
+        *ptrs, n, *scalars, _DTYPE_CODE[dtype], ctypes.byref(grids),
+        _stream(t))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    GRIDS[name] += grids.value
+
+
+def _ddpm_fwd(x, eps_hat, noise, c1, c2, sigma):
+    if x.device.type == "cpu":
+        return ref.ddpm_step_ref(x, eps_hat, noise, c1, c2, sigma)
+    if x.device.type != "cuda":
+        raise ValueError(f"ddpm_step runs on cuda or cpu, not {x.device}")
+    _check_cuda("ddpm_step", eps_hat, noise)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    _launch_elementwise("ddpm_step", (x.data_ptr(), eps_hat.data_ptr(),
+                                      noise.data_ptr(), out.data_ptr()),
+                        x.numel(), (c1, c2, sigma), x.dtype, x)
+    return out
+
+
+def _ddpm_bwd(g, c1, c2):
+    if g.device.type == "cpu":
+        return ref.ddpm_step_bwd_ref(g, c1, c2)
+    if g.device.type != "cuda":
+        raise ValueError(f"ddpm_step_bwd runs on cuda or cpu, not "
+                         f"{g.device}")
+    dx = torch.empty_like(g, memory_format=torch.contiguous_format)
+    deps = torch.empty_like(dx)
+    _launch_elementwise("ddpm_step_bwd", (g.data_ptr(), dx.data_ptr(),
+                                          deps.data_ptr()),
+                        g.numel(), (c1, c2), g.dtype, g)
+    return dx, deps
+
+
+class DdpmStep(torch.autograd.Function):
+    """``ddpm_step`` with a gradient: the forward kernel, and a backward
+    that launches ``ddpm_step_bwd`` (dx = c1 g, d(eps_hat) = -c2 g; none
+    to the noise).  On CPU tensors both run their plain versions, which
+    take any float dtype (the f64 gradcheck)."""
+
+    @staticmethod
+    def forward(ctx, x, eps_hat, noise, c1: float, c2: float, sigma: float):
+        ctx.coef = (c1, c2)
+        return _ddpm_fwd(x, eps_hat, noise, c1, c2, sigma)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, deps = _ddpm_bwd(g.contiguous(), *ctx.coef)
+        return dx, deps, None, None, None, None
 
 
 def ddpm_step(x, eps_hat, noise, alpha: float, alpha_bar: float,
@@ -159,26 +236,24 @@ def ddpm_step(x, eps_hat, noise, alpha: float, alpha_bar: float,
     """Fused reverse-diffusion update; x/eps_hat/noise: (..., A), float32
     or bfloat16, same shape/dtype/device.  The schedule values are host
     floats (``DiffusionSchedule.host``), so no device read is needed.
-    Returns a new tensor of ``x.dtype``."""
+    Returns a new tensor of ``x.dtype``.  Differentiable in ``x`` and
+    ``eps_hat`` (``DdpmStep``); ``noise`` must not require a gradient."""
     _check_ddpm(x, eps_hat, noise)
     c1, c2, sigma = ddpm_coefficients(alpha, alpha_bar, beta_tilde, l_rev)
-    if x.device.type == "cpu":
-        return ref.ddpm_step_ref(x, eps_hat, noise, c1, c2, sigma)
-    if x.device.type != "cuda":
-        raise ValueError(f"ddpm_step runs on cuda or cpu, not {x.device}")
-    _check_cuda("ddpm_step", x, eps_hat, noise)
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    grids = ctypes.c_int(0)
-    err = _fn("ddpm_step", "ddpm_step_launch")(
-        x.data_ptr(), eps_hat.data_ptr(), noise.data_ptr(), out.data_ptr(),
-        x.numel(), c1, c2, sigma, _DTYPE_CODE[x.dtype], ctypes.byref(grids),
-        _stream(x))
-    if err != 0:
-        raise RuntimeError(f"ddpm_step kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["ddpm_step"] += 1
-    GRIDS["ddpm_step"] += grids.value
-    return out
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or eps_hat.requires_grad):
+        return DdpmStep.apply(x, eps_hat, noise, c1, c2, sigma)
+    return _ddpm_fwd(x, eps_hat, noise, c1, c2, sigma)
+
+
+def ddpm_step_bwd(g, c1: float, c2: float):
+    """The backward of ``ddpm_step`` for its coefficients (``c1``, ``c2``
+    of ``ddpm_coefficients``): ``(c1 * g, -c2 * g)`` in ``g.dtype``,
+    float32 or bfloat16."""
+    if g.dtype not in _DTYPE_CODE:
+        raise TypeError(f"ddpm_step_bwd takes float32 or bfloat16, not "
+                        f"{g.dtype}")
+    return _ddpm_bwd(g, c1, c2)
 
 
 # -- ddpm_chain -------------------------------------------------------------------

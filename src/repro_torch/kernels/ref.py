@@ -48,12 +48,27 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
                          return_state=True)
 
 
+def _math_dtype(dtype):
+    """f32 math for f32 and bf16 (the kernels'), f64 for f64 (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def ddpm_step_ref(x, eps_hat, noise, c1: float, c2: float, sigma: float):
     """One fused reverse-diffusion update (Eqs. 19-20) with the scalars
-    precomputed: ``x' = c1*x - c2*eps_hat + sigma*noise``, in f32, cast
-    back to ``x.dtype``.  See ``ops.ddpm_coefficients`` for c1, c2, sigma."""
-    xf, ef, nf = x.float(), eps_hat.float(), noise.float()
+    precomputed: ``x' = c1*x - c2*eps_hat + sigma*noise``, in f32 (f64
+    for f64 inputs), cast back to ``x.dtype``.  See
+    ``ops.ddpm_coefficients`` for c1, c2, sigma."""
+    md = _math_dtype(x.dtype)
+    xf, ef, nf = x.to(md), eps_hat.to(md), noise.to(md)
     return (c1 * xf - c2 * ef + sigma * nf).to(x.dtype)
+
+
+def ddpm_step_bwd_ref(g, c1: float, c2: float):
+    """The backward of ``ddpm_step_ref`` in ``x`` and ``eps_hat``:
+    ``(c1 * g, -c2 * g)``, each one product in f32 (f64 for f64), cast
+    back to ``g.dtype``; the noise gets no gradient."""
+    gf = g.to(_math_dtype(g.dtype))
+    return (c1 * gf).to(g.dtype), ((-c2) * gf).to(g.dtype)
 
 
 def ddpm_chain_ref(net, x_L, state, noises, coef, te):

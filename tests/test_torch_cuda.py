@@ -1,8 +1,10 @@
 """Card-only tests of the port: each hand-written kernel against its plain
-version on the card, its launch counter and its rejections, and the
-serving paths' launch counts (one ddpm_chain per reverse chain, or one
-ddpm_step per reverse step with ``impl="step"``; 24 flash_attention or
-ssd_scan launches per full-width prefill).
+version on the card, its launch counter and its rejections, the serving
+paths' launch counts (one ddpm_chain per reverse chain, or one ddpm_step
+per reverse step with ``impl="step"``; 24 flash_attention or ssd_scan
+launches per full-width prefill), and the training path: the step
+sampler's gradients through ddpm_step and ddpm_step_bwd, one d3pg_update
+on the card against the CPU, and a two-episode train_t2drl.
 
 Run on a machine with an NVIDIA GPU (it has no JAX, so skip the suite's
 conftest, which imports it):
@@ -95,6 +97,133 @@ def test_ddpm_step_rejects_what_the_kernel_does_not_take(cuda):
         ops.ddpm_step(x.t(), e.t(), n.t(), 0.9, 0.5, 0.04, 1)
     with pytest.raises(ValueError):
         ops.ddpm_step(x, e.cpu(), n, 0.9, 0.5, 0.04, 1)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((20,), torch.float32), ((64, 20), torch.float32),
+    ((256,), torch.bfloat16), ((1000003,), torch.float32),
+    ((64, 20), torch.bfloat16)])
+def test_ddpm_step_bwd_kernel_matches_plain(cuda, shape, dtype):
+    """The backward kernel bit for bit against its plain version (one
+    rounded product per output), counted once per call."""
+    g = _inputs(shape, dtype, cuda, seed=7)[0]
+    c1, c2, _ = ops.ddpm_coefficients(0.9, 0.5, 0.04, 2)
+    before = ops.LAUNCHES["ddpm_step_bwd"]
+    dx, de = ops.ddpm_step_bwd(g, c1, c2)
+    wx, we = ref.ddpm_step_bwd_ref(g, c1, c2)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ddpm_step_bwd"] == before + 1
+    assert torch.equal(dx, wx) and torch.equal(de, we)
+    cx, ce = ref.ddpm_step_bwd_ref(g.cpu(), c1, c2)
+    assert torch.equal(dx.cpu(), cx) and torch.equal(de.cpu(), ce)
+
+
+def test_step_sampler_gradients_through_the_kernels(cuda):
+    """Gradients of sum(w * x_0) through reverse_sample(impl="step") on the
+    card (5 ddpm_step and 5 ddpm_step_bwd launches) against the same
+    chain on the CPU (plain versions), to 2e-5 of each gradient's max."""
+    from repro_torch.bridge import denoiser_from_numpy
+    rng = np.random.default_rng(0)
+    layers = [{"w": rng.standard_normal((i, o)).astype(np.float32)
+               / np.sqrt(i), "b": 0.1 * rng.standard_normal(o).astype(
+                   np.float32)}
+              for i, o in zip((86, 128, 128, 128), (128, 128, 128, 20))]
+    s, x_L = rng.standard_normal((64, 50)), rng.standard_normal((64, 20))
+    noises = rng.standard_normal((5, 64, 20))
+    w = rng.standard_normal((64, 20))
+    grads = {}
+    for dev in (cuda, "cpu"):
+        p = denoiser_from_numpy({"layers": layers}, device=dev)
+        t = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                   device=dev)
+        ops.reset_launches()
+        x0 = reverse_sample(p, make_schedule(5), t(s), 20, x_L=t(x_L),
+                            noises=t(noises), impl="step")
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(
+            torch.sum(t(w) * x0), list(p.parameters()))]
+        if dev == cuda:
+            assert {k: ops.LAUNCHES[k] for k in
+                    ("ddpm_step", "ddpm_step_bwd", "ddpm_chain")} == \
+                {"ddpm_step": 5, "ddpm_step_bwd": 5, "ddpm_chain": 0}
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()
+
+
+def _d3pg_on(dev):
+    """One d3pg state on ``dev`` from a seed on the CPU, with a buffer-like
+    minibatch and the chains' draws."""
+    from repro_torch.core.t2drl import t2drl_init
+    cfg = T2DRLCfg(env=EnvCfg(U=4, M=5), lr_actor=1e-4, lr_critic=1e-3)
+    ts = t2drl_init(torch.Generator().manual_seed(0), cfg)
+    d3 = ts["d3pg"]
+    to = lambda m: m.to(dev)  # noqa: E731
+    for k in ("actor", "actor_t", "critic", "critic_t"):
+        to(d3[k])
+    for k in ("opt_a", "opt_c"):
+        d3[k] = {"mu": [m.to(dev) for m in d3[k]["mu"]],
+                 "nu": [v.to(dev) for v in d3[k]["nu"]], "step": 0}
+    g = torch.Generator().manual_seed(1)
+    n, S, U, M, A = 64, cfg.env.state_dim, 4, 5, 8
+    batch = {"s": torch.randn(n, S, generator=g),
+             "a": torch.rand(n, A, generator=g), "r": torch.randn(n,
+                                                               generator=g),
+             "s1": torch.randn(n, S, generator=g),
+             "req": torch.randint(0, M, (n, U), generator=g),
+             "rho": torch.randint(0, 2, (n, M), generator=g).float(),
+             "req1": torch.randint(0, M, (n, U), generator=g),
+             "rho1": torch.randint(0, 2, (n, M), generator=g).float()}
+    draws = {k: (torch.randn(n, A, generator=g),
+                 torch.randn(cfg.L, n, A, generator=g))
+             for k in ("target", "policy")}
+    return (cfg, d3, {k: v.to(dev) for k, v in batch.items()},
+            {k: tuple(t.to(dev) for t in v) for k, v in draws.items()})
+
+
+def test_d3pg_update_on_card_matches_cpu(cuda):
+    """One d3pg_update on the card (one ddpm_chain, 5 ddpm_step, 5
+    ddpm_step_bwd launches) against the same update on the CPU from the
+    same state, batch and draws: losses to 1e-4, and Adam's first moments
+    (0.1 g) to 1e-4 of each leaf's max."""
+    from repro_torch.core.d3pg import d3pg_update
+    from repro_torch.agents.allocators import actor_schedule
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, d3, batch, draws = _d3pg_on(dev)
+        ops.reset_launches()
+        new, m = d3pg_update(d3, cfg.d3pg_cfg(),
+                             actor_schedule(cfg.d3pg_cfg()), batch,
+                             draws=draws)
+        if dev.type == "cuda":
+            assert {k: ops.LAUNCHES[k] for k in
+                    ("ddpm_chain", "ddpm_step", "ddpm_step_bwd")} == \
+                {"ddpm_chain": 1, "ddpm_step": 5, "ddpm_step_bwd": 5}
+        out[dev.type] = (m, new)
+    (mc, nc), (mh, nh) = out["cuda"], out["cpu"]
+    for k in mc:
+        assert abs(mc[k].item() - mh[k].item()) <= 1e-4 * abs(mh[k].item())
+    for opt in ("opt_a", "opt_c"):
+        for a, b in zip(nc[opt]["mu"], nh[opt]["mu"]):
+            assert (a.cpu() - b).abs().max().item() <= \
+                1e-4 * b.abs().max().item()
+
+
+def test_train_t2drl_two_episodes_on_card(cuda):
+    from repro_torch.core.t2drl import eval_t2drl, export_policy, \
+        train_t2drl
+    cfg = T2DRLCfg(env=EnvCfg(U=4, M=5, T=4, K=5), warmup=10, lr_actor=1e-4,
+                   lr_critic=1e-3, lr_ddqn=1e-3)
+    ops.reset_launches()
+    ts, hist = train_t2drl(cfg, episodes=2)
+    n = ts["d3pg"]["opt_a"]["step"]
+    assert n == 30          # 10 in episode 1 (size0 = 10, 15), 20 in 2
+    assert {k: ops.LAUNCHES[k] for k in
+            ("ddpm_chain", "ddpm_step", "ddpm_step_bwd")} == \
+        {"ddpm_chain": 2 * 4 * 5 + n, "ddpm_step": 5 * n,
+         "ddpm_step_bwd": 5 * n}
+    assert all(np.isfinite(v) for vs in hist.values() for v in vs)
+    assert ts["models"].c.device.type == "cuda"
+    out = eval_t2drl(export_policy(ts, cfg), ts["models"], cfg, episodes=1)
+    assert all(np.isfinite(v) for v in out.values())
 
 
 @pytest.mark.parametrize("impl", ["chain", "step"])

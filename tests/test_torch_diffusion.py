@@ -103,7 +103,7 @@ def test_reverse_sample_actions_matches_jax(timpl, impl, batch, S, A, L):
                                make_schedule(L), torch.from_numpy(s), A,
                                x_L=x_L, noises=noises, impl=timpl)
     assert t.shape == batch + (A,)
-    np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **TOL)
 
 
 @pytest.mark.parametrize("timpl", ["chain", "step"])
@@ -119,7 +119,7 @@ def test_reverse_sample_gateway_chain_matches_jax(timpl, impl):
     t = reverse_sample(denoiser_from_numpy(_np(jp), device="cpu"),
                        make_schedule(40, kind="linear"), torch.zeros(1), 32,
                        x_L=x_L, noises=noises, impl=timpl)
-    np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **TOL)
 
 
 @pytest.mark.parametrize("batch,S,A,L,kind", [((3,), 50, 20, 5, "paper"),
@@ -156,8 +156,8 @@ def test_chain_and_step_agree_and_draw_alike():
     out = {impl: reverse_sample(p, make_schedule(5), s, 20, impl=impl,
                                 generator=torch.Generator().manual_seed(2))
            for impl in ("chain", "step")}
-    np.testing.assert_allclose(out["chain"].numpy(), out["step"].numpy(),
-                               **TOL)
+    np.testing.assert_allclose(out["chain"].numpy(),
+                               out["step"].detach().numpy(), **TOL)
     with pytest.raises(ValueError, match="impl"):
         reverse_sample(p, make_schedule(5), s, 20, impl="scan")
 

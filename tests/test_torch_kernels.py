@@ -96,8 +96,10 @@ def test_ddpm_step_rejects_bad_inputs(bad):
         x, e, n = (t.half() for t in (x, e, n))
         err = TypeError
     else:
-        x.requires_grad_(True)
-        err = NotImplementedError
+        # x and eps_hat are differentiable now; the noise, a drawn
+        # constant, gets no gradient, so a noise that asks for one is refused
+        n.requires_grad_(True)
+        err = ValueError
     with pytest.raises(err):
         ops.ddpm_step(x, e, n, 0.9, 0.5, 0.04, 1)
 

@@ -119,6 +119,38 @@ def test_chip_smoke_serving_phases_run_small_on_cpu():
     assert 1 <= data["images"] <= data["image_steps"]
 
 
+def test_chip_smoke_train_phase_runs_small_on_cpu():
+    """The train phase at a small env on the CPU: the gates' update counts,
+    parameters changed, finite losses, eval and the short runs; no launch
+    on the CPU, the launches the card must make computed all the same."""
+    cs = _chip_smoke()
+    from repro_torch.core.env import EnvCfg
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # small ops: extra threads only contend
+    try:
+        tr = cs.phase_train("cpu", EnvCfg(U=3, M=4, T=10, K=4), episodes=5,
+                            short=1, eval_episodes=1)
+    finally:
+        torch.set_num_threads(threads)
+    # 40 slots an episode, warmup 100: 5 frames of 4 updates in episode 3,
+    # then 40 an episode; 9 frame transitions an episode, past the DDQN
+    # batch of 32 from the 33rd on
+    assert tr["d3pg_updates"] == 20 + 40 + 40 and tr["ddqn_updates"] == 4 + 9
+    assert tr["launches"] == {"ddpm_chain": 0, "ddpm_step": 0,
+                              "ddpm_step_bwd": 0}
+    n = tr["d3pg_updates"]
+    assert tr["expected_launches"] == {"ddpm_chain": 5 * 40 + n,
+                                       "ddpm_step": 5 * n,
+                                       "ddpm_step_bwd": 5 * n}
+    assert set(tr["short_runs"]) == {"ddpg/ddqn", "rcars/static"}
+    assert tr["short_runs"]["rcars/static"]["d3pg_updates"] == 0
+    # the paper's cell: no update in episode 1, 100 a slot after; DDQN
+    # from episode 4 on
+    assert cs.predicted_updates(cs.method_cfg("d3pg", "ddqn", EnvCfg(), 8),
+                                8) == [(0, 0)] + [(100, 0)] * 2 + \
+        [(100, 4)] + [(100, 9)] * 4
+
+
 def test_chip_smoke_lm_plane_runs_small_on_cpu():
     """The LM plane at smoke widths: both engines behind the gateway, the
     expected launch counts (none run on the CPU), kernel vs plain prefill."""
