@@ -15,12 +15,19 @@ Phases, each printing one JSON line:
                the paths' shapes; ddpm_chain and ssd_scan also against an
                exact f64 answer; the gradients of reverse_sample(impl=
                "step") at the paper's actor (R = 64) through the forward
-               and backward kernels against the plain step loop.
+               and backward kernels against the plain step loop; the
+               chain's gradients through ddpm_chain's record and
+               ddpm_chain_bwd against the plain backward (2e-5 of each
+               leaf's max) and the exact f64 gradients, the same bits
+               twice, one launch of each per gradient.
 4. kernel_timing — CUDA-event times of kernel and plain version, in turns,
                beside the card's bound for the same bytes and flops, and
                ``graph_ms``: the same launches replayed from one CUDA graph
                (the device's own time, no Python or ctypes in it); for
-               ddpm_chain also the step path's time for the same chain.
+               ddpm_chain also the step path's time for the same chain and
+               the forward with its record against the forward without;
+               for ddpm_chain_bwd the forward + backward of a policy chain
+               through the chain and through the step path.
 5. train         — single-cell training at the paper's EnvCfg(): t2drl
                (d3pg/ddqn) for 8 episodes under benchmarks/common.py's
                method_cfg settings (tuned lrs, warmup 100), export_policy
@@ -28,8 +35,11 @@ Phases, each printing one JSON line:
                ddpg/ddqn and rcars/static; requires the gates' update
                counts (700 D3PG, 40 DDQN), every learned parameter changed,
                finite losses, and the exact launch counts: ddpm_chain
-               T*K*episodes + updates, ddpm_step = ddpm_step_bwd = L per
-               update.
+               T*K*episodes + 2 per update, ddpm_chain_bwd 1 per update,
+               no ddpm_step or ddpm_step_bwd; then 50 D3PG updates with
+               each impl of the policy chain ("chain", "step"): host ms,
+               device ms, idle share, device kernels per update, and
+               their exact launches.
 6. control_plane — greedy T2DRL episodes at the paper's EnvCfg() (d3pg/ddqn,
                then rcars/random); checks stats, simplexes, and that
                ddpm_chain ran once per slot (T*K per d3pg episode); then one
@@ -50,6 +60,7 @@ Phases, each printing one JSON line:
 
 Phases 3 and 4 cover every kernel: ddpm_step, ddpm_step_bwd, ddpm_chain
 (at the control and data planes' chains, R = 16 and 64, and odd widths),
+ddpm_chain_bwd (at the actor's chains, R = 1 to 1024, odd widths),
 flash_attention (at the prefill buckets of phase 8 and at
 tests/test_kernels.py's FLASH_CASES) and ssd_scan (likewise, SSD_CASES).
 Then a ``kernels`` line (per kernel: route, source, the TPU kernel it
@@ -72,6 +83,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
@@ -426,18 +438,22 @@ def _check_flash(device) -> dict:
 
 def ssd_exact(x, dt, A, Bm, Cm, D):
     """The SSM step by step in float64, no chunks: the answer that the
-    kernel and the plain version (both f32, chunked) approximate."""
+    kernel and the plain version (both f32, chunked) approximate.  The
+    state is updated in place, S = exp(dt A) S + (dt x) B^T, and read out
+    as y = S C + D x, with the decays and inputs formed for all steps at
+    once (a quarter of the time of one einsum pair per step)."""
     x, dt, A, Bm, Cm, D = (t.double() for t in (x, dt, A, Bm, Cm, D))
     B, L, H, P = x.shape
     rep = H // Bm.shape[2]
     Bh, Ch = (t.repeat_interleave(rep, dim=2) for t in (Bm, Cm))
+    decay = torch.exp(dt * A)[..., None, None]          # (B, L, H, 1, 1)
+    u = (dt[..., None] * x)[..., None]                  # (B, L, H, P, 1)
     S = x.new_zeros((B, H, P, Bm.shape[3]))
-    ys = []
+    ys = x.new_empty((B, L, H, P, 1))
     for t in range(L):
-        S = S * torch.exp(dt[:, t] * A)[:, :, None, None] + torch.einsum(
-            "bh,bhp,bhn->bhpn", dt[:, t], x[:, t], Bh[:, t])
-        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], S))
-    return torch.stack(ys, dim=1) + x * D[None, None, :, None], S
+        S.mul_(decay[:, t]).add_(u[:, t] * Bh[:, t, :, None, :])
+        torch.matmul(S, Ch[:, t, :, :, None], out=ys[:, t])
+    return ys[..., 0] + x * D[None, None, :, None], S
 
 
 def _tol_ratio(out, exact, tol: float) -> float:
@@ -522,6 +538,127 @@ def chain_exact(net, x_L, state, noises, coef, te):
     return x
 
 
+# ddpm_chain_bwd cases (name, MLP widths, S, R, L, schedule): a D3PG
+# update's policy chain (the actor at R = 64, eight clusters of 8 rows),
+# one row, odd widths over a ragged second cluster (R = 9), CTAs with no
+# column of the last layer, a ragged R over five clusters, and a long
+# chain for the accumulation over steps
+CHAIN_GRAD_CASES = [("train", CTRL_DIMS, 50, 64, 5, "paper"),
+                    ("control_R1", CTRL_DIMS, 50, 1, 5, "paper"),
+                    ("odd_widths", (53, 90, 90, 90, 30), 7, 9, 7, "paper"),
+                    ("empty_slice", (25, 100, 100, 5), 4, 2, 3, "paper"),
+                    ("R37", CTRL_DIMS, 50, 37, 5, "paper"),
+                    ("L50", CTRL_DIMS, 50, 4, 50, "paper")]
+
+
+def chain_grad_exact_tol(L: int) -> float:
+    """Tolerance of the chain's f32 gradients against the exact f64 ones,
+    per leaf as a share of its largest magnitude: 2e-5 per 50 steps, as
+    ``chain_exact_tol`` holds x_0.  The plain f32 backward lies 1.5e-7 to
+    2.9e-7 of the max from the f64 gradients at these cases (CPU), the
+    kernel sums in another order (another ~1e-7), and a longer chain
+    passes g through more updates; a ReLU mask that flipped between f32
+    and f64 would move one row-step's term, ~1e-3 of the max."""
+    return TOL[torch.float32] * max(1.0, L / 50)
+
+
+def _leaf_rel(got, want) -> float:
+    """The largest |got - want| of any leaf, over that leaf's max |want|."""
+    return max((a.double() - b.double()).abs().max().item()
+               / max(b.abs().max().item(), 1e-30)
+               for a, b in zip(got, want))
+
+
+def _chain_grad(c, w) -> tuple:
+    """d(sum w x_0)/d(w, b) of every layer through ops.ddpm_chain with the
+    MLP's leaves requiring a gradient (DdpmChain: the forward with its
+    record and one ddpm_chain_bwd on the card)."""
+    net = c["net"]
+    leaves = list(net.w) + list(net.b)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        x0 = ops.ddpm_chain(*_chain_args(c))
+        return torch.autograd.grad(torch.sum(w * x0), leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+
+
+def _exact_chain_grad(c, w) -> list:
+    """The same gradients in float64: autograd through ``chain_exact``."""
+    net = c["net"]
+    ws = [t.detach().double().requires_grad_(True) for t in net.w]
+    bs = [t.detach().double().requires_grad_(True) for t in net.b]
+    x0 = chain_exact(SimpleNamespace(w=ws, b=bs), *_chain_args(c)[1:])
+    return torch.autograd.grad(torch.sum(w.double() * x0), ws + bs)
+
+
+def _check_chain_grad(device) -> dict:
+    """ddpm_chain_bwd at every CHAIN_GRAD_CASES case: the gradients of a
+    fixed loss sum(w * x_0) through DdpmChain against the plain backward
+    on the same device and the kernel's record (within GRAD_TOL of each
+    leaf's max), and against the exact f64 gradients (within
+    ``chain_grad_exact_tol``); the record against the plain forward's (f32
+    tolerance) and x_0 with a record bit for bit as without; two runs give
+    the same bits; on the card exactly one ddpm_chain and one
+    ddpm_chain_bwd launch per gradient."""
+    cases = []
+    on_card = torch.device(device).type == "cuda"
+    for i, (name, dims, S, R, L, kind) in enumerate(CHAIN_GRAD_CASES):
+        c = _chain_inputs(dims, S, R, L, kind, device, 600 + i)
+        w = _randn(torch.Generator().manual_seed(700 + i), R, dims[-1])
+        w = w.to(device)
+        ops.reset_launches()
+        got = _chain_grad(c, w)
+        sync(device)
+        launches = {k: ops.LAUNCHES[k] for k in ("ddpm_chain",
+                                                  "ddpm_chain_bwd")}
+        grids, clusters = ops.GRIDS["ddpm_chain_bwd"], \
+            ops.CLUSTERS["ddpm_chain_bwd"]
+        if on_card:
+            require(launches == {"ddpm_chain": 1, "ddpm_chain_bwd": 1},
+                    f"chain gradient {name} launched {launches}")
+        again = _chain_grad(c, w)
+        sync(device)
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        require(same_bits, f"chain gradient {name}: two runs differ")
+        x0, rec = ops.ddpm_chain(*_chain_args(c), record=True)
+        x0n = ops.ddpm_chain(*_chain_args(c))
+        x0p, recp = ref.ddpm_chain_ref(*_chain_args(c), record=True)
+        sync(device)
+        require(torch.equal(x0, x0n), f"ddpm_chain {name}: x_0 with a "
+                f"record differs from x_0 without one")
+        rec_err = _allclose_err(rec, recp, TOL[torch.float32],
+                                f"ddpm_chain {name} record")
+        net = c["net"]
+        want = ref.ddpm_chain_bwd_ref(net, rec, c["state"], c["coef"],
+                                      c["te"], w)
+        want = want[0] + want[1]
+        rel = _leaf_rel(got, want)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        require(rel <= GRAD_TOL, f"ddpm_chain_bwd {name}: {rel} of a "
+                f"leaf's max from the plain backward (tolerance "
+                f"{GRAD_TOL})")
+        exact = _exact_chain_grad(c, w)
+        tol = chain_grad_exact_tol(L)
+        k_exact = _leaf_rel(got, exact)
+        require(k_exact <= tol, f"ddpm_chain_bwd {name}: {k_exact} of a "
+                f"leaf's max from the exact f64 gradients (tolerance {tol})")
+        cases.append({"case": name, "dims": list(dims), "S": S, "R": R,
+                      "L": L, "plan": ops.chain_bwd_plan(dims, R)._asdict(),
+                      "max_abs_err": err, "rel_err": rel, "tol": GRAD_TOL,
+                      "record_max_abs_err": rec_err,
+                      "exact_rel_err": k_exact, "exact_tol": tol,
+                      "plain_exact_rel_err": _leaf_rel(want, exact),
+                      "same_bits": same_bits, "launches": launches,
+                      "grids": grids, "clusters": clusters})
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "rel_err": max(c["rel_err"] for c in cases),
+            "exact_rel_err": max(c["exact_rel_err"] for c in cases),
+            "cases": cases}
+
+
 def _check_chain(device) -> dict:
     """ddpm_chain against its plain version (rtol = atol = 2e-5 where
     L <= 50) and both against the exact f64 chain (``kernel_vs_exact`` <=
@@ -562,6 +699,7 @@ def phase_kernel_check(device) -> dict:
             "ddpm_step_bwd": _check_ddpm_bwd(device),
             "step_chain_grad": _check_step_grad(device),
             "ddpm_chain": _check_chain(device),
+            "ddpm_chain_bwd": _check_chain_grad(device),
             "flash_attention": _check_flash(device),
             "ssd_scan": _check_ssd(device)}
 
@@ -634,19 +772,42 @@ def ssd_bound_ms(B, L, H, P, G, N, chunk: int):
             "bytes" if t_bytes >= t_ops else "operations", "f32 67 TFLOP/s")
 
 
-def chain_bound_ms(dims, S: int, R: int, L: int):
+def chain_bound_ms(dims, S: int, R: int, L: int, record: bool = False):
     """Least time for one chain in f32: the weights, x_L, state, noises and
-    the two tables read once and x_0 written once over HBM, against the
-    kernel's flops (per row: the state's share of layer 0 once; per step
-    layer 0 over the x and time-embedding rows, the other layers, the
-    biases and the 5-flop update) at the f32 CUDA-core peak; returns
-    (ms, "bytes"|"operations")."""
+    the two tables read once and x_0 (and with ``record`` the record)
+    written once over HBM, against the kernel's flops (per row: the
+    state's share of layer 0 once; per step layer 0 over the x and
+    time-embedding rows, the other layers, the biases and the 5-flop
+    update) at the f32 CUDA-core peak; returns (ms, "bytes"|"operations")."""
     A, T = dims[-1], dims[0] - dims[-1] - S
     ins = [A + T] + list(dims[1:-1])
     step = sum(2 * i * o + o for i, o in zip(ins, dims[1:])) + 5 * A
     flops = R * (2 * S * dims[1] + L * step)
     weights = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
-    nbytes = 4 * (weights + 2 * R * A + R * S + L * R * A + L * (3 + T))
+    nbytes = 4 * (weights + 2 * R * A + R * S + L * R * A + L * (3 + T)
+                  + (L * R * ops.chain_record_width(dims) if record else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def chain_bwd_bound_ms(dims, S: int, R: int, L: int):
+    """Least time for one chain backward in f32 from its record: the
+    weights (not the biases), the record, state, g and the two tables
+    read once and every dW and db written once over HBM, against the
+    kernel's flops at the f32 CUDA-core peak.  Per row and step: -c2 g,
+    every layer's dW (2 in out) and db (out), the transposed products of
+    the layers above the first (2 in out); at every step but the last also
+    the first layer's product into x (2 A dims[1]) and g's update (2 A).
+    Returns (ms, "bytes"|"operations")."""
+    A, T = dims[-1], dims[0] - dims[-1] - S
+    pairs = list(zip(dims[:-1], dims[1:]))
+    step = A + sum(2 * i * o + o for i, o in pairs) \
+        + sum(2 * i * o for i, o in pairs[1:])
+    flops = R * (L * step + (L - 1) * (2 * A * dims[1] + 2 * A))
+    nbytes = 4 * (sum(i * o for i, o in pairs)
+                  + L * R * ops.chain_record_width(dims) + R * S + R * A
+                  + L * (3 + T) + sum((i + 1) * o for i, o in pairs))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -772,7 +933,10 @@ def _chain_timing(device) -> list:
     and, as the yardstick, the step path for the same chain
     (``reverse_sample(impl="step")``: eager denoiser and one ddpm_step a
     step, plus the final tanh), in turns; ``ms_per_layer`` divides by the
-    L x layers dependent layers of the chain."""
+    L x layers dependent layers of the chain.  For the actor's chains
+    (``CTRL_DIMS``) also a row ``<case>+record``: the forward with its
+    record for the backward, timed in turns with the forward without one
+    (``no_record_ms``)."""
     rows = []
     for i, (name, dims, S, R, L, kind) in enumerate(CHAIN_CASES):
         c = _chain_inputs(dims, S, R, L, kind, device, 500 + i)
@@ -797,6 +961,79 @@ def _chain_timing(device) -> list:
                      "graph_ms_per_layer": t["graph_ms"] / layers,
                      "grids_per_call": _grids_per_call(
                          lambda: ops.ddpm_chain(*args), "ddpm_chain")})
+        if dims != CTRL_DIMS:
+            continue
+
+        def with_record():
+            ops.ddpm_chain(*args, record=True)
+
+        tr = _timed_turns(with_record, lambda: ops.ddpm_chain(*args))
+        bound, by = chain_bound_ms(dims, S, R, L, record=True)
+        rows.append({"case": f"{name}+record", "shape": {
+            "dims": list(dims), "S": S, "R": R, "L": L, "record": True},
+            "iters": tr["iters"], "ms": tr["ms"], "ms_runs": tr["ms_runs"],
+            "no_record_ms": tr["plain_ms"],
+            "no_record_ms_runs": tr["plain_ms_runs"],
+            "graph_ms": tr["graph_ms"], "graph_launches": tr["graph_launches"],
+            "plain_ms": rows[-1]["plain_ms"], "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "peak": "f32 67 TFLOP/s",
+            "grids_per_call": _grids_per_call(with_record, "ddpm_chain")})
+    return rows
+
+
+# ddpm_chain_bwd timing cases at the actor's widths (L = 5): one row, a
+# D3PG minibatch, and 128 clusters
+CHAIN_BWD_TIMING = [("control_R1", 1), ("train", 64), ("R1024", 1024)]
+
+
+def _chain_bwd_timing(device) -> list:
+    """ddpm_chain_bwd at the actor's widths (L = 5) at CHAIN_BWD_TIMING's
+    R: the kernel on its record and its plain version in turns, graph_ms
+    and the bound; no single PyTorch call computes it (library_ms null).
+    Beside it (``fwd_bwd``) the yardstick: a policy chain's forward and
+    backward, ``reverse_sample`` plus ``autograd.grad`` of sum(w * x_0),
+    through the chain (``DdpmChain``: one ddpm_chain with its record, one
+    ddpm_chain_bwd) and through the step path (eager denoiser, L ddpm_step
+    and L ddpm_step_bwd), ms in turns and graph_ms."""
+    rows = []
+    for i, (name, R) in enumerate(CHAIN_BWD_TIMING):
+        c = _chain_inputs(CTRL_DIMS, 50, R, 5, "paper", device, 800 + i)
+        w = _randn(torch.Generator().manual_seed(900 + i), R, 20).to(device)
+        _, rec = ops.ddpm_chain(*_chain_args(c), record=True)
+        bargs = (c["net"], rec, c["state"], c["coef"], c["te"], w)
+
+        def kernel():
+            ops.ddpm_chain_bwd(*bargs)
+
+        t = _timed_turns(kernel, lambda: ref.ddpm_chain_bwd_ref(*bargs))
+        bound, by = chain_bwd_bound_ms(CTRL_DIMS, 50, R, 5)
+        p = c["denoiser"].requires_grad_(True)
+        leaves = list(p.parameters())
+
+        def fwd_bwd(impl):
+            def run():
+                x0 = reverse_sample(p, c["sched"], c["state"], 20,
+                                    x_L=c["x_L"], noises=c["noises"],
+                                    impl=impl)
+                torch.autograd.grad(torch.sum(w * x0), leaves)
+            return run
+
+        fb = _timed_turns(fwd_bwd("chain"), fwd_bwd("step"))
+        step_graph = _graph_ms(fwd_bwd("step"), fb["graph_launches"])
+        p.requires_grad_(False)
+        rows.append({"case": name, "shape": {"dims": list(CTRL_DIMS),
+                                             "S": 50, "R": R, "L": 5},
+                     **t, "bound_ms": bound, "bound_by": by,
+                     "peak": "f32 67 TFLOP/s",
+                     "plan": ops.chain_bwd_plan(CTRL_DIMS, R)._asdict(),
+                     "grids_per_call": _grids_per_call(kernel,
+                                                       "ddpm_chain_bwd"),
+                     "fwd_bwd": {"chain_ms": fb["ms"],
+                                 "chain_ms_runs": fb["ms_runs"],
+                                 "chain_graph_ms": fb["graph_ms"],
+                                 "step_ms": fb["plain_ms"],
+                                 "step_ms_runs": fb["plain_ms_runs"],
+                                 "step_graph_ms": step_graph}})
     return rows
 
 
@@ -857,6 +1094,7 @@ def phase_kernel_timing(device) -> dict:
     return {"phase": "kernel_timing", "ddpm_step": rows,
             "ddpm_step_bwd": _ddpm_bwd_timing(device),
             "ddpm_chain": _chain_timing(device),
+            "ddpm_chain_bwd": _chain_bwd_timing(device),
             "flash_attention": _flash_timing(device),
             "ssd_scan": _ssd_timing(device)}
 
@@ -908,6 +1146,9 @@ def _learned_params(ts) -> dict:
             for name in names}
 
 
+TRAIN_KERNELS = ("ddpm_chain", "ddpm_chain_bwd", "ddpm_step", "ddpm_step_bwd")
+
+
 def _timed_training(cfg: T2DRLCfg, episodes: int, dev) -> dict:
     """train_t2drl with the launch counts reset just before and read just
     after, and each episode's wall time (host clock, the episode ends in
@@ -921,8 +1162,7 @@ def _timed_training(cfg: T2DRLCfg, episodes: int, dev) -> dict:
                                time.perf_counter()))
     sync(dev)
     wall = time.perf_counter() - t0
-    launches = {k: ops.LAUNCHES[k] for k in ("ddpm_chain", "ddpm_step",
-                                             "ddpm_step_bwd")}
+    launches = {k: ops.LAUNCHES[k] for k in TRAIN_KERNELS}
     grids = dict(ops.GRIDS)
     per_ep = np.diff([t0] + marks).tolist()
     return {"ts": ts, "hist": hist, "wall_s": wall,
@@ -930,51 +1170,86 @@ def _timed_training(cfg: T2DRLCfg, episodes: int, dev) -> dict:
             "grids": grids}
 
 
+def update_launches(impl: str, L: int, n: int) -> dict:
+    """The launches of n D3PG updates of the diffusion actor: the target
+    chain's ddpm_chain, and the policy chain's ddpm_chain (with its
+    record) and ddpm_chain_bwd for ``impl="chain"``, or its L ddpm_step
+    and L ddpm_step_bwd for ``impl="step"``."""
+    if impl == "chain":
+        return {"ddpm_chain": 2 * n, "ddpm_chain_bwd": n, "ddpm_step": 0,
+                "ddpm_step_bwd": 0}
+    return {"ddpm_chain": n, "ddpm_chain_bwd": 0, "ddpm_step": L * n,
+            "ddpm_step_bwd": L * n}
+
+
 def _update_timing(ts, cfg: T2DRLCfg, dev, n: int = 50) -> dict:
-    """n D3PG updates on a copy of the trained learner, minibatches from
-    its replay buffer: host-clock s per update (ending in a synchronise)
-    and the losses of the last one; on the card also the update's device
-    time (torch.profiler), the device's idle share of the host-clock
-    time, and the eight largest device events."""
-    from repro_torch.core.t2drl import _agents
-    alloc, _ = _agents(cfg)
-    state = copy.deepcopy(ts["d3pg"])
-    g = make_generator(99, dev)
-    batch = cfg.d3pg_cfg().batch
-    for _ in range(3):                       # warm-up
-        state, m = alloc.update(state, buffer_sample(ts["ebuf"], g, batch),
-                                g)
-    sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(n):
-        state, m = alloc.update(state, buffer_sample(ts["ebuf"], g, batch),
-                                g)
-    sync(dev)
-    wall = (time.perf_counter() - t0) / n
-    out = {"updates": n, "s_per_update": wall,
-           "losses": {k: v.item() for k, v in m.items()}}
+    """n D3PG updates with the policy chain through each ``impl``
+    ("chain", then "step"), each on its own copy of the trained learner,
+    minibatches from its replay buffer drawn from the same seed: host ms
+    per update (ending in a synchronise), the launches of the n updates
+    (counts reset just before, read just after; on the card they must be
+    ``update_launches``), their grids, and the losses of the last one; on
+    the card also the update's device ms (the card's own events in
+    torch.profiler), the device's idle share of the host-clock time, the
+    device kernels (and copies or fills) per update and the eight largest
+    device events.  Both impls are timed on the host clock before either
+    is profiled: a profiler run leaves later launches slower on the
+    host."""
+    from repro_torch.agents.allocators import actor_schedule
+    from repro_torch.core.d3pg import d3pg_update
+    d3 = cfg.d3pg_cfg()
+    sched = actor_schedule(d3)
+    out, updates = {"updates": n}, {}
+    for impl in ("chain", "step"):
+        learner = {"state": copy.deepcopy(ts["d3pg"])}
+        g = make_generator(99, dev)
+
+        def one(impl=impl, learner=learner, g=g):
+            learner["state"], m = d3pg_update(
+                learner["state"], d3, sched,
+                buffer_sample(ts["ebuf"], g, d3.batch), g, impl=impl)
+            return m
+
+        for _ in range(3):                       # warm-up
+            one()
+        sync(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            m = one()
+        sync(dev)
+        wall = (time.perf_counter() - t0) / n
+        launches = {k: ops.LAUNCHES[k] for k in TRAIN_KERNELS}
+        if dev.type == "cuda":
+            want = update_launches(impl, cfg.L, n)
+            require(launches == want, f"{n} updates with impl={impl} "
+                    f"launched {launches}, expected {want}")
+        out[impl] = {"ms_per_update": 1e3 * wall, "launches": launches,
+                     "grids": {k: ops.GRIDS[k] for k in TRAIN_KERNELS},
+                     "losses": {k: v.item() for k, v in m.items()}}
+        updates[impl] = one
     if dev.type == "cuda":
-        def one():
-            nonlocal state
-            state, _ = alloc.update(state,
-                                    buffer_sample(ts["ebuf"], g, batch), g)
-        events = device_ms_per_call(one, 20)
-        busy = sum(events.values())
-        out["device_ms_per_update"] = busy if events else None
-        out["device_idle_share"] = (1.0 - busy / (1e3 * wall) if events
-                                    else None)
-        out["device_ms_top"] = dict(sorted(events.items(),
-                                           key=lambda kv: -kv[1])[:8])
+        for impl, one in updates.items():
+            row = out[impl]
+            events, kernels, all_events = device_ms_per_call(one, 20)
+            busy = sum(events.values())
+            row["device_ms_per_update"] = busy
+            row["device_idle_share"] = 1.0 - busy / row["ms_per_update"]
+            row["device_kernels_per_update"] = kernels
+            row["device_events_per_update"] = all_events
+            row["device_ms_top"] = dict(sorted(events.items(),
+                                               key=lambda kv: -kv[1])[:8])
     return out
 
 
-def device_ms_per_call(fn, n: int) -> dict:
+def device_ms_per_call(fn, n: int) -> tuple:
     """Device time of one call of ``fn``, by event name: the time of every
     event that torch.profiler records on the card over n calls (kernels,
-    copies, fills), over n.  Only the card's own events count: the CPU op
-    that launched a kernel carries the kernel's time as well, and summing
-    both would count it twice.  The profiler's own overhead lands on the
-    host, not in these times."""
+    copies, fills), over n; and the kernels, and all such events, per
+    call.  Only the card's own events count: the CPU op that launched a
+    kernel carries the kernel's time as well, and summing both would count
+    it twice.  The profiler's own overhead lands on the host, not in these
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -982,10 +1257,13 @@ def device_ms_per_call(fn, n: int) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / n
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-            and e.self_device_time_total > 0}
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and e.self_device_time_total > 0]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    return ({e.key: e.self_device_time_total / 1e3 / n for e in device},
+            (sum(e.count for e in device) - sum(e.count for e in copies))
+            / n, sum(e.count for e in device) / n)
 
 
 def phase_train(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 8,
@@ -996,8 +1274,10 @@ def phase_train(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 8,
     episodes.  Requires finite stats and losses, every learned parameter
     changed, the optimizers' steps equal to the gates' update counts and,
     on the card, exact launch counts over the t2drl run: ddpm_chain
-    T*K*episodes (acting) + D3PG updates (target chains), ddpm_step and
-    ddpm_step_bwd L per D3PG update."""
+    T*K*episodes (acting) + 2 per D3PG update (the target and the policy
+    chain), ddpm_chain_bwd 1 per D3PG update (the policy gradient),
+    ddpm_step and ddpm_step_bwd none.  Then one D3PG update timed with
+    each ``impl`` of its policy chain (``_update_timing``)."""
     dev = resolve_device(device)
     ec = env_cfg
     cfg = method_cfg("d3pg", "ddqn", ec, episodes)
@@ -1012,8 +1292,8 @@ def phase_train(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 8,
     require(steps == {"opt_a": n_d3, "opt_c": n_d3, "ddqn": n_dq},
             f"optimizer steps {steps}, the gates predict {n_d3} D3PG and "
             f"{n_dq} DDQN updates")
-    want = {"ddpm_chain": ec.T * ec.K * episodes + n_d3,
-            "ddpm_step": cfg.L * n_d3, "ddpm_step_bwd": cfg.L * n_d3}
+    want = update_launches("chain", cfg.L, n_d3)
+    want["ddpm_chain"] += ec.T * ec.K * episodes
     if dev.type == "cuda":
         require(run["launches"] == want, f"training launched "
                 f"{run['launches']}, expected {want}")
@@ -1025,8 +1305,9 @@ def phase_train(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 8,
                  and any(torch.equal(a, b) for a, b in zip(init[k], final[k]))]
     require(not unchanged, f"learned parameters left unchanged: {unchanged}")
     upd = _update_timing(ts, cfg, dev)
-    require(all(math.isfinite(v) for v in upd["losses"].values()),
-            f"non-finite losses {upd['losses']}")
+    for impl in ("chain", "step"):
+        require(all(math.isfinite(v) for v in upd[impl]["losses"].values()),
+                f"non-finite losses {upd[impl]['losses']} (impl={impl})")
     policy = export_policy(ts, cfg)
     t1 = time.perf_counter()
     ev = eval_t2drl(policy, ts["models"], cfg, episodes=eval_episodes,
@@ -1589,54 +1870,69 @@ REPLACES = {
                      "src/repro/diffusion/sampler.py:22)",
     "ddpm_chain": "src/repro/kernels/ddpm_step.py:20 with the lax.scan of "
                   "src/repro/diffusion/sampler.py:26",
+    "ddpm_chain_bwd": "src/repro/kernels/ddpm_step.py:20 with the lax.scan "
+                      "of src/repro/diffusion/sampler.py:26 (its VJP, which "
+                      "jax.grad derives through the scan)",
     "flash_attention": "src/repro/kernels/flash_attention.py:27",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:22"}
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 SOURCES["ddpm_step_bwd"] = SOURCES["ddpm_step"]
+SOURCES["ddpm_chain_bwd"] = SOURCES["ddpm_chain"]
 
 
 def kernels_line(check, timing, train, control, data, lm) -> dict:
     """The ``kernels`` line.  ddpm_step: the control plane's impl="step"
-    episode (at (20,)) and the training run's policy chains (at (64, 20)).
-    ddpm_step_bwd: the training run's policy gradients (at (64, 20)).
-    ddpm_chain: the modal shape is the control plane's chain (R = 1); the
-    path sums the control plane's and the training run's launches (acting
-    at R = 1, each update's target chain at R = 64); the data plane's
-    chains vary in L (their times are under "at"); grids per call over
-    every plane.  flash_attention and ssd_scan at the most frequent
-    prefill length of the LM plane, with the path summed over its buckets
-    (24 launches per prefill) and the times at L = 512 and 4096 beside
-    it."""
+    episode (at (20,)) and the impl="step" updates of the train phase's
+    update timing (their policy chains, at (64, 20)).  ddpm_step_bwd:
+    those updates' policy gradients (at (64, 20)).  ddpm_chain: the modal
+    shape is the control plane's chain (R = 1); the path sums the control
+    plane's and the training run's launches (acting at R = 1, each
+    update's target chain at R = 64 and its policy chain with the record
+    at R = 64); the data plane's chains vary in L (their times are under
+    "at"); grids per call over every plane.  ddpm_chain_bwd: the training
+    run's policy gradients (R = 64), with the forward + backward of a
+    policy chain through the chain and the step path under ``fwd_bwd``.
+    flash_attention and ssd_scan at the most frequent prefill length of
+    the LM plane, with the path summed over its buckets (24 launches per
+    prefill) and the times at L = 512 and 4096 beside it.  Every kernel
+    must have launched on its path."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
+    upd = train["update_timing"]
+    step_upd = upd["step"]
     step_rows = [(_shape_key(r["shape"]), r) for r in timing["ddpm_step"]]
     step_path = {"20": step_run["launches"]["ddpm_step"],
-                 "64x20": tl["ddpm_step"]}
+                 "64x20": step_upd["launches"]["ddpm_step"]}
     summary = {"ddpm_step": kernel_summary(
         step_rows, step_path, max(step_path, key=step_path.get),
         ("20", "256", "65536x256"),
-        step_run["grids"] + train["grids"]["ddpm_step"])}
+        step_run["grids"] + step_upd["grids"]["ddpm_step"])}
     summary["ddpm_step"]["launches_by_path"] = {
-        "control_step_episode": step_path["20"], "train": step_path["64x20"]}
+        "control_step_episode": step_path["20"],
+        "step_updates": step_path["64x20"]}
     summary["ddpm_step_bwd"] = kernel_summary(
         [(_shape_key(r["shape"]), r) for r in timing["ddpm_step_bwd"]],
-        {"64x20": tl["ddpm_step_bwd"]}, "64x20",
+        {"64x20": step_upd["launches"]["ddpm_step_bwd"]}, "64x20",
         ("20", "256", _shape_key(BWD_SHAPES[-1])),
-        train["grids"]["ddpm_step_bwd"])
+        step_upd["grids"]["ddpm_step_bwd"])
+    summary["ddpm_step_bwd"]["launches_by_path"] = {
+        "step_updates": step_upd["launches"]["ddpm_step_bwd"]}
     chain_rows = [(r["case"], r) for r in timing["ddpm_chain"]]
     by_plane = {"control": control["launches"]["ddpm_chain"],
                 "train": tl["ddpm_chain"],
                 "data": data["launches"]["ddpm_chain"],
                 "lm_gateway": lm["gateway"]["launches"]["ddpm_chain"]}
     acting = train["env"]["T"] * train["env"]["K"] * train["episodes"]
+    n_d3 = train["d3pg_updates"]
     chain = kernel_summary(
         chain_rows, {"control": by_plane["control"] + acting,
-                     "control_R64": tl["ddpm_chain"] - acting},
-        "control", [c[0] for c in CHAIN_CASES[1:]],
+                     "control_R64": n_d3, "control_R64+record": n_d3},
+        "control", [k for k, _ in chain_rows[1:]],
         control["grids"] + train["grids"]["ddpm_chain"])
     chain["step_ms"] = timing["ddpm_chain"][0]["step_ms"]
     for k, row in chain_rows[1:]:
-        chain["at"][k]["step_ms"] = row["step_ms"]
+        if "step_ms" in row:
+            chain["at"][k]["step_ms"] = row["step_ms"]
     chain["launches_by_plane"] = by_plane
     chain["grids_per_call"] = (control["grids"] + data["grids"]
                                + train["grids"]["ddpm_chain"]
@@ -1645,9 +1941,20 @@ def kernels_line(check, timing, train, control, data, lm) -> dict:
     chain["clusters_per_call"] = (control["clusters"] + data["clusters"]) \
         / (by_plane["control"] + by_plane["data"])
     summary["ddpm_chain"] = chain
+    bwd = kernel_summary(
+        [(r["case"], r) for r in timing["ddpm_chain_bwd"]],
+        {"train": tl["ddpm_chain_bwd"]}, "train", ("control_R1", "R1024"),
+        train["grids"]["ddpm_chain_bwd"])
+    bwd["fwd_bwd"] = {r["case"]: r["fwd_bwd"]
+                      for r in timing["ddpm_chain_bwd"]}
+    bwd["launches_by_path"] = {
+        "train": tl["ddpm_chain_bwd"],
+        "chain_updates": upd["chain"]["launches"]["ddpm_chain_bwd"]}
+    summary["ddpm_chain_bwd"] = bwd
     launches = {"ddpm_step": sum(step_path.values()),
-                "ddpm_step_bwd": tl["ddpm_step_bwd"],
+                "ddpm_step_bwd": step_upd["launches"]["ddpm_step_bwd"],
                 "ddpm_chain": sum(by_plane.values()),
+                "ddpm_chain_bwd": tl["ddpm_chain_bwd"],
                 "flash_attention": lm["flash_attention_launches"],
                 "ssd_scan": lm["ssd_scan_launches"]}
     for kname, model in (("flash_attention", "qwen2-0.5b"),
@@ -1661,12 +1968,14 @@ def kernels_line(check, timing, train, control, data, lm) -> dict:
         summary[kname] = kernel_summary(
             [(r["shape"][1], r) for r in timing[kname]], per_bucket,
             modal_bucket(counts), (512, LONG_L), lm["grids"][kname])
+    idle = [k for k, n in launches.items() if n <= 0]
+    require(not idle, f"kernels never launched on their paths: {idle}")
     return {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k], "launches": launches[k],
         "max_abs_err": check[k]["max_abs_err"], **summary[k]}
         for k in ("ddpm_step", "ddpm_step_bwd", "ddpm_chain",
-                  "flash_attention", "ssd_scan")]}
+                  "ddpm_chain_bwd", "flash_attention", "ssd_scan")]}
 
 
 def main() -> int:

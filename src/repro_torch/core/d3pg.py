@@ -8,8 +8,11 @@ DDPG baseline's tanh MLP actor.
 
 Acting (``actor_act``) runs the whole chain in one ``ddpm_chain`` launch
 under ``torch.no_grad``; the actor's loss in ``d3pg_update`` goes through
-``actor_forward``, the grad-enabled step chain (``ddpm_step`` forward and
-backward kernels around the eager denoiser).  The telemetry variant
+``actor_forward``, the grad-enabled chain: with ``impl="chain"`` (the
+default) one ``ddpm_chain`` launch with its record and one
+``ddpm_chain_bwd`` launch in the backward, with ``impl="step"`` the eager
+denoiser around L ``ddpm_step`` and L ``ddpm_step_bwd`` launches.  The
+telemetry variant
 (``diag=True``) waits for ROADMAP A.8, the stacked B-learner functions for
 A.6.
 """
@@ -85,14 +88,15 @@ def d3pg_init(cfg: D3PGCfg, generator: torch.Generator) -> dict:
 
 
 def actor_forward(actor, cfg: D3PGCfg, sched, state, generator=None, *,
-                  x_L=None, noises=None):
+                  x_L=None, noises=None, impl: str = "chain"):
     """Raw action in [0,1]^A with the graph to the actor's parameters: the
-    diffusion actor through ``reverse_sample(impl="step")``, the DDPG
-    actor through its tanh MLP.  What the actor's loss differentiates."""
+    diffusion actor through ``reverse_sample(impl=impl)`` (``"chain"``:
+    ``DdpmChain``; ``"step"``: the eager step loop), the DDPG actor through
+    its tanh MLP.  What the actor's loss differentiates."""
     if cfg.actor_kind == "diffusion":
         return reverse_sample_actions(actor, sched, state, cfg.action_dim,
                                       generator=generator, x_L=x_L,
-                                      noises=noises, impl="step")
+                                      noises=noises, impl=impl)
     x = mlp_apply(actor, state, final_act=torch.tanh)
     return 0.5 * (x + 1.0)
 
@@ -136,7 +140,8 @@ def amend_actions(raw, req, rho, U: int, *, b_floor: float = 0.01,
 
 def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
                 generator: torch.Generator = None, *, lr_a=None, lr_c=None,
-                mask=None, diag: bool = False, draws=None):
+                mask=None, diag: bool = False, draws=None,
+                impl: str = "chain"):
     """One minibatch step of Eqs. (24)-(29), in the reference's order:
 
     1. the target action for ``s1``: ``actor_t``'s chain under no-grad
@@ -146,8 +151,11 @@ def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
     3. the critic's loss ``mean(0.5 (y_hat - Q(s, a))^2)`` and its Adam
        step;
     4. the actor's loss ``-mean Q(s, amend(pi(s)))`` against the
-       **updated** critic, through ``actor_forward`` (the step chain with
-       the ``ddpm_step`` forward and backward kernels);
+       **updated** critic, through ``actor_forward(impl=impl)``: with
+       ``"chain"`` one ``ddpm_chain`` launch with its record and one
+       ``ddpm_chain_bwd`` launch for the whole minibatch, with ``"step"``
+       L ``ddpm_step`` and L ``ddpm_step_bwd`` launches around the eager
+       denoiser;
     5. the actor's Adam step;
     6. the soft updates of both targets at ``eps_target``.
 
@@ -155,7 +163,9 @@ def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
     that was executed.  ``mask`` is a (U,) or per-row (batch, U)
     active-user mask.  ``draws`` injects the chains' draws as
     ``{"target": (x_L, noises), "policy": (x_L, noises)}``; otherwise the
-    target's then the policy's are drawn from ``generator``.  Parameters,
+    target's then the policy's are drawn from ``generator``.  ``impl``
+    picks the policy chain's kernels, as the reference's ``impl`` does; the
+    target chain runs through ``ddpm_chain`` either way.  Parameters,
     targets and Adam states are updated in place and returned in a new
     dict, with ``{"critic_loss", "actor_loss"}`` (0-dim tensors)."""
     if diag:
@@ -188,7 +198,7 @@ def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
     # --- actor (26)-(27): maximise Q(s, amend(pi(s))) ------------------------
     actor = params["actor"]
     raw = actor_forward(actor, cfg, sched, batch["s"], generator, x_L=x_pi,
-                        noises=n_pi)
+                        noises=n_pi, impl=impl)
     act = amend(raw, batch["req"], batch["rho"])
     a_loss = -torch.mean(critic_q(critic, batch["s"], act))
     a_grads = torch.autograd.grad(a_loss, list(actor.parameters()))

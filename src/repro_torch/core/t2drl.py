@@ -36,9 +36,10 @@ updates by injected draws.
 
 Every D3PG action runs its L-step reverse chain in one ``ddpm_chain``
 launch (a greedy d3pg episode launches it exactly T*K times); a D3PG
-update adds one ``ddpm_chain`` launch (the target chain over the
-minibatch) and L ``ddpm_step`` and L ``ddpm_step_bwd`` launches (the
-actor's policy gradient).
+update adds two ``ddpm_chain`` launches (the target chain over the
+minibatch, then the policy chain with its record) and one
+``ddpm_chain_bwd`` launch (the actor's policy gradient), and no
+``ddpm_step`` or ``ddpm_step_bwd``.
 """
 from __future__ import annotations
 

@@ -8,12 +8,17 @@ Starting from x_L ~ N(0, I), iterate
 with sigma_1 = 0.  ``impl="chain"`` (the default, as the JAX sampler's
 one ``lax.scan``) runs the whole chain in one ``kernels.ops.ddpm_chain``
 launch: denoiser MLP and update fused over all L steps.  ``impl="step"``
-runs the denoiser eagerly and one ``kernels.ops.ddpm_step`` a step, and
-is differentiable: the actor's policy gradient flows through the tanh,
-the L ``ddpm_step`` updates (forward and backward kernels) and the eager
-denoiser, as ``jax.grad`` differentiates the reference's sampler.
-``ddpm_chain`` has no backward, so ``impl="chain"`` runs under
-``torch.no_grad``.  On the CPU both run their kernels' plain versions.
+runs the denoiser eagerly and one ``kernels.ops.ddpm_step`` a step.
+
+Both are differentiable in the denoiser's parameters, as ``jax.grad``
+differentiates the reference's sampler: when grad mode is on and the
+net's parameters require a gradient, ``impl="chain"`` goes through
+``ops.DdpmChain`` (the forward with its record, then one
+``ddpm_chain_bwd`` launch in the backward); otherwise it runs under
+``torch.no_grad``.  ``impl="step"`` carries autograd's graph through the
+eager denoiser and the L ``ddpm_step`` updates (``ddpm_step_bwd`` in the
+backward), and to ``state`` too.  On the CPU both run their kernels'
+plain versions.
 """
 from __future__ import annotations
 
@@ -53,9 +58,10 @@ def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
     ``x_L`` (shape ``(..., A)``) and ``noises`` (``(L, ..., A)``, consumed
     in chain order, ``noises[0]`` at the first step) may be injected;
     otherwise they are drawn from ``generator`` on ``state``'s device, the
-    same draws for either ``impl``.  With ``impl="step"`` the result
-    carries the graph to ``p``'s parameters (and to ``state``) when grad
-    mode is on; ``impl="chain"`` never does."""
+    same draws for either ``impl``.  When grad mode is on, the result
+    carries the graph to ``p``'s parameters (with ``impl="step"`` to
+    ``state`` as well; ``impl="chain"`` refuses a ``state`` that requires
+    a gradient)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
     L = sched.L
@@ -68,12 +74,16 @@ def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
     if impl == "chain":
         R = math.prod(shape[:-1])
         coef, te = chain_tables(sched, p.time_dim, dev)
-        with torch.no_grad():
-            x0 = kops.ddpm_chain(
-                p.net, x_L.reshape(R, action_dim).contiguous(),
+        args = (p.net, x_L.reshape(R, action_dim).contiguous(),
                 state.reshape(R, state.shape[-1]).contiguous(),
                 noises.reshape(L, R, action_dim).contiguous(), coef, te)
-            return torch.tanh(x0.reshape(shape))
+        if torch.is_grad_enabled() and any(q.requires_grad
+                                           for q in p.net.parameters()):
+            x0 = kops.ddpm_chain(*args)          # DdpmChain: differentiable
+        else:
+            with torch.no_grad():
+                x0 = kops.ddpm_chain(*args)
+        return torch.tanh(x0.reshape(shape))
     _, te = chain_tables(sched, p.time_dim, dev)
     x = x_L
     for i in range(L):

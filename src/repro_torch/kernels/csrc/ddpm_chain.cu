@@ -69,6 +69,64 @@
 //    bit for bit.  The products sum in another order than the plain
 //    version's x @ w + b, so eps_hat agrees to rounding, not bit for bit.
 //
+// The record and the backward (ddpm_chain_bwd).  With a record pointer
+// the forward also writes, per step and row, x and every hidden layer's
+// output after its ReLU: (L, R, A + hidden widths) f32, ~0.5 MB at the
+// actor's R = 64, L = 5 (0.15 us of HBM, written by the CTA that computes
+// each value).  Without one it runs as before, bit for bit.
+//
+// ddpm_chain_bwd replaces the VJP that jax.grad derives through the
+// lax.scan of repro/diffusion/sampler.py::reverse_sample (the port's first
+// version: per step an eager denoiser's autograd backward and one
+// ddpm_step_bwd launch, ~40 launches and autograd nodes a step).  Given
+// g = dloss/dx_0 it walks the steps backwards, l_rev = 0 .. L-1:
+//
+//     delta = -c2 g                       (eps_hat's gradient; none to
+//     for layer l = top .. 0:               the noise, sigma = 0 anyway
+//       dW_l += h_l^T delta, db_l += sum(delta)   at l_rev = 0)
+//       delta = (delta W_l^T) * (h_l > 0)  (l > 0: torch's ReLU mask)
+//     g = c1 g + delta W_0[x rows]^T       (layer 0: x's columns only)
+//
+// and returns dW, db only.  Bound: ~130k MACs a row and step at the
+// paper's widths (the two products a layer), ~1.25 us at 67 TFLOP/s for
+// R = 64, L = 5; like the forward it is latency-bound, by L x layers
+// dependent transposed products.
+//
+// Why the record holds every activation and not just x: the backward
+// then recomputes nothing, so its critical path is one exchange a layer
+// (L x layers - 1 in all) instead of a recomputed forward (L x layers
+// all-gathers) plus the backward's exchanges; the ReLU masks are the
+// forward's own, not a recomputation's; and a step's activations do not
+// depend on g, so they are prefetched (cp.async) a step ahead.
+//
+// Backward design:
+//  * The same clusters as the forward (ops.chain_bwd_plan: up to 8 rows,
+//    2-8 CTAs).  CTA k owns the same column slice of every layer as in the
+//    forward, keeps it transposed in shared memory ([c][j], so lanes over
+//    j read consecutive banks) for the whole launch, and accumulates the
+//    dW and db of its columns in shared memory over all rows and steps,
+//    each element by one thread in a fixed order.
+//  * The transposed product delta_in = W delta_out needs every column of
+//    a row of W, which the slicing splits.  Each CTA forms the partial sums
+//    over its own columns for every input j and pushes each one (st.async
+//    on the owner's mbarrier, as the forward's activations) into a slot of
+//    the CTA that owns j in the layer below: a reduce-scatter over DSMEM.
+//    The owner adds the cluster's partials in rank order, so the result
+//    does not depend on timing.  A second, row-sliced copy of W (~23 KB a
+//    CTA) would all-gather delta instead: the same bytes over DSMEM, and
+//    twice the weight slices in shared memory; it was not built.
+//  * Every CTA receives from every CTA at every exchange (a CTA that owns
+//    no column of a width gets one dummy float from each), so the forward's
+//    argument for its double buffer holds: a CTA pushes into buffer b for
+//    exchange s + 2 only after every CTA's exchange-(s + 1) partials have
+//    reached it, each sent after its CTA had read exchange s.  A CTA
+//    arms its mbarrier for exchange s + 2 once it has read exchange s,
+//    before its own exchange-(s + 1) pushes, which every peer's
+//    exchange-(s + 2) pushes follow.
+//  * Where R spans several clusters, each writes its partial dW/db to
+//    scratch and a second grid sums them in cluster order: no float
+//    atomics, the same bits from the same inputs.
+//
 // Interface: plain C, loaded with ctypes (kernels/ops.py).  The wrapper
 // checks shapes, dtypes and contiguity, allocates the output, passes the
 // MLP as pointers and widths in a ChainNet by value, and passes the plan's
@@ -106,6 +164,14 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // row stride of a weight slice of cs columns: >= cs and = 4 (mod 32)
 __host__ __device__ inline int wstride(int cs) {
   return ((cs + 27) / 32) * 32 + 4;
+}
+
+// floats of one row of one step in the record: x (A), then the output of
+// every hidden layer after its ReLU
+__host__ __device__ inline int record_width(const ChainNet& net) {
+  int w = net.dims[net.n_layers];
+  for (int l = 1; l < net.n_layers; ++l) w += net.dims[l];
+  return w;
 }
 
 struct Layout {       // float offsets into the dynamic shared memory,
@@ -265,7 +331,8 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
                   const float* __restrict__ noises,
                   const float* __restrict__ coef,
                   const float* __restrict__ te, float* __restrict__ out,
-                  int R, int L, int S, int T, int rows) {
+                  float* __restrict__ record, int R, int L, int S, int T,
+                  int rows) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cn = static_cast<int>(cluster.num_blocks());
@@ -339,6 +406,8 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
       const int r = o / ncl, c = o - r * ncl;
       xown[o] = x_L[static_cast<size_t>(row0 + r) * A + c0l + c];
     }
+  // the record's row: x, then every hidden layer's output (ReLU applied)
+  const int wrec = record_width(net);
 
   // 4. s0 = state . w0[A:A+S] + b0 for this CTA's layer-0 columns, once
   const int cs0 = cdiv(net.dims[1], cn), c00 = rank * cs0;
@@ -416,6 +485,15 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
     cp_async_commit();
     const float c1 = coef[3 * l_rev], c2 = coef[3 * l_rev + 1],
                 sigma = coef[3 * l_rev + 2];
+    // the record of step i: x_i from its owner, the hidden outputs below
+    float* rec_i = record ? record + static_cast<size_t>(i) * R * wrec
+                          : nullptr;
+    if (rec_i && j == 0)
+      for (int o = slot; o < nol; o += kOutPerPass) {
+        const int r = o / ncl, c = o - r * ncl;
+        rec_i[static_cast<size_t>(row0 + r) * wrec + c0l + c] = xown[o];
+      }
+    int rof = A;                // the record column of layer l's output
 
 #pragma unroll
     for (int l = 0; l < CHAIN_MAX_LAYERS; ++l) {
@@ -458,6 +536,8 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
           float v = acc + (l == 0 ? s0[o] : smem[lb[l] + c]);
           if (!final_layer) {
             v = fmaxf(v, 0.f);
+            if (rec_i)
+              rec_i[static_cast<size_t>(row0 + r) * wrec + rof + c0 + c] = v;
           } else {            // the fused update, as ddpm_step.cu
             cp_async_wait<1>();          // N_i has landed
             const float nv = nbuf[(i & 1) * rows * csl + o];
@@ -483,6 +563,7 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
           push(own_full + 4u * (nxt + r * fs + A + S + tid), t,
                own_bar + 8 * nb);
       }
+      rof += ow;
       ++g;
     }
   }
@@ -495,17 +576,344 @@ int64_t smem_bytes_of(const ChainNet& net, int cluster, int rows) {
   return 4 * static_cast<int64_t>(chain_layout(net, cluster, rows).total);
 }
 
+// -- the backward ---------------------------------------------------------------
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+struct BwdLayout {    // float offsets into the dynamic shared memory,
+                      // after the two 8-byte mbarriers at offset 0
+  int wt[CHAIN_MAX_LAYERS];   // own weight slice, transposed: [c][j]
+  int dw[CHAIN_MAX_LAYERS];   // its gradient, the same layout
+  int db[CHAIN_MAX_LAYERS];   // own bias gradient
+  int act;    // two steps' activations: rows x [x, state, te, hidden...]
+  int wa;     // floats of one such row
+  int dl;     // two buffers of the rows' own delta (row stride dlw)
+  int dlw;
+  int g;      // the rows' own slice of g (row stride csl)
+  int csl;
+  int recv;   // two buffers of [source CTA][row][rs] received partials
+  int rs;
+  int total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(const ChainNet& net,
+                                                int cluster, int rows) {
+  BwdLayout lo = {};
+  const int nl = net.n_layers;
+  int off = 4, wa = net.dims[0], dlw = 1;
+  lo.csl = cdiv(net.dims[nl], cluster);
+  int rs = lo.csl;
+  for (int l = 0; l < nl; ++l) {
+    const int in = net.dims[l], cs = cdiv(net.dims[l + 1], cluster);
+    lo.wt[l] = off; off += cs * in;
+    lo.dw[l] = off; off += cs * in;
+    lo.db[l] = off; off += cs;
+    dlw = imax(dlw, cs);
+    if (l + 1 < nl) {
+      wa += net.dims[l + 1];
+      rs = imax(rs, cs);
+    }
+  }
+  lo.wa = wa;
+  lo.dlw = dlw;
+  lo.rs = rs;
+  lo.act = off;  off += 2 * rows * wa;
+  lo.dl = off;   off += 2 * rows * dlw;
+  lo.g = off;    off += rows * lo.csl;
+  lo.recv = off; off += 2 * cluster * rows * rs;
+  lo.total = off;
+  return lo;
+}
+
+int64_t bwd_smem_bytes_of(const ChainNet& net, int cluster, int rows) {
+  return 4 * static_cast<int64_t>(bwd_layout(net, cluster, rows).total);
+}
+
+// floats of the flat gradient: per layer dW (in, out) row-major, then db
+__host__ __device__ inline int64_t param_count(const ChainNet& net) {
+  int64_t p = 0;
+  for (int l = 0; l < net.n_layers; ++l)
+    p += static_cast<int64_t>(net.dims[l] + 1) * net.dims[l + 1];
+  return p;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ddpm_chain_bwd_kernel(const ChainNet net, const float* __restrict__ record,
+                      const float* __restrict__ state,
+                      const float* __restrict__ coef,
+                      const float* __restrict__ te,
+                      const float* __restrict__ gin, float* __restrict__ dst,
+                      int R, int L, int S, int T, int rows, int64_t P) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cn = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cid = static_cast<int>(blockIdx.x / cn);
+  const int row0 = cid * rows;
+  const int nrows = min(rows, R - row0);
+  const int nl = net.n_layers;
+  const int A = net.dims[nl];
+  const BwdLayout lo = bwd_layout(net, cn, rows);
+  const int wa = lo.wa, dlw = lo.dlw, rs = lo.rs, csl = lo.csl;
+  const int wrec = wa - net.dims[0] + A;     // the record's row
+  const int tid = threadIdx.x;
+  float* g = smem + lo.g;
+
+  // every layer's geometry in registers (the layer loops are unrolled)
+  int lin[CHAIN_MAX_LAYERS], low[CHAIN_MAX_LAYERS], lc0[CHAIN_MAX_LAYERS],
+      lnc[CHAIN_MAX_LAYERS], lhof[CHAIN_MAX_LAYERS];
+  int hof = 0;
+#pragma unroll
+  for (int l = 0; l < CHAIN_MAX_LAYERS; ++l) {
+    const bool used = l < nl;
+    lin[l] = used ? net.dims[l] : 0;
+    low[l] = used ? net.dims[l + 1] : 0;
+    const int cs = cdiv(low[l], cn);
+    lc0[l] = rank * cs;
+    lnc[l] = max(0, min(cs, low[l] - lc0[l]));
+    lhof[l] = hof;               // h_l's column in an activation row
+    hof += lin[l];
+  }
+
+  // 1. own weight slices, transposed (one cp.async group with the first
+  //    step's activations); the gradient accumulators start at 0
+#pragma unroll
+  for (int l = 0; l < CHAIN_MAX_LAYERS; ++l) {
+    if (l >= nl) break;
+    const int in = lin[l], nc = lnc[l], ow = low[l];
+    float* wt = smem + lo.wt[l];
+    for (int e = tid; e < in * nc; e += kThreads) {
+      const int j = e / nc, c = e - j * nc;
+      cp_async4(wt + c * in + j,
+                net.w[l] + static_cast<size_t>(j) * ow + lc0[l] + c);
+    }
+    float* dw = smem + lo.dw[l];
+    for (int e = tid; e < cdiv(ow, cn) * in; e += kThreads) dw[e] = 0.f;
+    for (int c = tid; c < cdiv(ow, cn); c += kThreads)
+      smem[lo.db[l] + c] = 0.f;
+  }
+  // the state's columns of both activation buffers, once
+  for (int e = tid; e < nrows * S; e += kThreads) {
+    const int r = e / S, k = e - r * S;
+    const float* src = state + static_cast<size_t>(row0 + r) * S + k;
+    cp_async4(smem + lo.act + r * wa + A + k, src);
+    cp_async4(smem + lo.act + (rows + r) * wa + A + k, src);
+  }
+  // step i's activations into buffer i & 1: x and the hidden outputs
+  // from the record, te[l_rev] from the table
+  auto load_step = [&](int i) {
+    float* ab = smem + lo.act + (i & 1) * rows * wa;
+    const float* src = record + (static_cast<size_t>(i) * R + row0) * wrec;
+    for (int e = tid; e < nrows * wrec; e += kThreads) {
+      const int r = e / wrec, k = e - r * wrec;
+      cp_async4(ab + r * wa + (k < A ? k : k + S + T),
+                src + static_cast<size_t>(r) * wrec + k);
+    }
+    const float* tl = te + static_cast<size_t>(L - 1 - i) * T;
+    for (int e = tid; e < nrows * T; e += kThreads) {
+      const int r = e / T, k = e - r * T;
+      cp_async4(ab + r * wa + A + S + k, tl + k);
+    }
+  };
+  load_step(L - 1);
+  cp_async_commit();
+
+  // g and the first delta (-c2 g at l_rev = 0) for the own slice of x
+  const int c0l = rank * csl, ncl = max(0, min(csl, A - c0l));
+  {
+    const float c2 = coef[1];
+    for (int e = tid; e < nrows * ncl; e += kThreads) {
+      const int r = e / ncl, c = e - r * ncl;
+      const float gv = gin[static_cast<size_t>(row0 + r) * A + c0l + c];
+      g[r * csl + c] = gv;
+      smem[lo.dl + r * dlw + c] = __fmul_rn(-c2, gv);
+    }
+  }
+
+  // exchange s (one per layer and step but the last step's layer 0)
+  // carries the partials for the layer below layer l(s) = nl-1 - s % nl:
+  // its width J is dims[l] (x's width A for l = 0)
+  const int nstages = L * nl - 1;
+  auto width_of = [&](int s) {
+    const int ls = nl - 1 - s % nl;
+    int J = A;
+#pragma unroll
+    for (int l = 1; l < CHAIN_MAX_LAYERS; ++l)
+      if (l == ls) J = lin[l];
+    return J;
+  };
+  const uint32_t bar = smem_addr(smem);
+  // one arrival and the bytes that exchange s brings to this CTA: every
+  // CTA's partials for its rows and own columns, or one dummy float
+  auto arm = [&](int s) {
+    if (s >= nstages) return;
+    const int J = width_of(s), cs = cdiv(J, cn);
+    const int own = max(0, min(cs, J - rank * cs));
+    mbar_expect(bar + 8 * (s & 1),
+                4u * cn * (own > 0 ? nrows * own : 1));
+  };
+  if (tid == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    arm(0);
+    arm(1);
+  }
+  uint32_t peer_recv[8], peer_bar[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    peer_recv[p] = p < cn ? cluster_addr(smem_addr(smem + lo.recv), p) : 0u;
+    peer_bar[p] = p < cn ? cluster_addr(bar, p) : 0u;
+  }
+  // every CTA has started and armed its mbarriers
+  cluster.sync();
+
+  int s = 0;
+  for (int i = L - 1; i >= 0; --i) {
+    const int l_rev = L - 1 - i;
+    const float c1 = coef[3 * l_rev];
+    const float c2n = i > 0 ? coef[3 * (l_rev + 1) + 1] : 0.f;
+    // step i's activations have landed; step i-1's are on their way
+    // (into the buffer that step i+1 read before its last barrier)
+    if (i > 0) {
+      load_step(i - 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* act = smem + lo.act + (i & 1) * rows * wa;
+
+#pragma unroll
+    for (int ll = 0; ll < CHAIN_MAX_LAYERS; ++ll) {
+      const int l = CHAIN_MAX_LAYERS - 1 - ll;
+      if (l >= nl) continue;
+      const bool exchange = l > 0 || i > 0;
+      const int in = lin[l], nc = lnc[l];
+      const float* d = smem + lo.dl + (s & 1) * rows * dlw;
+      const int J = l > 0 ? in : A, Jcs = cdiv(J, cn);
+      const int buf = (s & 1) * cn * rows * rs;
+      if (exchange) {
+        // this CTA's share of delta W_l^T for every row and input j < J,
+        // pushed to the owner of j
+        const float* wt = smem + lo.wt[l];
+        for (int o = tid; o < nrows * J; o += kThreads) {
+          const int r = o / J, j = o - r * J;
+          const float* dr = d + r * dlw;
+          const float* wj = wt + j;
+          float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+          int c = 0;
+          for (; c + 3 < nc; c += 4) {
+            a0 = fmaf(wj[c * in], dr[c], a0);
+            a1 = fmaf(wj[(c + 1) * in], dr[c + 1], a1);
+            a2 = fmaf(wj[(c + 2) * in], dr[c + 2], a2);
+            a3 = fmaf(wj[(c + 3) * in], dr[c + 3], a3);
+          }
+          for (; c < nc; ++c) a0 = fmaf(wj[c * in], dr[c], a0);
+          const int q = j / Jcs, jj = j - q * Jcs;
+          push(peer_recv[q] + 4u * (buf + (rank * rows + r) * rs + jj),
+               (a0 + a1) + (a2 + a3), peer_bar[q] + 8 * (s & 1));
+        }
+        // a CTA that owns no column of J still hears from every CTA
+        if (tid < cn && tid * Jcs >= J)
+          push(peer_recv[tid] + 4u * (buf + rank * rows * rs), 0.f,
+               peer_bar[tid] + 8 * (s & 1));
+      }
+      // while the partials travel: dW_l += h_l^T delta, db_l += sum delta
+      {
+        float* dw = smem + lo.dw[l];
+        const float* h = act + lhof[l];
+        for (int e = tid; e < nc * in; e += kThreads) {
+          const int c = e / in, j = e - c * in;
+          float a = dw[e];
+          for (int r = 0; r < nrows; ++r)
+            a = fmaf(h[r * wa + j], d[r * dlw + c], a);
+          dw[e] = a;
+        }
+        float* db = smem + lo.db[l];
+        for (int c = tid; c < nc; c += kThreads) {
+          float b = db[c];
+          for (int r = 0; r < nrows; ++r) b = __fadd_rn(b, d[r * dlw + c]);
+          db[c] = b;
+        }
+      }
+      if (!exchange) continue;
+      mbar_wait(bar + 8 * (s & 1), (s >> 1) & 1);
+      // the own columns of J: the cluster's partials in rank order
+      const int j0 = rank * Jcs, nJ = max(0, min(Jcs, J - j0));
+      const float* rv = smem + lo.recv + buf;
+      float* dn = smem + lo.dl + ((s + 1) & 1) * rows * dlw;
+      for (int e = tid; e < nrows * nJ; e += kThreads) {
+        const int r = e / nJ, jj = e - r * nJ;
+        float sum = 0.f;
+        for (int src = 0; src < cn; ++src)
+          sum = __fadd_rn(sum, rv[(src * rows + r) * rs + jj]);
+        if (l > 0) {          // through layer l-1's ReLU
+          dn[r * dlw + jj] =
+              act[r * wa + lhof[l] + j0 + jj] > 0.f ? sum : 0.f;
+        } else {              // into x: c1 g + delta W_0^T, then the next
+                              // step's first delta
+          const float gn = __fadd_rn(__fmul_rn(c1, g[r * csl + jj]), sum);
+          g[r * csl + jj] = gn;
+          dn[r * dlw + jj] = __fmul_rn(-c2n, gn);
+        }
+      }
+      // buffer s & 1 is free again for exchange s + 2
+      if (tid == 0) arm(s + 2);
+      ++s;
+      __syncthreads();
+    }
+  }
+
+  // 3. own columns of dW and db into this cluster's share of dst
+  float* out = dst + static_cast<size_t>(cid) * P;
+  int64_t off = 0;
+#pragma unroll
+  for (int l = 0; l < CHAIN_MAX_LAYERS; ++l) {
+    if (l >= nl) break;
+    const int in = lin[l], ow = low[l], nc = lnc[l], c0 = lc0[l];
+    const float* dw = smem + lo.dw[l];
+    for (int e = tid; e < nc * in; e += kThreads) {
+      const int c = e / in, j = e - c * in;
+      out[off + static_cast<int64_t>(j) * ow + c0 + c] = dw[e];
+    }
+    off += static_cast<int64_t>(in) * ow;
+    for (int c = tid; c < nc; c += kThreads)
+      out[off + c0 + c] = smem[lo.db[l] + c];
+    off += ow;
+  }
+  // no CTA leaves while a peer may still address its shared memory
+  cluster.sync();
+}
+
+// out[e] = the clusters' partial gradients summed in cluster order
+__global__ void ddpm_chain_bwd_reduce_kernel(const float* __restrict__ part,
+                                             float* __restrict__ out,
+                                             int64_t P, int K) {
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       e < P; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float a = part[e];
+    for (int k = 1; k < K; ++k) a = __fadd_rn(a, part[k * P + e]);
+    out[e] = a;
+  }
+}
+
 }  // namespace
 
 // Runs the L-step chain for R rows.  x_L (R, A), state (R, S), noises
 // (L, R, A), coef (L, 3) = [c1, c2, sigma], te (L, T), out (R, A): f32,
-// contiguous.  cluster, rows and smem_bytes come from ops.chain_plan.
-// started[0] = grids launched, started[1] = clusters in them.  Returns the
-// CUDA error code of the launch (0 on success).
+// contiguous.  record: null, or (L, R, record_width) f32 that receives
+// each step's x and hidden outputs for ddpm_chain_bwd_launch.  cluster,
+// rows and smem_bytes come from ops.chain_plan.  started[0] = grids
+// launched, started[1] = clusters in them.  Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
                                  const void* state, const void* noises,
                                  const void* coef, const void* te, void* out,
-                                 int64_t R, int64_t L, int64_t S, int64_t T,
+                                 void* record, int64_t R, int64_t L,
+                                 int64_t S, int64_t T,
                                  int cluster, int rows, int64_t smem_bytes,
                                  int* started, void* stream) {
   started[0] = started[1] = 0;
@@ -548,11 +956,94 @@ extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
       &cfg, ddpm_chain_kernel, net, static_cast<const float*>(x_L),
       static_cast<const float*>(state), static_cast<const float*>(noises),
       static_cast<const float*>(coef), static_cast<const float*>(te),
-      static_cast<float*>(out), static_cast<int>(R), static_cast<int>(L),
-      static_cast<int>(S), static_cast<int>(T), rows);
+      static_cast<float*>(out), static_cast<float*>(record),
+      static_cast<int>(R), static_cast<int>(L), static_cast<int>(S),
+      static_cast<int>(T), rows);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   started[0] = 1;
   started[1] = clusters;
+  return 0;
+}
+
+// The backward of the chain for R rows: record (L, R, record_width) from
+// ddpm_chain_launch on the same inputs, state (R, S), coef (L, 3), te
+// (L, T), g (R, A) = dloss/dx_0; out (param_count) receives dW (in, out)
+// then db of every layer, in layer order.  scratch: clusters x
+// param_count floats when R spans more than one cluster of `rows` rows,
+// else unused (may be null).  cluster, rows and smem_bytes come from
+// ops.chain_bwd_plan; this file recomputes the layout and refuses bytes
+// that disagree.  started[0] = grids launched (1, or 2 with the
+// cross-cluster sum), started[1] = clusters.  Returns the CUDA error code
+// (0 on success).  The launch does not synchronise.
+extern "C" int ddpm_chain_bwd_launch(ChainNet net, const void* record,
+                                     const void* state, const void* coef,
+                                     const void* te, const void* g,
+                                     void* out, void* scratch, int64_t R,
+                                     int64_t L, int64_t S, int64_t T,
+                                     int cluster, int rows,
+                                     int64_t smem_bytes, int* started,
+                                     void* stream) {
+  started[0] = started[1] = 0;
+  if (R <= 0) return 0;
+  const int nl = net.n_layers;
+  bool ok = nl >= 1 && nl <= CHAIN_MAX_LAYERS && L >= 1 && S >= 0 &&
+            T >= 0 && rows >= 1 && rows <= kMaxRows &&
+            (cluster == 2 || cluster == 4 || cluster == 8) &&
+            R <= (int64_t)1 << 30 && L <= (int64_t)1 << 30;
+  for (int l = 0; ok && l <= nl; ++l) ok = net.dims[l] >= 1;
+  ok = ok && net.dims[0] == net.dims[nl] + S + T;
+  ok = ok && smem_bytes <= kSmemLimit &&
+       smem_bytes == bwd_smem_bytes_of(net, cluster, rows);
+  const int clusters = static_cast<int>((R + rows - 1) / rows);
+  ok = ok && (clusters == 1 || scratch != nullptr);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+
+  int dev = 0;
+  cudaGetDevice(&dev);
+  static unsigned configured = 0;     // one bit per device
+  if (dev < 32 && !(configured & (1u << dev))) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ddpm_chain_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemLimit));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured |= 1u << dev;
+  }
+  const int64_t P = param_count(net);
+  float* dst = static_cast<float*>(clusters > 1 ? scratch : out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, ddpm_chain_bwd_kernel, net, static_cast<const float*>(record),
+      static_cast<const float*>(state), static_cast<const float*>(coef),
+      static_cast<const float*>(te), static_cast<const float*>(g), dst,
+      static_cast<int>(R), static_cast<int>(L), static_cast<int>(S),
+      static_cast<int>(T), rows, P);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  started[0] = 1;
+  started[1] = clusters;
+  if (clusters > 1) {
+    const int64_t blocks = (P + kThreads - 1) / kThreads;
+    ddpm_chain_bwd_reduce_kernel<<<static_cast<unsigned>(
+                                       blocks < 1024 ? blocks : 1024),
+                                   kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(scratch), static_cast<float*>(out), P,
+        clusters);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    started[0] = 2;
+  }
   return 0;
 }

@@ -9,18 +9,21 @@ launch is one call of the kernel's C entry point, however many grids it
 starts: ``ssd_scan`` runs one grid for a single chunk and three (chunk
 states, state recurrence, outputs) for more, and counts one either way.
 ``GRIDS[name]`` adds up the grids that the C entry points report they
-started, and ``CLUSTERS["ddpm_chain"]`` the thread-block clusters of its
-grids.  ``reset_launches`` zeroes all three.
+started, and ``CLUSTERS[name]`` the thread-block clusters of the two
+chain kernels' grids.  ``reset_launches`` zeroes all three.
 
 ``ddpm_step`` is differentiable in x and eps_hat: its
 ``torch.autograd.Function`` (``DdpmStep``) launches ``ddpm_step_bwd`` in
-the backward (the plain version for CPU tensors).  The other kernels are
+the backward (the plain version for CPU tensors).  ``ddpm_chain`` is
+differentiable in the MLP's weights and biases: ``DdpmChain`` launches the
+forward with its record of activations and, in the backward, one
+``ddpm_chain_bwd``.  ``flash_attention`` and ``ssd_scan`` are
 forward-only and refuse grad-enabled inputs.
 
 ``flash_plan`` (which kernel a dtype takes), ``ssd_plan`` (chunks,
-scratch, shared memory) and ``chain_plan`` (cluster size, rows per
-cluster, shared memory) hold the host-side choices of a launch, so the
-CPU tests reach them.
+scratch, shared memory), ``chain_plan`` and ``chain_bwd_plan`` (cluster
+size, rows per cluster, shared memory) hold the host-side choices of a
+launch, so the CPU tests reach them.
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ import torch
 from . import build, ref
 
 LAUNCHES = {"ddpm_step": 0, "ddpm_step_bwd": 0, "ddpm_chain": 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "ddpm_chain_bwd": 0, "flash_attention": 0, "ssd_scan": 0}
 GRIDS = dict(LAUNCHES)
-CLUSTERS = {"ddpm_chain": 0}
+CLUSTERS = {"ddpm_chain": 0, "ddpm_chain_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
@@ -64,8 +67,11 @@ _SIGNATURES = {
     "ddpm_step_bwd_launch": (ctypes.c_int, [_P, _P, _P, _I64, ctypes.c_float,
                                             ctypes.c_float, ctypes.c_int,
                                             _GRIDS, _P]),
-    "ddpm_chain_launch": (ctypes.c_int, [_ChainNet] + [_P] * 6 + [_I64] * 4
+    "ddpm_chain_launch": (ctypes.c_int, [_ChainNet] + [_P] * 7 + [_I64] * 4
                           + [ctypes.c_int, ctypes.c_int, _I64, _GRIDS, _P]),
+    "ddpm_chain_bwd_launch": (ctypes.c_int, [_ChainNet] + [_P] * 7
+                              + [_I64] * 4 + [ctypes.c_int, ctypes.c_int,
+                                              _I64, _GRIDS, _P]),
     "flash_attention_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, _I64,
                                               _I64, _I64, _I64, _I64,
                                               ctypes.c_int, _I64,
@@ -103,29 +109,22 @@ def _stream(t: torch.Tensor) -> int:
 def _check_cuda(name: str, *tensors) -> None:
     """What every kernel needs of a CUDA input: contiguous, on the current
     device."""
+    current = torch.cuda.current_device()
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
-        if t.device.index != torch.cuda.current_device():
+        if t.device.index != current:
             raise ValueError(f"{name}: a tensor is on {t.device} but the "
-                             f"current device is "
-                             f"cuda:{torch.cuda.current_device()}")
-
-
-# where the backward of each forward-only kernel would come from
-_NO_BACKWARD = {
-    "ddpm_chain": "a chain backward (ROADMAP A.4's note); training samples "
-                  "through reverse_sample(impl='step')",
-    "flash_attention": "the LM training path (ROADMAP A.11)",
-    "ssd_scan": "the LM training path (ROADMAP A.11)",
-}
+                             f"current device is cuda:{current}")
 
 
 def _check_no_grad(name: str, *tensors) -> None:
+    """The LM kernels are forward-only: their backward would come with the
+    LM training path (ROADMAP A.11)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward yet ({_NO_BACKWARD[name]}); call it "
-            "under torch.no_grad()")
+            f"{name} has no backward yet (the LM training path, ROADMAP "
+            "A.11); call it under torch.no_grad()")
 
 
 def _check_device(name: str, *tensors) -> torch.device:
@@ -284,41 +283,87 @@ def _chain_smem_bytes(dims, cluster: int, rows: int) -> int:
     return 4 * total
 
 
-@functools.lru_cache(maxsize=256)
-def chain_plan(dims: tuple, R: int, dtype=torch.float32) -> ChainPlan:
-    """Launch choices of ``ddpm_chain`` for an MLP of widths ``dims`` (in,
-    hidden..., A) over R rows: up to 8 rows per cluster, and the largest
-    cluster (2, 4 or 8 CTAs) that still gives each CTA at least 8 columns
-    of the widest hidden layer, among those whose slices fit in shared
-    memory (else the smallest that fits).  More CTAs split every layer's
-    dot products further, which is what a layer's latency follows.  Raises
-    when even 8 CTAs cannot hold the weights, or for a dtype other than
-    float32."""
+def _chain_bwd_smem_bytes(dims, cluster: int, rows: int) -> int:
+    """The shared-memory layout that ddpm_chain_bwd carves in ddpm_chain.cu
+    (its launch refuses bytes that disagree): two mbarriers (16 bytes);
+    per layer the own weight slice transposed, its dW and its db; two
+    steps' activation rows [x, state, te, hidden...]; two buffers of the
+    rows' own delta (as wide as the widest slice); the own slice of g; two
+    buffers of every CTA's partials for the rows' own columns (as wide as
+    the widest slice of x or a hidden layer)."""
+    total = 4
+    for i, o in zip(dims[:-1], dims[1:]):
+        total += 2 * _cdiv(o, cluster) * i + _cdiv(o, cluster)
+    csl = _cdiv(dims[-1], cluster)
+    dlw = max(_cdiv(o, cluster) for o in dims[1:])
+    rs = max([csl] + [_cdiv(d, cluster) for d in dims[1:-1]])
+    total += (2 * rows * (dims[0] + sum(dims[1:-1])) + 2 * rows * dlw
+              + rows * csl + 2 * cluster * rows * rs)
+    return 4 * total
+
+
+def _pick_chain_plan(name: str, smem_bytes, dims, R: int,
+                     dtype) -> ChainPlan:
+    """Up to 8 rows per cluster, and the largest cluster (2, 4 or 8 CTAs)
+    that still gives each CTA at least 8 columns of the widest hidden layer,
+    among those whose layout ``smem_bytes(dims, cluster, rows)`` fits
+    (else the smallest that fits).  More CTAs split every layer's dot
+    products further, which is what a layer's latency follows."""
     if dtype != torch.float32:
-        raise TypeError(f"ddpm_chain takes float32, not {dtype}")
+        raise TypeError(f"{name} takes float32, not {dtype}")
     dims = tuple(int(d) for d in dims)
     if not 2 <= len(dims) <= CHAIN_MAX_LAYERS + 1 or min(dims) < 1 or R < 1:
-        raise ValueError(f"ddpm_chain: widths {dims} (1 to "
+        raise ValueError(f"{name}: widths {dims} (1 to "
                          f"{CHAIN_MAX_LAYERS} layers) over {R} rows")
     rows = min(R, _CHAIN_MAX_ROWS)
     fits = [c for c in _CHAIN_CLUSTERS
-            if _chain_smem_bytes(dims, c, rows) <= SMEM_LIMIT]
+            if smem_bytes(dims, c, rows) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(
-            f"ddpm_chain: widths {dims} need "
-            f"{_chain_smem_bytes(dims, 8, rows)} bytes of shared memory in "
-            f"each of 8 CTAs, above the card's {SMEM_LIMIT}")
+            f"{name}: widths {dims} need {smem_bytes(dims, 8, rows)} bytes "
+            f"of shared memory in each of 8 CTAs, above the card's "
+            f"{SMEM_LIMIT}")
     widest = max(dims[1:-1] or dims[1:])
     enough = [c for c in fits if widest // c >= 8]
     cluster = enough[-1] if enough else fits[0]
-    return ChainPlan(cluster, rows, _chain_smem_bytes(dims, cluster, rows))
+    return ChainPlan(cluster, rows, smem_bytes(dims, cluster, rows))
 
 
-def _check_chain(net, x_L, state, noises, coef, te) -> tuple:
-    """The MLP's widths, once every tensor is f32 and contiguous and
-    every shape fits the chain (on either device: the kernel reads the
-    tensors in place)."""
-    ws, bs = list(net.w), list(net.b)
+@functools.lru_cache(maxsize=256)
+def chain_plan(dims: tuple, R: int, dtype=torch.float32) -> ChainPlan:
+    """Launch choices of ``ddpm_chain`` for an MLP of widths ``dims`` (in,
+    hidden..., A) over R rows (``_pick_chain_plan``).  Raises when even 8
+    CTAs cannot hold the weights, or for a dtype other than float32."""
+    return _pick_chain_plan("ddpm_chain", _chain_smem_bytes, dims, R, dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def chain_bwd_plan(dims: tuple, R: int, dtype=torch.float32) -> ChainPlan:
+    """Launch choices of ``ddpm_chain_bwd``, picked as ``chain_plan``'s
+    from the backward's layout.  Raises when even 8 CTAs cannot hold a
+    layer's slices and their gradients, or for a dtype other than
+    float32."""
+    return _pick_chain_plan("ddpm_chain_bwd", _chain_bwd_smem_bytes, dims,
+                            R, dtype)
+
+
+def chain_record_width(dims) -> int:
+    """Floats of one row of one step in the forward's record: x (A), then
+    every hidden layer's output after its ReLU."""
+    return dims[-1] + sum(dims[1:-1])
+
+
+class _Weights(NamedTuple):
+    """An MLP's layers as ``ref`` reads them (``w`` (in, out), ``b``
+    (out,)), from the tensors an autograd Function was given."""
+    w: list
+    b: list
+
+
+def _check_chain(ws, bs, x_L, state, noises, coef, te) -> tuple:
+    """The MLP's widths, once every tensor is f32 and contiguous, every
+    shape fits the chain (on either device: the kernel reads the tensors
+    in place) and no draw or state asks for a gradient."""
     for t in (x_L, state, noises, coef, te, *ws, *bs):
         if t.dtype != torch.float32:
             raise TypeError(f"ddpm_chain takes float32 tensors, not "
@@ -348,11 +393,144 @@ def _check_chain(net, x_L, state, noises, coef, te) -> tuple:
                          f"{[tuple(w.shape) for w in ws]} do not map "
                          f"[x, state, te] of widths {A}, {state.shape[1]}, "
                          f"{te.shape[1]} to {A}")
-    _check_no_grad("ddpm_chain", x_L, state, noises, *ws, *bs)
+    if torch.is_grad_enabled():
+        for name, t in (("x_L", x_L), ("state", state), ("noises", noises),
+                        ("coef", coef), ("te", te)):
+            if t.requires_grad:
+                raise ValueError(f"ddpm_chain gives no gradient to {name} "
+                                 "(only to the MLP's weights and biases); "
+                                 "pass it detached")
     return dims
 
 
-def ddpm_chain(net, x_L, state, noises, coef, te):
+@functools.lru_cache(maxsize=64)
+def _chain_net(w_ptrs: tuple, b_ptrs: tuple, dims: tuple) -> _ChainNet:
+    """The ``ChainNet`` of an MLP's widths and weight addresses, built once
+    for each (an update writes its weights in place, so their addresses
+    stay)."""
+    pad = (None,) * (CHAIN_MAX_LAYERS - len(w_ptrs))
+    return _ChainNet(len(w_ptrs),
+                     (ctypes.c_int * (CHAIN_MAX_LAYERS + 1))(*dims),
+                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(*w_ptrs, *pad),
+                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(*b_ptrs, *pad))
+
+
+def _chain_net_of(ws, bs, dims) -> _ChainNet:
+    return _chain_net(tuple(w.data_ptr() for w in ws),
+                      tuple(b.data_ptr() for b in bs), dims)
+
+
+def _chain_fwd(ws, bs, x_L, state, noises, coef, te, record: bool,
+               dims=None):
+    """x_0, and with ``record`` also the (L, R, ``chain_record_width``)
+    record of every step's x and hidden outputs; one ``ddpm_chain`` launch
+    for CUDA tensors, the plain version for CPU tensors (any float dtype
+    there: the f64 gradcheck).  ``dims``: the widths ``_check_chain``
+    returned, or None to check here."""
+    if x_L.device.type == "cpu":
+        with torch.no_grad():
+            return ref.ddpm_chain_ref(_Weights(ws, bs), x_L, state, noises,
+                                      coef, te, record=record)
+    if dims is None:
+        dims = _check_chain(ws, bs, x_L, state, noises, coef, te)
+    _check_cuda("ddpm_chain", x_L, state, noises, coef, te, *ws, *bs)
+    (R, A), L = x_L.shape, noises.shape[0]
+    plan = chain_plan(dims, R)
+    out = torch.empty_like(x_L)
+    rec = (torch.empty((L, R, chain_record_width(dims)), dtype=x_L.dtype,
+                       device=x_L.device) if record else None)
+    started = (ctypes.c_int * 2)()
+    err = _fn("ddpm_chain", "ddpm_chain_launch")(
+        _chain_net_of(ws, bs, dims), x_L.data_ptr(), state.data_ptr(),
+        noises.data_ptr(), coef.data_ptr(), te.data_ptr(), out.data_ptr(),
+        rec.data_ptr() if record else None, R, L, state.shape[1],
+        te.shape[1], plan.cluster, plan.rows, plan.smem_bytes, started,
+        _stream(x_L))
+    if err != 0:
+        raise RuntimeError(f"ddpm_chain kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["ddpm_chain"] += 1
+    GRIDS["ddpm_chain"] += started[0]
+    CLUSTERS["ddpm_chain"] += started[1]
+    return (out, rec) if record else out
+
+
+def _chain_bwd(ws, bs, record, state, coef, te, g):
+    """(dws, dbs) of the chain for the upstream gradient g (R, A): one
+    ``ddpm_chain_bwd`` launch for CUDA tensors, the plain version for CPU
+    tensors."""
+    if g.device.type == "cpu":
+        return ref.ddpm_chain_bwd_ref(_Weights(ws, bs), record, state, coef,
+                                      te, g)
+    dims = tuple([ws[0].shape[0]] + [w.shape[1] for w in ws])
+    for t in (record, state, coef, te, g, *ws, *bs):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ddpm_chain_bwd takes float32 tensors, not "
+                            f"{t.dtype}")
+    _check_cuda("ddpm_chain_bwd", record, state, coef, te, g, *ws, *bs)
+    (R, A), L = g.shape, coef.shape[0]
+    if (tuple(record.shape) != (L, R, chain_record_width(dims))
+            or tuple(state.shape[:1]) != (R,) or A != dims[-1]
+            or dims[0] != A + state.shape[1] + te.shape[1]):
+        raise ValueError(f"ddpm_chain_bwd: record {tuple(record.shape)}, "
+                         f"state {tuple(state.shape)}, g {tuple(g.shape)} "
+                         f"do not fit the widths {dims} over {L} steps")
+    plan = chain_bwd_plan(dims, R)
+    n_params = sum((i + 1) * o for i, o in zip(dims[:-1], dims[1:]))
+    flat = torch.empty(n_params, dtype=g.dtype, device=g.device)
+    clusters = _cdiv(R, plan.rows)
+    scratch = (torch.empty(clusters * n_params, dtype=g.dtype,
+                           device=g.device) if clusters > 1 else None)
+    started = (ctypes.c_int * 2)()
+    err = _fn("ddpm_chain", "ddpm_chain_bwd_launch")(
+        _chain_net_of(ws, bs, dims), record.data_ptr(), state.data_ptr(),
+        coef.data_ptr(), te.data_ptr(), g.data_ptr(), flat.data_ptr(),
+        scratch.data_ptr() if clusters > 1 else None, R, L, state.shape[1],
+        te.shape[1], plan.cluster, plan.rows, plan.smem_bytes, started,
+        _stream(g))
+    if err != 0:
+        raise RuntimeError(f"ddpm_chain_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["ddpm_chain_bwd"] += 1
+    GRIDS["ddpm_chain_bwd"] += started[0]
+    CLUSTERS["ddpm_chain_bwd"] += started[1]
+    dws, dbs, off = [], [], 0
+    for i, o in zip(dims[:-1], dims[1:]):
+        dws.append(flat[off:off + i * o].view(i, o))
+        dbs.append(flat[off + i * o:off + (i + 1) * o])
+        off += (i + 1) * o
+    return dws, dbs
+
+
+class DdpmChain(torch.autograd.Function):
+    """``ddpm_chain`` with a gradient to the MLP's weights and biases: the
+    forward launches ``ddpm_chain`` with its record, the backward one
+    ``ddpm_chain_bwd``.  On CPU tensors both run their plain versions,
+    which take any float dtype (the f64 gradcheck).
+
+    ``apply(x_L, state, noises, coef, te, dims, *ws, *bs)``, with ``dims``
+    the widths from ``_check_chain`` or None; x_L, state and noises get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x_L, state, noises, coef, te, dims, *params):
+        n = len(params) // 2
+        ws, bs = list(params[:n]), list(params[n:])
+        x0, record = _chain_fwd(ws, bs, x_L, state, noises, coef, te, True,
+                                dims)
+        ctx.save_for_backward(record, state, coef, te, *params)
+        return x0
+
+    @staticmethod
+    def backward(ctx, g):
+        record, state, coef, te, *params = ctx.saved_tensors
+        n = len(params) // 2
+        dws, dbs = _chain_bwd(params[:n], params[n:], record, state, coef,
+                              te, g.contiguous())
+        return (None,) * 6 + tuple(dws) + tuple(dbs)
+
+
+def ddpm_chain(net, x_L, state, noises, coef, te, *, record: bool = False):
     """A whole reverse chain: for l_rev = L-1 .. 0, eps_hat =
     ``net([x, state, te[l_rev]])`` and the ``ddpm_step`` update with
     ``coef[l_rev]`` = [c1, c2, sigma] and ``noises[L-1-l_rev]``.
@@ -360,36 +538,32 @@ def ddpm_chain(net, x_L, state, noises, coef, te):
     net: the denoiser's ``MLP`` (``w`` (in, out), ``b`` (out,)); x_L (R, A),
     state (R, S), noises (L, R, A), coef (L, 3), te (L, T): float32, one
     device.  Returns x_0 (R, A), before the sampler's tanh.  One launch on
-    the card, however long the chain."""
+    the card, however long the chain.  When grad mode is on and a weight
+    or bias requires a gradient, x_0 carries the graph (``DdpmChain``:
+    ``ddpm_chain_bwd`` in the backward); x_L, state and noises must not
+    require one.  ``record=True`` returns ``(x_0, record)`` without a
+    graph, the record as ``ddpm_chain_bwd`` reads it."""
     ws, bs = list(net.w), list(net.b)
-    tensors = (x_L, state, noises, coef, te, *ws, *bs)
-    dev = _check_device("ddpm_chain", *tensors)
-    dims = _check_chain(net, x_L, state, noises, coef, te)
-    if dev.type == "cpu":
-        return ref.ddpm_chain_ref(net, x_L, state, noises, coef, te)
-    _check_cuda("ddpm_chain", *tensors)
-    (R, A), L = x_L.shape, noises.shape[0]
-    plan = chain_plan(dims, R)
-    pad = [None] * (CHAIN_MAX_LAYERS - len(ws))
-    cnet = _ChainNet(len(ws), (ctypes.c_int * (CHAIN_MAX_LAYERS + 1))(*dims),
-                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(
-                         *[w.data_ptr() for w in ws], *pad),
-                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(
-                         *[b.data_ptr() for b in bs], *pad))
-    out = torch.empty_like(x_L)
-    started = (ctypes.c_int * 2)()
-    err = _fn("ddpm_chain", "ddpm_chain_launch")(
-        cnet, x_L.data_ptr(), state.data_ptr(), noises.data_ptr(),
-        coef.data_ptr(), te.data_ptr(), out.data_ptr(), R, L,
-        state.shape[1], te.shape[1], plan.cluster, plan.rows,
-        plan.smem_bytes, started, _stream(x_L))
-    if err != 0:
-        raise RuntimeError(f"ddpm_chain kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["ddpm_chain"] += 1
-    GRIDS["ddpm_chain"] += started[0]
-    CLUSTERS["ddpm_chain"] += started[1]
-    return out
+    _check_device("ddpm_chain", x_L, state, noises, coef, te, *ws, *bs)
+    dims = _check_chain(ws, bs, x_L, state, noises, coef, te)
+    if not record and torch.is_grad_enabled() and any(
+            t.requires_grad for t in ws + bs):
+        return DdpmChain.apply(x_L, state, noises, coef, te, dims, *ws, *bs)
+    return _chain_fwd(ws, bs, x_L, state, noises, coef, te, record, dims)
+
+
+def ddpm_chain_bwd(net, record, state, coef, te, g):
+    """The chain's backward for the upstream gradient g = dloss/dx_0 (R, A):
+    ``(dws, dbs)``, the gradients of the MLP's ``w`` (in, out) and ``b``
+    (out,), from the ``record`` of ``ddpm_chain(..., record=True)`` on the
+    same inputs.  float32, one device: one launch on the card."""
+    ws, bs = list(net.w), list(net.b)
+    _check_device("ddpm_chain_bwd", record, state, coef, te, g, *ws, *bs)
+    if g.dtype != torch.float32:
+        raise TypeError(f"ddpm_chain_bwd takes float32 tensors, not "
+                        f"{g.dtype}")
+    with torch.no_grad():
+        return _chain_bwd(ws, bs, record, state, coef, te, g)
 
 
 # -- flash_attention --------------------------------------------------------------

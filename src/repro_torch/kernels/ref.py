@@ -2,8 +2,9 @@
 
 The CPU tests and ``chip_smoke.py`` hold the kernels against these.
 ``ddpm_step_ref`` repeats its kernel's arithmetic op for op, so on the card
-the two agree bit for bit; the chain's MLP, attention and the SSD scan sum
-in another order than their kernels and agree to a tolerance.
+the two agree bit for bit; the chain's MLP and its backward, attention and
+the SSD scan sum in another order than their kernels and agree to a
+tolerance.
 """
 from __future__ import annotations
 
@@ -71,17 +72,61 @@ def ddpm_step_bwd_ref(g, c1: float, c2: float):
     return (c1 * gf).to(g.dtype), ((-c2) * gf).to(g.dtype)
 
 
-def ddpm_chain_ref(net, x_L, state, noises, coef, te):
+def ddpm_chain_ref(net, x_L, state, noises, coef, te, *, record=False):
     """A whole reverse chain as the sampler's step loop runs it: for
     l_rev = L-1 .. 0, ``eps_hat = net([x, state, te[l_rev]])`` and
     ``ddpm_step_ref`` with ``coef[l_rev]`` = [c1, c2, sigma] and
-    ``noises[L-1-l_rev]``.  Returns x_0, before the sampler's tanh."""
+    ``noises[L-1-l_rev]``.  Returns x_0, before the sampler's tanh; with
+    ``record`` also the (L, R, A + hidden widths) record of every step's x
+    and hidden outputs after their ReLU, as the kernel writes it."""
     L = coef.shape[0]
     coefs = coef.tolist()
-    x = x_L
+    n = len(net.w)
+    x, rec = x_L, []
     for i in range(L):
         l_rev = L - 1 - i
         t = te[l_rev].expand(x.shape[:-1] + te.shape[-1:])
-        eps_hat = net(torch.cat([x, state, t], dim=-1))
-        x = ddpm_step_ref(x, eps_hat, noises[i], *coefs[l_rev])
-    return x
+        h, hs = torch.cat([x, state, t], dim=-1), [x]
+        for k, (w, b) in enumerate(zip(net.w, net.b)):      # net's forward
+            h = h @ w + b
+            if k < n - 1:
+                h = torch.relu(h)
+                hs.append(h)
+        if record:
+            rec.append(torch.cat(hs, dim=-1))
+        x = ddpm_step_ref(x, h, noises[i], *coefs[l_rev])
+    return (x, torch.stack(rec)) if record else x
+
+
+def ddpm_chain_bwd_ref(net, record, state, coef, te, g):
+    """The backward of ``ddpm_chain_ref`` in the MLP's weights and biases,
+    as an explicit loop over l_rev = 0 .. L-1 from its ``record``:
+    ``delta = -c2 g``; per layer from the top ``dW += h^T delta``,
+    ``db += sum(delta)`` and ``delta = (delta W^T) * (h > 0)``; into x
+    ``g = c1 g + delta W_0[:A]^T``.  Returns ``(dws, dbs)`` in f32 (f64
+    for f64 inputs)."""
+    ws, bs = list(net.w), list(net.b)
+    n, L, A = len(ws), coef.shape[0], g.shape[-1]
+    md = _math_dtype(g.dtype)
+    wm = [w.to(md) for w in ws]
+    dws = [torch.zeros(w.shape, dtype=md, device=g.device) for w in ws]
+    dbs = [torch.zeros(b.shape, dtype=md, device=g.device) for b in bs]
+    coefs = coef.tolist()
+    cols = [A] + [w.shape[1] for w in ws[:-1]]     # x, then hidden outputs
+    g, state = g.to(md), state.to(md)
+    for i in reversed(range(L)):
+        l_rev = L - 1 - i
+        c1, c2, _ = coefs[l_rev]
+        parts = torch.split(record[i].to(md), cols, dim=-1)
+        t = te[l_rev].to(md).expand(g.shape[0], -1)
+        hs = [torch.cat([parts[0], state, t], dim=-1), *parts[1:]]
+        d = (-c2) * g
+        for l in reversed(range(n)):
+            dws[l] += hs[l].T @ d
+            dbs[l] += d.sum(0)
+            if l > 0:
+                d = (d @ wm[l].T) * (hs[l] > 0)
+            elif i > 0:
+                g = c1 * g + d @ wm[0][:A].T
+    return ([d.to(w.dtype) for d, w in zip(dws, ws)],
+            [d.to(b.dtype) for d, b in zip(dbs, bs)])

@@ -124,10 +124,12 @@ class EdgeGateway:
             self._schedules[steps] = make_schedule(steps, kind="linear")
         return self._schedules[steps]
 
+    @torch.no_grad()
     def diffusion_sample(self, model_id: int, steps: int, generator=None, *,
                          x_L=None, noises=None):
         """The ``steps``-step image chain of a loaded diffusion model:
-        (image_dim,) in [-1, 1].  ``x_L``/``noises`` inject the draws."""
+        (image_dim,) in [-1, 1], without a graph (serving differentiates
+        nothing).  ``x_L``/``noises`` inject the draws."""
         return reverse_sample(self.loaded[model_id], self._schedule(steps),
                               self._state, self.image_dim,
                               generator=generator, x_L=x_L, noises=noises)

@@ -3,8 +3,10 @@ version on the card, its launch counter and its rejections, the serving
 paths' launch counts (one ddpm_chain per reverse chain, or one ddpm_step
 per reverse step with ``impl="step"``; 24 flash_attention or ssd_scan
 launches per full-width prefill), and the training path: the step
-sampler's gradients through ddpm_step and ddpm_step_bwd, one d3pg_update
-on the card against the CPU, and a two-episode train_t2drl.
+sampler's gradients through ddpm_step and ddpm_step_bwd, the chain's
+through ddpm_chain's record and ddpm_chain_bwd, one d3pg_update on the
+card against the CPU with either policy chain, and a two-episode
+train_t2drl.
 
 Run on a machine with an NVIDIA GPU (it has no JAX, so skip the suite's
 conftest, which imports it):
@@ -179,24 +181,29 @@ def _d3pg_on(dev):
             {k: tuple(t.to(dev) for t in v) for k, v in draws.items()})
 
 
-def test_d3pg_update_on_card_matches_cpu(cuda):
-    """One d3pg_update on the card (one ddpm_chain, 5 ddpm_step, 5
-    ddpm_step_bwd launches) against the same update on the CPU from the
-    same state, batch and draws: losses to 1e-4, and Adam's first moments
-    (0.1 g) to 1e-4 of each leaf's max."""
+@pytest.mark.parametrize("impl", ["chain", "step"])
+def test_d3pg_update_on_card_matches_cpu(cuda, impl):
+    """One d3pg_update on the card against the same update on the CPU from
+    the same state, batch and draws: losses to 1e-4, and Adam's first
+    moments (0.1 g) to 1e-4 of each leaf's max.  Its launches: the target
+    chain's ddpm_chain, then for impl="chain" the policy chain's
+    ddpm_chain and one ddpm_chain_bwd, for impl="step" 5 ddpm_step and 5
+    ddpm_step_bwd."""
     from repro_torch.core.d3pg import d3pg_update
     from repro_torch.agents.allocators import actor_schedule
+    want = {"chain": {"ddpm_chain": 2, "ddpm_chain_bwd": 1, "ddpm_step": 0,
+                      "ddpm_step_bwd": 0},
+            "step": {"ddpm_chain": 1, "ddpm_chain_bwd": 0, "ddpm_step": 5,
+                     "ddpm_step_bwd": 5}}[impl]
     out = {}
     for dev in (cuda, torch.device("cpu")):
         cfg, d3, batch, draws = _d3pg_on(dev)
         ops.reset_launches()
         new, m = d3pg_update(d3, cfg.d3pg_cfg(),
                              actor_schedule(cfg.d3pg_cfg()), batch,
-                             draws=draws)
+                             draws=draws, impl=impl)
         if dev.type == "cuda":
-            assert {k: ops.LAUNCHES[k] for k in
-                    ("ddpm_chain", "ddpm_step", "ddpm_step_bwd")} == \
-                {"ddpm_chain": 1, "ddpm_step": 5, "ddpm_step_bwd": 5}
+            assert {k: ops.LAUNCHES[k] for k in want} == want
         out[dev.type] = (m, new)
     (mc, nc), (mh, nh) = out["cuda"], out["cpu"]
     for k in mc:
@@ -216,10 +223,16 @@ def test_train_t2drl_two_episodes_on_card(cuda):
     ts, hist = train_t2drl(cfg, episodes=2)
     n = ts["d3pg"]["opt_a"]["step"]
     assert n == 30          # 10 in episode 1 (size0 = 10, 15), 20 in 2
+    # acting, each update's target and policy chains, one chain backward
+    # per update, no step kernel
     assert {k: ops.LAUNCHES[k] for k in
-            ("ddpm_chain", "ddpm_step", "ddpm_step_bwd")} == \
-        {"ddpm_chain": 2 * 4 * 5 + n, "ddpm_step": 5 * n,
-         "ddpm_step_bwd": 5 * n}
+            ("ddpm_chain", "ddpm_chain_bwd", "ddpm_step",
+             "ddpm_step_bwd")} == \
+        {"ddpm_chain": 2 * 4 * 5 + 2 * n, "ddpm_chain_bwd": n,
+         "ddpm_step": 0, "ddpm_step_bwd": 0}
+    # batch 64: 8 clusters, whose partial sums a second grid adds up
+    assert ops.GRIDS["ddpm_chain_bwd"] == 2 * n
+    assert ops.CLUSTERS["ddpm_chain_bwd"] == 8 * n
     assert all(np.isfinite(v) for vs in hist.values() for v in vs)
     assert ts["models"].c.device.type == "cuda"
     out = eval_t2drl(export_policy(ts, cfg), ts["models"], cfg, episodes=1)
@@ -385,6 +398,76 @@ def test_ddpm_chain_rejects_on_the_card(cuda):
         ops.ddpm_chain(net, x, s.cpu(), n, coef, te)
     with pytest.raises(TypeError):
         ops.ddpm_chain(net, x.double(), s, n, coef, te)
+
+
+CHAIN_GRAD_NAMES = ["train", "control_R1", "odd_widths", "empty_slice", "R37",
+                    "L50"]
+
+
+@pytest.mark.parametrize("name", CHAIN_GRAD_NAMES)
+def test_ddpm_chain_bwd_kernel_matches_plain(cuda, name):
+    """chip_smoke's ddpm_chain_bwd cases: the gradients of sum(w * x_0)
+    through DdpmChain (one ddpm_chain with its record, one ddpm_chain_bwd)
+    within 2e-5 of each leaf's max of the plain backward on the kernel's
+    record, within ``chain_grad_exact_tol`` of the exact f64 gradients,
+    and the same bits twice; one grid for one cluster, two (the partial
+    sums, then their sum in cluster order) for more."""
+    cs = _chip_smoke()
+    i = CHAIN_GRAD_NAMES.index(name)
+    _, dims, S, R, L, kind = cs.CHAIN_GRAD_CASES[i]
+    c = cs._chain_inputs(dims, S, R, L, kind, cuda, 600 + i)
+    w = cs._randn(torch.Generator().manual_seed(700 + i), R,
+                  dims[-1]).to(cuda)
+    ops.reset_launches()
+    got = cs._chain_grad(c, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ddpm_chain"] == ops.LAUNCHES["ddpm_chain_bwd"] == 1
+    clusters = -(-R // 8)
+    assert ops.CLUSTERS["ddpm_chain_bwd"] == clusters
+    assert ops.GRIDS["ddpm_chain_bwd"] == (1 if clusters == 1 else 2)
+    again = cs._chain_grad(c, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _, rec = ops.ddpm_chain(*cs._chain_args(c), record=True)
+    want = ref.ddpm_chain_bwd_ref(c["net"], rec, c["state"], c["coef"],
+                                  c["te"], w)
+    assert cs._leaf_rel(got, want[0] + want[1]) <= 2e-5
+    exact = cs._exact_chain_grad(c, w)
+    assert cs._leaf_rel(got, exact) <= cs.chain_grad_exact_tol(L)
+
+
+@pytest.mark.parametrize("name", ["control", "control_R64", "odd_widths",
+                                  "data_L50"])
+def test_ddpm_chain_record_leaves_the_forward_as_it_was(cuda, name):
+    """The forward with a record gives x_0 bit for bit as without one, and
+    its record (every step's x and hidden outputs) holds the plain
+    version's to 2e-5."""
+    cs = _chip_smoke()
+    names = [c[0] for c in cs.CHAIN_CASES]
+    i = names.index(name)
+    _, dims, S, R, L, kind = cs.CHAIN_CASES[i]
+    c = cs._chain_inputs(dims, S, R, L, kind, cuda, 400 + i)
+    args = cs._chain_args(c)
+    x0, rec = ops.ddpm_chain(*args, record=True)
+    _, rec_plain = ref.ddpm_chain_ref(*args, record=True)
+    torch.cuda.synchronize()
+    assert torch.equal(x0, ops.ddpm_chain(*args))
+    assert rec.shape == (L, R, ops.chain_record_width(dims))
+    assert torch.equal(rec[0, :, :dims[-1]], c["x_L"])
+    assert torch.allclose(rec, rec_plain, rtol=2e-5, atol=2e-5)
+
+
+def test_ddpm_chain_bwd_rejects_on_the_card(cuda):
+    cs = _chip_smoke()
+    c = cs._chain_inputs(cs.CTRL_DIMS, 50, 3, 5, "paper", cuda, 5)
+    _, rec = ops.ddpm_chain(*cs._chain_args(c), record=True)
+    g = torch.ones(3, 20, device=cuda)
+    net, st, coef, te = c["net"], c["state"], c["coef"], c["te"]
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.ddpm_chain_bwd(net, rec[:, :2].contiguous(), st, coef, te, g)
+    with pytest.raises(TypeError):
+        ops.ddpm_chain_bwd(net, rec, st, coef, te, g.double())
+    with pytest.raises(ValueError):
+        ops.ddpm_chain_bwd(net, rec, st.cpu(), coef, te, g)
 
 
 # -- flash_attention and ssd_scan ------------------------------------------------

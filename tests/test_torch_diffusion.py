@@ -150,13 +150,15 @@ def test_chain_plain_version_matches_jax_scan(batch, S, A, L, kind):
 
 def test_chain_and_step_agree_and_draw_alike():
     """From one generator seed both impls draw the same x_L and noises and
-    give the same chain; a bad impl is refused."""
+    give the same chain, each with a graph to the denoiser (its parameters
+    require a gradient); a bad impl is refused."""
     p = denoiser_init(50, 20, torch.Generator().manual_seed(0))
     s = torch.randn(3, 50, generator=torch.Generator().manual_seed(1))
     out = {impl: reverse_sample(p, make_schedule(5), s, 20, impl=impl,
                                 generator=torch.Generator().manual_seed(2))
            for impl in ("chain", "step")}
-    np.testing.assert_allclose(out["chain"].numpy(),
+    assert out["chain"].requires_grad and out["step"].requires_grad
+    np.testing.assert_allclose(out["chain"].detach().numpy(),
                                out["step"].detach().numpy(), **TOL)
     with pytest.raises(ValueError, match="impl"):
         reverse_sample(p, make_schedule(5), s, 20, impl="scan")

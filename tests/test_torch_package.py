@@ -136,12 +136,22 @@ def test_chip_smoke_train_phase_runs_small_on_cpu():
     # then 40 an episode; 9 frame transitions an episode, past the DDQN
     # batch of 32 from the 33rd on
     assert tr["d3pg_updates"] == 20 + 40 + 40 and tr["ddqn_updates"] == 4 + 9
-    assert tr["launches"] == {"ddpm_chain": 0, "ddpm_step": 0,
-                              "ddpm_step_bwd": 0}
+    assert tr["launches"] == {"ddpm_chain": 0, "ddpm_chain_bwd": 0,
+                              "ddpm_step": 0, "ddpm_step_bwd": 0}
     n = tr["d3pg_updates"]
-    assert tr["expected_launches"] == {"ddpm_chain": 5 * 40 + n,
-                                       "ddpm_step": 5 * n,
-                                       "ddpm_step_bwd": 5 * n}
+    # acting, then each update's target chain and its policy chain with
+    # the record, whose gradient is one ddpm_chain_bwd
+    assert tr["expected_launches"] == {"ddpm_chain": 5 * 40 + 2 * n,
+                                       "ddpm_chain_bwd": n,
+                                       "ddpm_step": 0, "ddpm_step_bwd": 0}
+    upd = tr["update_timing"]
+    assert set(upd) == {"updates", "chain", "step"}
+    for impl in ("chain", "step"):
+        assert upd[impl]["ms_per_update"] > 0
+        assert sum(upd[impl]["launches"].values()) == 0     # CPU
+    assert cs.update_launches("step", 5, 50) == {
+        "ddpm_chain": 50, "ddpm_chain_bwd": 0, "ddpm_step": 250,
+        "ddpm_step_bwd": 250}
     assert set(tr["short_runs"]) == {"ddpg/ddqn", "rcars/static"}
     assert tr["short_runs"]["rcars/static"]["d3pg_updates"] == 0
     # the paper's cell: no update in episode 1, 100 a slot after; DDQN
@@ -174,7 +184,18 @@ def test_chip_smoke_lm_plane_runs_small_on_cpu():
     assert cs.modal_bucket({"8": 3, "64": 3, "16": 1}) == 64
 
 
-def test_chip_smoke_kernel_checks_run_on_cpu(monkeypatch):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: under the suite's six workers, torch's thread
+    pools on every worker contend for the cores, and these checks' many
+    small ops then ran ~30x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_kernel_checks_run_on_cpu(monkeypatch, one_thread):
     """Phase 3's flash/ssd cases run (plain against plain) on the CPU; the
     flash case at L = 4096 (a 4096 x 4096 score matrix per head) is left
     to the card."""
@@ -211,6 +232,34 @@ def test_flash_check_catches_what_the_allclose_lets_pass(monkeypatch):
         cs._check_flash("cpu")
 
 
+def _ssd_exact_einsum(x, dt, A, Bm, Cm, D):
+    """chip_smoke's f64 recurrence as it was first written, one einsum
+    pair per step: the reference for its faster in-place form."""
+    x, dt, A, Bm, Cm, D = (t.double() for t in (x, dt, A, Bm, Cm, D))
+    B, L, H, P = x.shape
+    rep = H // Bm.shape[2]
+    Bh, Ch = (t.repeat_interleave(rep, dim=2) for t in (Bm, Cm))
+    S = x.new_zeros((B, H, P, Bm.shape[3]))
+    ys = []
+    for t in range(L):
+        S = S * torch.exp(dt[:, t] * A)[:, :, None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dt[:, t], x[:, t], Bh[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], S))
+    return torch.stack(ys, dim=1) + x * D[None, None, :, None], S
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 4, 8, 2, 16), (1, 64, 6, 16, 3, 8)])
+def test_ssd_exact_matches_the_einsum_recurrence(shape):
+    """The in-place f64 recurrence gives the einsum form's answer (two
+    groups, batch 2) to f64 rounding."""
+    cs = _chip_smoke()
+    args = cs._ssd_inputs(*shape, "cpu", 11)
+    for got, want in zip(cs.ssd_exact(*args), _ssd_exact_einsum(*args)):
+        assert got.dtype == torch.float64 and got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-12 * \
+            want.abs().max().item()
+
+
 def test_ssd_exact_matches_the_chunked_plain_version():
     """chip_smoke's f64 step-by-step SSD agrees with the chunked plain
     version well inside the tolerance at a small, ragged shape."""
@@ -241,6 +290,55 @@ def test_chip_smoke_chain_checks_run_on_cpu(monkeypatch):
     odd = out["cases"][4]
     assert odd["case"] == "odd_widths" and odd["R"] == 9
     assert odd["plan"]["rows"] == 8 and odd["plan"]["cluster"] == 8
+
+
+def test_chip_smoke_chain_grad_checks_run_on_cpu(one_thread):
+    """Phase 3's ddpm_chain_bwd cases on the CPU: the plain backward
+    against itself on the plain forward's record (0 apart, the same bits
+    twice), each within ``chain_grad_exact_tol`` of the exact f64
+    gradients; no launch on the CPU."""
+    cs = _chip_smoke()
+    out = cs._check_chain_grad("cpu")
+    assert [c["case"] for c in out["cases"]] == \
+        [c[0] for c in cs.CHAIN_GRAD_CASES]
+    assert out["max_abs_err"] == out["rel_err"] == 0.0
+    for c in out["cases"]:
+        assert c["same_bits"] and c["record_max_abs_err"] == 0.0
+        assert c["exact_rel_err"] == c["plain_exact_rel_err"] <= c["exact_tol"]
+        assert c["launches"] == {"ddpm_chain": 0, "ddpm_chain_bwd": 0}
+    by = {c["case"]: c for c in out["cases"]}
+    # one R over five clusters, a ragged R over two, and a 50-step chain
+    assert by["R37"]["plan"]["rows"] == 8 and -(-37 // 8) == 5
+    assert by["odd_widths"]["R"] == 9 and by["L50"]["L"] == 50
+    assert cs.chain_grad_exact_tol(5) == 2e-5
+    assert cs.chain_grad_exact_tol(100) == 4e-5
+
+
+def test_chain_grad_check_catches_a_gradient_off_by_1e4(monkeypatch):
+    """A gradient 1e-4 too large (relative) fails against the plain
+    backward."""
+    cs = _chip_smoke()
+    grad = cs._chain_grad
+    monkeypatch.setattr(cs, "_chain_grad", lambda c, w: tuple(
+        g * (1 + 1e-4) for g in grad(c, w)))
+    monkeypatch.setattr(cs, "CHAIN_GRAD_CASES", cs.CHAIN_GRAD_CASES[:1])
+    with pytest.raises(cs.SmokeError, match="ddpm_chain_bwd"):
+        cs._check_chain_grad("cpu")
+
+
+def test_chain_bwd_bound_counts_the_kernels_work():
+    cs = _chip_smoke()
+    ms, by = cs.chain_bwd_bound_ms(cs.CTRL_DIMS, 50, 64, 5)
+    pairs = [(86, 128), (128, 128), (128, 128), (128, 20)]
+    step = 20 + sum(2 * i * o + o for i, o in pairs) \
+        + 2 * (128 * 128 * 2 + 128 * 20)
+    flops = 64 * (5 * step + 4 * (2 * 20 * 128 + 2 * 20))
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * flops / 67e12)
+    ms, by = cs.chain_bwd_bound_ms(cs.CTRL_DIMS, 50, 1, 1)
+    weights = 86 * 128 + 2 * 128 * 128 + 128 * 20
+    nbytes = 4 * (weights + 404 + 50 + 20 + 19 + weights + 3 * 128 + 20)
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / 3.35e12)
 
 
 def test_chain_check_catches_a_chain_off_by_1e4(monkeypatch):

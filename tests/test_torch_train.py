@@ -1,6 +1,7 @@
 """The training slice (CPU) against the JAX package: the gradient of the
-step sampler, one ``d3pg_update`` and one ``ddqn_update`` from the same
-state, batch and draws, and the training loop's episode semantics.
+sampler (the step loop and the fused chain), one ``d3pg_update`` (its
+policy chain through either) and one ``ddqn_update`` from the same state,
+batch and draws, and the training loop's episode semantics.
 
 Tolerances, each with its reason:
 
@@ -66,9 +67,14 @@ def _draws(key, n, A, L):
             torch.tensor(np.asarray(jax.random.normal(ke, (L, n, A)))))
 
 
-# -- the step sampler's gradient --------------------------------------------------
+# -- the sampler's gradient ------------------------------------------------------
 
-def test_reverse_sample_step_gradient_matches_jax_grad():
+@pytest.mark.parametrize("impl", ["step", "chain"])
+def test_reverse_sample_step_gradient_matches_jax_grad(impl):
+    """Both samplers' gradients against ``jax.grad`` of the XLA sampler:
+    the step loop (autograd through the eager denoiser and ``DdpmStep``)
+    and the fused chain (``DdpmChain``'s plain forward with its record and
+    plain backward)."""
     S, A, L, R = 10, 6, 5, 8
     params = jden.denoiser_init(jax.random.PRNGKey(0), S, A, hidden=32)
     rng = np.random.default_rng(1)
@@ -87,7 +93,7 @@ def test_reverse_sample_step_gradient_matches_jax_grad():
     p = denoiser_from_numpy(_np(params), device="cpu")
     x_L, noises = _draws(key, R, A, L)
     x0 = reverse_sample(p, make_schedule(L), torch.from_numpy(state), A,
-                        x_L=x_L, noises=noises, impl="step")
+                        x_L=x_L, noises=noises, impl=impl)
     t_loss = torch.sum(torch.from_numpy(w) * x0)
     t_grads = torch.autograd.grad(t_loss, list(p.parameters()))
     np.testing.assert_allclose(t_loss.item(), float(j_loss), rtol=1e-4)
@@ -144,10 +150,17 @@ def _compare_learner(tnew, jnew, jold_mu_scale, paper_lr, nets, opts):
                                            err_msg=f"{name} {i}")
 
 
-@pytest.mark.parametrize("allocator,mask,paper_lr", [
-    ("d3pg", None, True), ("d3pg", None, False), ("d3pg", "rows", True),
-    ("ddpg", None, False), ("ddpg", "shared", False), ("ddpg", "rows", True)])
-def test_d3pg_update_matches_jax(allocator, mask, paper_lr):
+@pytest.mark.parametrize("allocator,mask,paper_lr,impl", [
+    (alloc, mask, paper_lr, impl)
+    for alloc, mask, paper_lr in (("d3pg", None, True), ("d3pg", None, False),
+                                  ("d3pg", "rows", True))
+    for impl in ("chain", "step")] + [
+    ("ddpg", None, False, "chain"), ("ddpg", "shared", False, "chain"),
+    ("ddpg", "rows", True, "chain")])
+def test_d3pg_update_matches_jax(allocator, mask, paper_lr, impl):
+    """The diffusion actor's update with its policy chain through either
+    ``impl`` (the DDPG actor has no chain), against the reference's XLA
+    update."""
     lrs = {} if paper_lr else dict(lr_actor=1e-4, lr_critic=1e-3)
     cfg_j, cfg_t = _cfgs(allocator, **lrs)
     d3j, d3t = cfg_j.d3pg_cfg(), cfg_t.d3pg_cfg()
@@ -171,7 +184,8 @@ def test_d3pg_update_matches_jax(allocator, mask, paper_lr):
                  "policy": _draws(k_pi, n, A, cfg_j.L)}
     tnew, tm = td3.d3pg_update(
         tts["d3pg"], d3t, td3.make_actor_schedule(d3t), _torch_batch(batch),
-        mask=None if m is None else torch.from_numpy(m), draws=draws)
+        mask=None if m is None else torch.from_numpy(m), draws=draws,
+        impl=impl)
     for k in ("critic_loss", "actor_loss"):
         np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-4,
                                    err_msg=k)
