@@ -19,7 +19,13 @@ Phases, each printing one JSON line:
                chain's gradients through ddpm_chain's record and
                ddpm_chain_bwd against the plain backward (2e-5 of each
                leaf's max) and the exact f64 gradients, the same bits
-               twice, one launch of each per gradient.
+               twice, one launch of each per gradient; both chain
+               kernels with the learner axis (STACKED_CASES: every (B, R)
+               that the vector-env phase launches, B = 8 and 4 at the
+               updates' R = 64 and acting's R = 1, then B = 3 over odd
+               widths, B = 1) against the plain stacked versions, and each
+               learner's slice bit for bit against the single-learner
+               launch on its weights.
 4. kernel_timing — CUDA-event times of kernel and plain version, in turns,
                beside the card's bound for the same bytes and flops, and
                ``graph_ms``: the same launches replayed from one CUDA graph
@@ -27,7 +33,10 @@ Phases, each printing one JSON line:
                ddpm_chain also the step path's time for the same chain and
                the forward with its record against the forward without;
                for ddpm_chain_bwd the forward + backward of a policy chain
-               through the chain and through the step path.
+               through the chain and through the step path; the stacked
+               chains of the vector-env phase (B = 8 and 4 learners, R = 1
+               and 64, with and without the record, and the backward)
+               beside the B single-learner launches they replace.
 5. train         — single-cell training at the paper's EnvCfg(): t2drl
                (d3pg/ddqn) for 8 episodes under benchmarks/common.py's
                method_cfg settings (tuned lrs, warmup 100), export_policy
@@ -40,6 +49,18 @@ Phases, each printing one JSON line:
                each impl of the policy chain ("chain", "step"): host ms,
                device ms, idle share, device kernels per update, and
                their exact launches.
+5b. vector       — vector-env training at the paper's EnvCfg() under the same
+               settings: train_t2drl(num_envs=8) with fused independent
+               learners for 2 episodes (exact launches: one ddpm_chain a
+               slot for all 8 actors, 2 ddpm_chain + 1 ddpm_chain_bwd a
+               stacked update, whatever B; every learner changed; history
+               (episodes, B)); the shared learner over 4 cells with
+               user_counts [10, 8, 6, 4]; train_population of 4 members
+               (lr_actor x eps_end) for 2 episodes and its ranking; one
+               greedy schrs/ddqn episode (SCHRS ms per slot) and a
+               lockstep SCHRS batch_act over 4 cells; then one fused
+               update at B = 8 against 8 single-learner updates (host ms,
+               device ms, idle share).
 6. control_plane — greedy T2DRL episodes at the paper's EnvCfg() (d3pg/ddqn,
                then rcars/random); checks stats, simplexes, and that
                ddpm_chain ran once per slot (T*K per d3pg episode); then one
@@ -77,6 +98,7 @@ Phases 5-8 take a device, so the CPU tests run them small.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -95,15 +117,24 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.d3pg import (amend_actions,  # noqa: E402
                                    make_actor_schedule)
-from repro_torch.core.env import (EnvCfg, env_advance_frame,  # noqa: E402
-                                  env_reset, env_set_cache, env_step_slot,
-                                  make_models, observe)
-from repro_torch.core.networks import mlp_init  # noqa: E402
-from repro_torch.core.buffers import buffer_sample  # noqa: E402
+from repro_torch.core.env import (EnvCfg, ModelParams,  # noqa: E402
+                                  env_advance_frame, env_cell, env_reset,
+                                  env_reset_batch, env_set_cache,
+                                  env_step_slot, make_models,
+                                  make_models_batch, observe)
+from repro_torch.core.networks import mlp_init, stack_mlps  # noqa: E402
+from repro_torch.agents import SlotObs, make_allocator  # noqa: E402
+from repro_torch.core.baselines import (GACfg,  # noqa: E402
+                                        static_popular_cache)
+from repro_torch.core.buffers import (buffer_cell,  # noqa: E402
+                                      buffer_sample, buffer_sample_stacked)
+from repro_torch.core.population import (PopMember,  # noqa: E402
+                                         rank_population, train_population)
 from repro_torch.core.t2drl import (STAT_KEYS, T2DRLCfg,  # noqa: E402
-                                    eval_t2drl, export_policy,
-                                    greedy_frame_cache, greedy_slot_action,
-                                    policy_init, run_eval, t2drl_init,
+                                    cell_generators, eval_t2drl,
+                                    export_policy, greedy_frame_cache,
+                                    greedy_slot_action, policy_init,
+                                    run_eval, t2drl_init, t2drl_init_batch,
                                     train_t2drl)
 from repro_torch.device import make_generator, resolve_device  # noqa: E402
 from repro_torch.diffusion import (Denoiser, make_schedule,  # noqa: E402
@@ -153,7 +184,8 @@ CHAIN_CASES = [("control", CTRL_DIMS, 50, 1, 5, "paper"),
                ("data_L1000", DATA_DIMS, 1, 1, 1000, "linear"),
                ("odd_widths", (53, 90, 90, 90, 30), 7, 9, 7, "paper"),
                ("empty_slice", (25, 100, 100, 5), 4, 2, 3, "paper"),
-               ("control_R64", CTRL_DIMS, 50, 64, 5, "paper")]
+               ("control_R64", CTRL_DIMS, 50, 64, 5, "paper"),
+               ("control_R4", CTRL_DIMS, 50, 4, 5, "paper")]
 
 
 def chain_exact_tol(L: int) -> float:
@@ -694,12 +726,125 @@ def _check_chain(device) -> dict:
             "cases": cases}
 
 
+# the vector-env phase (5b): its fused learners, the shared learner's user
+# counts, and a population of 4 members that differ in lr_actor and eps_end
+VECTOR_B, SHARED_COUNTS = 8, (10, 8, 6, 4)
+POP_MEMBERS = [PopMember(lr_actor=a, eps_end=e, name=f"a{a}_e{e}")
+               for a in (1e-4, 3e-4) for e in (0.05, 0.2)]
+# the learner axis on that phase's paths (name, B, R): the fused learners
+# and the population's act at R = 1 and update at R = 64 (the minibatch's
+# target and policy chains, and the policy gradient); STACKED_CASES checks
+# and STACKED_TIMING times every one of them
+STACKED_PATHS = [("fused_act", VECTOR_B, 1), ("fused_update", VECTOR_B, 64),
+                 ("population_act", len(POP_MEMBERS), 1),
+                 ("population_update", len(POP_MEMBERS), 64)]
+# the learner axis (name, MLP widths, S, B, R, L): every STACKED_PATHS
+# shape at the actor's widths, B = 3 over odd widths and a ragged second
+# row block, and B = 1, which must be the single-learner kernel
+STACKED_CASES = [(name, CTRL_DIMS, 50, B, R, 5)
+                 for name, B, R in STACKED_PATHS] + [
+                 ("ragged_B3", (53, 90, 90, 90, 30), 7, 3, 9, 7),
+                 ("B1", CTRL_DIMS, 50, 1, 64, 5)]
+
+
+def _stacked_inputs(dims, S, B, R, L, device, seed) -> dict:
+    """B learners' chains of ``_chain_inputs`` (each its own MLP, x_L, state
+    and noises, from seed + b), and their stacked forms."""
+    cs = [_chain_inputs(dims, S, R, L, "paper", device, seed + b)
+          for b in range(B)]
+    net = stack_mlps([c["net"] for c in cs]).requires_grad_(False)
+    return {"cs": cs, "net": net,
+            "x_L": torch.stack([c["x_L"] for c in cs]),
+            "state": torch.stack([c["state"] for c in cs]),
+            "noises": torch.stack([c["noises"] for c in cs]),
+            "coef": cs[0]["coef"], "te": cs[0]["te"]}
+
+
+def _check_chain_stacked(device) -> dict:
+    """ddpm_chain and ddpm_chain_bwd with the learner axis, at every
+    STACKED_CASES case: the stacked launch against the plain stacked
+    versions (2e-5; the backward within GRAD_TOL of each leaf's max), each
+    learner's slice of x_0, the record and dW/db bit for bit against the
+    single-learner launch on that learner's weights, and one launch of
+    each kernel per stacked call, on the card; a gradient through
+    DdpmChain on the stacked weights equals the direct backward."""
+    cases = []
+    on_card = torch.device(device).type == "cuda"
+    for i, (name, dims, S, B, R, L) in enumerate(STACKED_CASES):
+        c = _stacked_inputs(dims, S, B, R, L, device, 800 + 10 * i)
+        args = (c["net"], c["x_L"], c["state"], c["noises"], c["coef"],
+                c["te"])
+        g = _randn(torch.Generator().manual_seed(900 + i), B, R,
+                   dims[-1]).to(device)
+        ops.reset_launches()
+        x0, rec = ops.ddpm_chain(*args, record=True)
+        dws, dbs = ops.ddpm_chain_bwd(c["net"], rec, c["state"], c["coef"],
+                                      c["te"], g)
+        sync(device)
+        launches = {k: ops.LAUNCHES[k] for k in ("ddpm_chain",
+                                                  "ddpm_chain_bwd")}
+        if on_card:
+            require(launches == {"ddpm_chain": 1, "ddpm_chain_bwd": 1},
+                    f"stacked chain {name} launched {launches}")
+        x0p, recp = ref.ddpm_chain_stacked_ref(*args, record=True)
+        err = _allclose_err(x0, x0p, TOL[torch.float32],
+                            f"stacked ddpm_chain {name}")
+        rec_err = _allclose_err(rec, recp, TOL[torch.float32],
+                                f"stacked ddpm_chain {name} record")
+        pw, pb = ref.ddpm_chain_bwd_stacked_ref(c["net"], rec, c["state"],
+                                                c["coef"], c["te"], g)
+        rel = max(_leaf_rel([a[b] for a in dws + dbs],
+                            [p[b] for p in pw + pb]) for b in range(B))
+        require(rel <= GRAD_TOL, f"stacked ddpm_chain_bwd {name}: {rel} of "
+                f"a leaf's max from the plain stacked backward")
+        bwd_err = max((a - p).abs().max().item()
+                      for a, p in zip(dws + dbs, pw + pb))
+        same = True
+        for b, cb in enumerate(c["cs"]):
+            one, rec1 = ops.ddpm_chain(*_chain_args(cb), record=True)
+            w1, b1 = ops.ddpm_chain_bwd(cb["net"], rec1, cb["state"],
+                                        cb["coef"], cb["te"],
+                                        g[b].contiguous())
+            same &= (torch.equal(x0[b], one) and torch.equal(rec[b], rec1)
+                     and all(torch.equal(a[b], o) for a, o in
+                             zip(dws + dbs, w1 + b1)))
+        sync(device)
+        require(same, f"stacked chain {name}: a learner's slice differs "
+                f"from the single-learner launch on its weights")
+        leaves = list(c["net"].parameters())
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            grads = torch.autograd.grad(
+                torch.sum(g * ops.ddpm_chain(*args)), leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        require(all(torch.equal(a, o) for a, o in
+                    zip(grads, dws + dbs)),
+                f"stacked chain {name}: DdpmChain's gradient differs from "
+                f"the direct backward")
+        cases.append({"case": name, "dims": list(dims), "S": S, "B": B,
+                      "R": R, "L": L,
+                      "plan": ops.chain_plan(dims, R)._asdict(),
+                      "bwd_plan": ops.chain_bwd_plan(dims, R)._asdict(),
+                      "max_abs_err": err, "record_max_abs_err": rec_err,
+                      "bwd_max_abs_err": bwd_err, "bwd_rel_err": rel,
+                      "learner_slices_bit_equal": same,
+                      "launches": launches})
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "bwd_max_abs_err": max(c["bwd_max_abs_err"] for c in cases),
+            "bwd_rel_err": max(c["bwd_rel_err"] for c in cases),
+            "cases": cases}
+
+
 def phase_kernel_check(device) -> dict:
     return {"phase": "kernel_check", "ddpm_step": _check_ddpm(device),
             "ddpm_step_bwd": _check_ddpm_bwd(device),
             "step_chain_grad": _check_step_grad(device),
             "ddpm_chain": _check_chain(device),
             "ddpm_chain_bwd": _check_chain_grad(device),
+            "ddpm_chain_stacked": _check_chain_stacked(device),
             "flash_attention": _check_flash(device),
             "ssd_scan": _check_ssd(device)}
 
@@ -1095,8 +1240,92 @@ def phase_kernel_timing(device) -> dict:
             "ddpm_step_bwd": _ddpm_bwd_timing(device),
             "ddpm_chain": _chain_timing(device),
             "ddpm_chain_bwd": _chain_bwd_timing(device),
+            "stacked": _stacked_timing(device),
             "flash_attention": _flash_timing(device),
             "ssd_scan": _ssd_timing(device)}
+
+
+STACKED_TIMING = [(B, R) for _, B, R in STACKED_PATHS]
+
+
+def _stacked_row(name, dims, S, B, R, L, t, single, record=False,
+                 bwd=False) -> dict:
+    bound, by = (chain_bwd_bound_ms(dims, S, R, L) if bwd
+                 else chain_bound_ms(dims, S, R, L, record=record))
+    return {"case": name, "shape": {"dims": list(dims), "S": S, "B": B,
+                                    "R": R, "L": L, "record": record},
+            **t, "bound_ms": B * bound, "bound_by": by,
+            "peak": "f32 67 TFLOP/s", **single}
+
+
+def _stacked_timing(device) -> dict:
+    """The chain kernels with the learner axis at STACKED_TIMING's (B, R)
+    and the actor's widths (L = 5): one stacked launch, its plain stacked
+    version in turns, graph_ms and the bound (B times one learner's), and
+    as the yardstick (``single_x_B_ms`` in turns with the stacked launch,
+    ``single_x_B_graph_ms``) the B single-learner launches it replaces;
+    ddpm_chain at R = 64 also with its record (the policy chain), and
+    ddpm_chain_bwd at R = 64.  No single PyTorch call computes either
+    (library_ms null)."""
+    dims, S, L = CTRL_DIMS, 50, 5
+    fwd, bwd = [], []
+    for i, (B, R) in enumerate(STACKED_TIMING):
+        c = _stacked_inputs(dims, S, B, R, L, device, 1100 + 10 * i)
+        args = (c["net"], c["x_L"], c["state"], c["noises"], c["coef"],
+                c["te"])
+        for record in ((False, True) if R > 1 else (False,)):
+            def kernel(record=record):
+                ops.ddpm_chain(*args, record=record)
+
+            def singles(record=record):
+                for cb in c["cs"]:
+                    ops.ddpm_chain(*_chain_args(cb), record=record)
+
+            t = _timed_turns(
+                kernel, lambda record=record: ref.ddpm_chain_stacked_ref(
+                    *args, record=record), singles)
+            single = {"single_x_B_ms": t.pop("library_ms"),
+                      "single_x_B_ms_runs": t.pop("library_ms_runs"),
+                      "single_x_B_graph_ms": _graph_ms(
+                          singles, t["graph_launches"]),
+                      "library_ms": None,
+                      "grids_per_call": _grids_per_call(kernel,
+                                                        "ddpm_chain")}
+            fwd.append(_stacked_row(f"B{B}_R{R}" + ("+record" if record
+                                                    else ""),
+                                    dims, S, B, R, L, t, single, record))
+        if R == 1:
+            continue
+        _, rec = ops.ddpm_chain(*args, record=True)
+        recs = [ops.ddpm_chain(*_chain_args(cb), record=True)[1]
+                for cb in c["cs"]]
+        g = _randn(torch.Generator().manual_seed(1200 + i), B, R,
+                   dims[-1]).to(device)
+        gs = [g[b].contiguous() for b in range(B)]
+        bargs = (c["net"], rec, c["state"], c["coef"], c["te"], g)
+
+        def kernel_b():
+            ops.ddpm_chain_bwd(*bargs)
+
+        def singles_b():
+            for cb, rb, gb in zip(c["cs"], recs, gs):
+                ops.ddpm_chain_bwd(cb["net"], rb, cb["state"], cb["coef"],
+                                   cb["te"], gb)
+
+        t = _timed_turns(kernel_b,
+                         lambda: ref.ddpm_chain_bwd_stacked_ref(*bargs),
+                         singles_b)
+        single = {"single_x_B_ms": t.pop("library_ms"),
+                  "single_x_B_ms_runs": t.pop("library_ms_runs"),
+                  "single_x_B_graph_ms": _graph_ms(singles_b,
+                                                   t["graph_launches"]),
+                  "library_ms": None,
+                  "plan": ops.chain_bwd_plan(dims, R)._asdict(),
+                  "grids_per_call": _grids_per_call(kernel_b,
+                                                    "ddpm_chain_bwd")}
+        bwd.append(_stacked_row(f"B{B}_R{R}", dims, S, B, R, L, t, single,
+                                bwd=True))
+    return {"ddpm_chain": fwd, "ddpm_chain_bwd": bwd}
 
 
 # -- 5. training ---------------------------------------------------------------
@@ -1350,6 +1579,260 @@ def phase_train(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 8,
             "eval": {"episodes": eval_episodes, "wall_s": eval_wall,
                      "stats": ev},
             "short_runs": others}
+
+
+# -- 5b. vector-env training --------------------------------------------------
+
+def _timed_run(dev, fn) -> tuple:
+    """``fn(callback)`` with the launch and grid counts reset just before
+    and read just after; wall s in all and per episode (host clock; each
+    episode ends in its one host read of the stats)."""
+    marks = []
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn(lambda ep, st: marks.append(time.perf_counter()))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    return out, {"wall_s": wall,
+                 "wall_s_per_episode": np.diff([t0] + marks).tolist(),
+                 "launches": {k: ops.LAUNCHES[k] for k in TRAIN_KERNELS},
+                 "grids": {k: ops.GRIDS[k] for k in TRAIN_KERNELS}}
+
+
+def _finite(hist, what: str) -> None:
+    require(bool(np.isfinite(np.asarray(list(hist.values()))).all()),
+            f"{what}: non-finite stats")
+
+
+def _fused_update_timing(ts, cfg: T2DRLCfg, dev, n: int = 20) -> dict:
+    """n fused D3PG updates of the B learners of ``ts`` (each on its own
+    minibatch from its own buffer, one stacked update) against the same
+    learners updated one after another by the single-learner update: host
+    ms per fused update and per B single updates (each ending in a
+    synchronise), their launches (2 ddpm_chain + 1 ddpm_chain_bwd against
+    3 B) and the fused update's losses; on the card also each one's device
+    ms, the device's idle share of the host time and its device kernels
+    per call (torch.profiler)."""
+    from repro_torch.agents.allocators import actor_schedule
+    from repro_torch.core.d3pg import (d3pg_learner, d3pg_update,
+                                       d3pg_update_stacked)
+    d3 = cfg.d3pg_cfg()
+    sched = actor_schedule(d3)
+    B = len(ts["ebuf"]["ptr"])
+    fused_state = {"s": copy.deepcopy(ts["d3pg"])}
+    looped = copy.deepcopy(ts["d3pg"])
+    views = [d3pg_learner(looped, b) for b in range(B)]
+    gens = [make_generator(99 + b, dev) for b in range(B)]
+
+    def fused():
+        batch = buffer_sample_stacked(ts["ebuf"], gens, d3.batch)
+        fused_state["s"], m = d3pg_update_stacked(fused_state["s"], d3,
+                                                  sched, batch, gens)
+        return m
+
+    def singles():
+        for b in range(B):
+            batch = buffer_sample(buffer_cell(ts["ebuf"], b), gens[b],
+                                  d3.batch)
+            views[b], _ = d3pg_update(views[b], d3, sched, batch, gens[b])
+
+    out = {"B": B, "updates": n}
+    for name, fn in (("fused", fused), ("single_x_B", singles)):
+        for _ in range(3):
+            fn()
+        sync(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            m = fn()
+        sync(dev)
+        out[name] = {"ms": 1e3 * (time.perf_counter() - t0) / n,
+                     "launches_per_call": {
+                         k: ops.LAUNCHES[k] / n
+                         for k in ("ddpm_chain", "ddpm_chain_bwd")}}
+        if name == "fused":
+            out["losses"] = {k: v.tolist() for k, v in m.items()}
+    if dev.type == "cuda":
+        require(out["fused"]["launches_per_call"] == {
+            "ddpm_chain": 2, "ddpm_chain_bwd": 1},
+            f"a fused update launched {out['fused']['launches_per_call']}")
+        for name, fn in (("fused", fused), ("single_x_B", singles)):
+            events, kernels, _ = device_ms_per_call(fn, 10)
+            busy = sum(events.values())
+            out[name].update(device_ms=busy,
+                             device_idle_share=1.0 - busy / out[name]["ms"],
+                             device_kernels=kernels)
+    return out
+
+
+def _env_slot_timing(dev, ec: EnvCfg, Bs=(1, VECTOR_B), n: int = 50) -> dict:
+    """Host ms of one ``env_step_slot`` (with its observation) of B cells
+    at once, at each B of ``Bs``: each cell makes its slot's nine draws
+    from its own generator, the arithmetic runs once for all (ending in a
+    synchronise)."""
+    out = {}
+    for B in Bs:
+        gens = [make_generator(60 + b, dev) for b in range(B)]
+        env = env_reset_batch(gens, ec)
+        zoos = make_models_batch(gens, ec)
+        b_ = torch.full((B, ec.U), 1.0 / ec.U, device=dev)
+        for _ in range(3):
+            env, _, _ = env_step_slot(env, ec, zoos, b_, b_)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            env, _, _ = env_step_slot(env, ec, zoos, b_, b_)
+            observe(env, ec, zoos)
+        sync(dev)
+        out[str(B)] = 1e3 * (time.perf_counter() - t0) / n
+    return out
+
+
+def phase_vector(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 2,
+                 B: int = VECTOR_B, shared_counts=SHARED_COUNTS,
+                 members=POP_MEMBERS, eval_episodes: int = 1,
+                 ga: GACfg = GACfg()) -> dict:
+    """Vector-env training at the paper's width, under method_cfg's
+    settings: ``train_t2drl(num_envs=B)`` with fused independent learners;
+    the shared learner over ``len(shared_counts)`` cells with those user
+    counts; ``train_population`` of ``members`` and its ranking; one greedy
+    schrs/ddqn episode through eval_t2drl and one lockstep SCHRS
+    ``batch_act`` slot over 4 cells.  Requires (episodes, B) histories of
+    finite stats, the gates' update counts, every learner's actor and
+    critic changed, and on the card the fused run's exact launches: one
+    ddpm_chain per acting slot for all B learners and 2 + 1 a stacked
+    update, whatever B.  Then one fused update at B timed against B
+    single-learner updates (``_fused_update_timing``) and the env's slot
+    step at 1 and B cells (``_env_slot_timing``: the per-cell draws'
+    cost).  The launches of each run are counted by shape for the
+    ``kernels`` line."""
+    dev = resolve_device(device)
+    ec = env_cfg
+    slots = ec.T * ec.K
+    cfg = method_cfg("d3pg", "ddqn", ec, episodes)
+    n_pred = sum(n for n, _ in predicted_updates(cfg, episodes))
+    init = t2drl_init_batch(cell_generators(cfg.seed, B, dev), cfg)
+    init = {k: [p.detach().clone() for p in init["d3pg"][k].parameters()]
+            for k in ("actor", "critic")}
+    (ts, hist), run = _timed_run(dev, lambda cb: train_t2drl(
+        cfg, episodes=episodes, num_envs=B, device=dev, callback=cb))
+    n = ts["d3pg"]["opt_a"]["step"]
+    require(n == n_pred, f"fused run: {n} updates, the gates predict "
+            f"{n_pred}")
+    want = {"ddpm_chain": slots * episodes + 2 * n, "ddpm_chain_bwd": n,
+            "ddpm_step": 0, "ddpm_step_bwd": 0}
+    if dev.type == "cuda":
+        require(run["launches"] == want, f"fused run launched "
+                f"{run['launches']}, expected {want}")
+    require(np.asarray(hist["mean_reward"]).shape == (episodes, B),
+            f"fused history {np.asarray(hist['mean_reward']).shape}")
+    _finite(hist, "fused run")
+    unchanged = [(k, b) for k in init for b in range(B)
+                 if n and all(torch.equal(p[b], q[b]) for p, q in zip(
+                     ts["d3pg"][k].parameters(), init[k]))]
+    require(not unchanged, f"learners left unchanged: {unchanged}")
+    upd = _fused_update_timing(ts, cfg, dev)
+    require(bool(np.isfinite(np.asarray(list(upd["losses"].values()))
+                             ).all()), f"fused losses {upd['losses']}")
+    fused = {**run, "B": B, "d3pg_updates": n, "expected_launches": want,
+             "history_shape": list(np.asarray(hist["mean_reward"]).shape),
+             "last_episode_mean": {k: float(np.mean(v[-1]))
+                                   for k, v in hist.items()},
+             "launches_by_shape": {
+                 "ddpm_chain": {f"B{B}_R1": slots * episodes,
+                                f"B{B}_R64": n, f"B{B}_R64+record": n},
+                 "ddpm_chain_bwd": {f"B{B}_R64": n}}}
+    del ts
+
+    Bs = len(shared_counts)
+    cfg_s = dataclasses.replace(cfg, policy="shared")
+    (ts, hist), run = _timed_run(dev, lambda cb: train_t2drl(
+        cfg_s, episodes=episodes, num_envs=Bs, user_counts=shared_counts,
+        device=dev, callback=cb))
+    n_s = ts["d3pg"]["opt_a"]["step"]
+    want = {"ddpm_chain": slots * episodes + 2 * n_s,
+            "ddpm_chain_bwd": n_s, "ddpm_step": 0, "ddpm_step_bwd": 0}
+    if dev.type == "cuda":
+        require(run["launches"] == want, f"shared run launched "
+                f"{run['launches']}, expected {want}")
+    require(np.asarray(hist["hit_ratio"]).shape == (episodes, Bs),
+            "shared history shape")
+    _finite(hist, "shared run")
+    rows = cfg.d3pg_cfg().batch // Bs * Bs       # the pooled minibatch
+    require(rows == 64, f"the shared learner's minibatch is {rows} rows, "
+            f"not the 64 the kernels line has timed")
+    shared = {**run, "B": Bs, "user_counts": list(shared_counts),
+              "d3pg_updates": n_s, "expected_launches": want,
+              "last_episode_mean": {k: float(np.mean(v[-1]))
+                                    for k, v in hist.items()},
+              "launches_by_shape": {
+                  "ddpm_chain": {f"control_R{Bs}": slots * episodes,
+                                 f"control_R{rows}": n_s,
+                                 f"control_R{rows}+record": n_s},
+                  "ddpm_chain_bwd": {"train": n_s}}}
+    del ts
+
+    Bp = len(members)
+    (res, groups), run = _timed_run(dev, lambda cb: train_population(
+        cfg, members, episodes=episodes, eval_episodes=eval_episodes,
+        device=dev))
+    ranked = rank_population(res)
+    for r in res:
+        _finite(r["history"], f"member {r['label']}")
+    n_p = sum(n for n, _ in predicted_updates(cfg, episodes))
+    want = {"ddpm_chain": slots * (episodes + eval_episodes) + 2 * n_p,
+            "ddpm_chain_bwd": n_p, "ddpm_step": 0, "ddpm_step_bwd": 0}
+    if dev.type == "cuda":
+        require(run["launches"] == want, f"population launched "
+                f"{run['launches']}, expected {want}")
+    population = {
+        "wall_s": run["wall_s"],
+        "wall_s_per_episode": run["wall_s"] / (episodes + eval_episodes),
+        "launches": run["launches"], "grids": run["grids"],
+        "expected_launches": want, "groups": groups,
+        "ranking": [(r["label"], r["eval"]["utility"]) for r in ranked],
+        "launches_by_shape": {
+            "ddpm_chain": {f"B{Bp}_R1": slots * (episodes + eval_episodes),
+                           f"B{Bp}_R64": n_p, f"B{Bp}_R64+record": n_p},
+            "ddpm_chain_bwd": {f"B{Bp}_R64": n_p}}}
+
+    cfg_g = dataclasses.replace(method_cfg("schrs", "ddqn", ec, 1), ga=ga)
+    pol = policy_init(cfg_g, 0, dev)
+    zoo = make_models(make_generator(3, dev), ec)
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    ev = eval_t2drl(pol, zoo, cfg_g, episodes=1, device=dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    require(all(math.isfinite(v) for v in ev.values()), f"schrs eval {ev}")
+    require(sum(ops.LAUNCHES.values()) == 0, "the schrs episode launched "
+            f"{dict(ops.LAUNCHES)}")
+    agent = make_allocator("schrs", ec, cfg_g.d3pg_cfg(), ga)
+    gens = [make_generator(40 + b, dev) for b in range(4)]
+    env = env_reset_batch(gens, ec)
+    zoos = make_models_batch(gens, ec)
+    env = env_set_cache(env, torch.stack([
+        static_popular_cache(ModelParams(*(t[b] for t in zoos)), ec)
+        for b in range(4)]))
+    sync(dev)
+    t0 = time.perf_counter()
+    b_, xi = agent.batch_act({}, SlotObs(None, env, zoos),
+                             make_generator(5, dev), {})
+    sync(dev)
+    lockstep = time.perf_counter() - t0
+    for c in range(4):
+        _check_simplexes(b_[c], xi[c], env_cell(env, c))
+    schrs = {"eval_wall_s": wall, "ms_per_slot": 1e3 * wall / slots,
+             "stats": ev, "batch_act_cells": 4,
+             "batch_act_ms": 1e3 * lockstep,
+             "ga": dataclasses.asdict(ga)}
+    return {"phase": "vector", "env": {"U": ec.U, "M": ec.M, "T": ec.T,
+                                       "K": ec.K},
+            "episodes": episodes, "fused": fused, "fused_update": upd,
+            "env_slot_ms": _env_slot_timing(dev, ec, (1, B)),
+            "shared": shared, "population": population, "schrs": schrs}
 
 
 # -- 6. control plane -----------------------------------------------------------
@@ -1880,7 +2363,19 @@ SOURCES["ddpm_step_bwd"] = SOURCES["ddpm_step"]
 SOURCES["ddpm_chain_bwd"] = SOURCES["ddpm_chain"]
 
 
-def kernels_line(check, timing, train, control, data, lm) -> dict:
+def _vector_paths(vector, kernel: str) -> tuple:
+    """The vector-env phase's launches of ``kernel`` by timing case, summed
+    over its fused, shared and population runs, and the grids they
+    started."""
+    runs = [vector[k] for k in ("fused", "shared", "population")]
+    by = {}
+    for r in runs:
+        for case, n in r["launches_by_shape"][kernel].items():
+            by[case] = by.get(case, 0) + n
+    return by, sum(r["grids"][kernel] for r in runs)
+
+
+def kernels_line(check, timing, train, control, data, lm, vector) -> dict:
     """The ``kernels`` line.  ddpm_step: the control plane's impl="step"
     episode (at (20,)) and the impl="step" updates of the train phase's
     update timing (their policy chains, at (64, 20)).  ddpm_step_bwd:
@@ -1895,7 +2390,10 @@ def kernels_line(check, timing, train, control, data, lm) -> dict:
     flash_attention and ssd_scan at the most frequent prefill length of
     the LM plane, with the path summed over its buckets (24 launches per
     prefill) and the times at L = 512 and 4096 beside it.  Every kernel
-    must have launched on its path."""
+    must have launched on its path.  The vector-env phase adds its
+    launches to ddpm_chain's and ddpm_chain_bwd's paths at their shapes
+    (the stacked ones under ``at`` with their B single-learner
+    yardstick, ``single_x_B_ms``)."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
     upd = train["update_timing"]
@@ -1917,18 +2415,23 @@ def kernels_line(check, timing, train, control, data, lm) -> dict:
         step_upd["grids"]["ddpm_step_bwd"])
     summary["ddpm_step_bwd"]["launches_by_path"] = {
         "step_updates": step_upd["launches"]["ddpm_step_bwd"]}
-    chain_rows = [(r["case"], r) for r in timing["ddpm_chain"]]
+    chain_rows = [(r["case"], r) for r in timing["ddpm_chain"]
+                  + timing["stacked"]["ddpm_chain"]]
+    vec_chain, vec_grids = _vector_paths(vector, "ddpm_chain")
     by_plane = {"control": control["launches"]["ddpm_chain"],
                 "train": tl["ddpm_chain"],
                 "data": data["launches"]["ddpm_chain"],
-                "lm_gateway": lm["gateway"]["launches"]["ddpm_chain"]}
+                "lm_gateway": lm["gateway"]["launches"]["ddpm_chain"],
+                "vector": sum(vec_chain.values())}
     acting = train["env"]["T"] * train["env"]["K"] * train["episodes"]
     n_d3 = train["d3pg_updates"]
+    chain_path = {"control": by_plane["control"] + acting,
+                  "control_R64": n_d3, "control_R64+record": n_d3}
+    for case, n in vec_chain.items():
+        chain_path[case] = chain_path.get(case, 0) + n
     chain = kernel_summary(
-        chain_rows, {"control": by_plane["control"] + acting,
-                     "control_R64": n_d3, "control_R64+record": n_d3},
-        "control", [k for k, _ in chain_rows[1:]],
-        control["grids"] + train["grids"]["ddpm_chain"])
+        chain_rows, chain_path, "control", [k for k, _ in chain_rows[1:]],
+        control["grids"] + train["grids"]["ddpm_chain"] + vec_grids)
     chain["step_ms"] = timing["ddpm_chain"][0]["step_ms"]
     for k, row in chain_rows[1:]:
         if "step_ms" in row:
@@ -1936,25 +2439,32 @@ def kernels_line(check, timing, train, control, data, lm) -> dict:
     chain["launches_by_plane"] = by_plane
     chain["grids_per_call"] = (control["grids"] + data["grids"]
                                + train["grids"]["ddpm_chain"]
-                               + lm["gateway"]["grids"]["ddpm_chain"]) \
-        / sum(by_plane.values())
+                               + lm["gateway"]["grids"]["ddpm_chain"]
+                               + vec_grids) / sum(by_plane.values())
     chain["clusters_per_call"] = (control["clusters"] + data["clusters"]) \
         / (by_plane["control"] + by_plane["data"])
     summary["ddpm_chain"] = chain
+    vec_bwd, vec_bwd_grids = _vector_paths(vector, "ddpm_chain_bwd")
+    bwd_path = {"train": tl["ddpm_chain_bwd"]}
+    for case, n in vec_bwd.items():
+        bwd_path[case] = bwd_path.get(case, 0) + n
     bwd = kernel_summary(
-        [(r["case"], r) for r in timing["ddpm_chain_bwd"]],
-        {"train": tl["ddpm_chain_bwd"]}, "train", ("control_R1", "R1024"),
-        train["grids"]["ddpm_chain_bwd"])
+        [(r["case"], r) for r in timing["ddpm_chain_bwd"]
+         + timing["stacked"]["ddpm_chain_bwd"]],
+        bwd_path, "train", ("control_R1", "R1024")
+        + tuple(r["case"] for r in timing["stacked"]["ddpm_chain_bwd"]),
+        train["grids"]["ddpm_chain_bwd"] + vec_bwd_grids)
     bwd["fwd_bwd"] = {r["case"]: r["fwd_bwd"]
                       for r in timing["ddpm_chain_bwd"]}
     bwd["launches_by_path"] = {
-        "train": tl["ddpm_chain_bwd"],
+        "train": tl["ddpm_chain_bwd"], "vector": sum(vec_bwd.values()),
         "chain_updates": upd["chain"]["launches"]["ddpm_chain_bwd"]}
     summary["ddpm_chain_bwd"] = bwd
     launches = {"ddpm_step": sum(step_path.values()),
                 "ddpm_step_bwd": step_upd["launches"]["ddpm_step_bwd"],
                 "ddpm_chain": sum(by_plane.values()),
-                "ddpm_chain_bwd": tl["ddpm_chain_bwd"],
+                "ddpm_chain_bwd": (tl["ddpm_chain_bwd"]
+                                   + sum(vec_bwd.values())),
                 "flash_attention": lm["flash_attention_launches"],
                 "ssd_scan": lm["ssd_scan_launches"]}
     for kname, model in (("flash_attention", "qwen2-0.5b"),
@@ -1991,13 +2501,15 @@ def main() -> int:
     emit(timing)
     train = phase_train(device)
     emit(train)
+    vector = phase_vector(device)
+    emit(vector)
     control = phase_control_plane(device)
     emit(control)
     data = phase_data_plane(device)
     emit(data)
     lm = phase_lm_plane(device)
     emit(lm)
-    emit(kernels_line(check, timing, train, control, data, lm))
+    emit(kernels_line(check, timing, train, control, data, lm, vector))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

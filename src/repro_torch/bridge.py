@@ -9,10 +9,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.buffers import stack_buffers
+from repro_torch.core.d3pg import stack_d3pg
+from repro_torch.core.ddqn import stack_ddqn
 from repro_torch.core.env import EnvState, ModelParams
-from repro_torch.core.networks import MLP
+from repro_torch.core.networks import MLP, StackedMLP
 from repro_torch.device import resolve_device
-from repro_torch.diffusion.denoiser import TIME_DIM, Denoiser
+from repro_torch.diffusion.denoiser import (TIME_DIM, Denoiser,
+                                            StackedDenoiser)
 from repro_torch.models.lm import LMCfg, check_ported, tree_map
 
 
@@ -20,18 +24,22 @@ def _f32(a, device):
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
-def mlp_from_numpy(layers, device=None) -> MLP:
-    """``[{"w": (in, out), "b": (out,)}, ...]`` -> ``MLP``."""
+def mlp_from_numpy(layers, device=None):
+    """``[{"w": (in, out), "b": (out,)}, ...]`` -> ``MLP``; B stacked
+    learners' layers (``mlp_init_stacked``: ``w`` (B, in, out), ``b``
+    (B, out)) -> ``StackedMLP``."""
     dev = resolve_device(device)
-    return MLP([_f32(l["w"], dev) for l in layers],
+    cls = StackedMLP if np.asarray(layers[0]["w"]).ndim == 3 else MLP
+    return cls([_f32(l["w"], dev) for l in layers],
                [_f32(l["b"], dev) for l in layers])
 
 
-def denoiser_from_numpy(tree, device=None,
-                        time_dim: int = TIME_DIM) -> Denoiser:
+def denoiser_from_numpy(tree, device=None, time_dim: int = TIME_DIM):
     """``{"layers": [...]}`` (``repro.diffusion.denoiser_init``) ->
-    ``Denoiser``."""
-    return Denoiser(mlp_from_numpy(tree["layers"], device), time_dim)
+    ``Denoiser``; stacked layers -> ``StackedDenoiser``."""
+    net = mlp_from_numpy(tree["layers"], device)
+    cls = StackedDenoiser if isinstance(net, StackedMLP) else Denoiser
+    return cls(net, time_dim)
 
 
 def actor_from_numpy(tree, device=None):
@@ -79,19 +87,10 @@ def _buffer_from_numpy(buf, dev) -> dict:
             "size": int(np.asarray(buf["size"]))}
 
 
-def train_state_from_numpy(ts, cfg, device=None) -> dict:
-    """A JAX ``t2drl_init`` (or trained, single-cell) train state with
-    numpy leaves -> the port's (``repro_torch.core.t2drl.t2drl_init``
-    layout): model zoo, D3PG networks, targets and Adam states, DDQN
-    networks, target and Adam state, and both replay buffers (integer
-    leaves as int64).  ``cfg`` is the port's ``T2DRLCfg``.  The classical
-    cachers' ``cache`` state is not carried (ROADMAP A.7)."""
-    dev = resolve_device(device)
-    d3, dq = ts["d3pg"], ts["ddqn"]
+def _learners_from_numpy(d3, dq, dev) -> dict:
     actor = lambda t: actor_from_numpy(t, dev)  # noqa: E731
     mlp = lambda t: mlp_from_numpy(t, dev)  # noqa: E731
     return {
-        "models": models_from_numpy(ts["models"], dev),
         "d3pg": {"actor": actor(d3["actor"]),
                  "actor_t": actor(d3["actor_t"]).requires_grad_(False),
                  "critic": mlp(d3["critic"]),
@@ -100,14 +99,58 @@ def train_state_from_numpy(ts, cfg, device=None) -> dict:
                  "opt_c": _adam_state_from_numpy(d3["opt_c"], mlp)},
         "ddqn": {"q": mlp(dq["q"]),
                  "q_target": mlp(dq["q_target"]).requires_grad_(False),
-                 "opt": _adam_state_from_numpy(dq["opt"], mlp)},
-        "ebuf": _buffer_from_numpy(ts["ebuf"], dev),
-        "fbuf": _buffer_from_numpy(ts["fbuf"], dev),
-        "cache": {}}
+                 "opt": _adam_state_from_numpy(dq["opt"], mlp)}}
+
+
+def _cell(tree, b: int):
+    """Entry b of every leaf of a numpy tree (dicts, lists, NamedTuples)."""
+    if isinstance(tree, dict):
+        return {k: _cell(v, b) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_cell(v, b) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cell(v, b) for v in tree)
+    return np.asarray(tree)[b]
+
+
+def train_state_from_numpy(ts, cfg, device=None) -> dict:
+    """A JAX train state with numpy leaves -> the port's: model zoo, D3PG
+    networks, targets and Adam states, DDQN networks, target and Adam
+    state, and both replay buffers (integer leaves as int64).  ``cfg`` is
+    the port's ``T2DRLCfg``.
+
+    A single-cell state (``t2drl_init``) gives ``t2drl_init``'s layout.  A
+    batched one (``t2drl_init_batch``, or trained with ``num_envs > 1``)
+    gives ``t2drl_init_batch``'s: (B,)-leading models and buffers (per-cell
+    ``ptr``/``size`` lists) and, for ``cfg.policy == "independent"``,
+    stacked learners (every leaf of the JAX agents carries the B axis);
+    a shared state's agents are unbatched in both.  The classical cachers'
+    ``cache`` state is not carried (ROADMAP A.7)."""
+    dev = resolve_device(device)
+    if np.asarray(ts["models"].a1).ndim == 1:
+        return {"models": models_from_numpy(ts["models"], dev),
+                **_learners_from_numpy(ts["d3pg"], ts["ddqn"], dev),
+                "ebuf": _buffer_from_numpy(ts["ebuf"], dev),
+                "fbuf": _buffer_from_numpy(ts["fbuf"], dev), "cache": {}}
+    B = np.asarray(ts["models"].a1).shape[0]
+    out = {"models": models_from_numpy(ts["models"], dev), "cache": {}}
+    for k in ("ebuf", "fbuf"):
+        out[k] = stack_buffers(_buffer_from_numpy(_cell(ts[k], b), dev)
+                               for b in range(B))
+    if cfg.policy == "shared":
+        out.update(_learners_from_numpy(ts["d3pg"], ts["ddqn"], dev))
+    else:
+        cells = [_learners_from_numpy(_cell(ts["d3pg"], b),
+                                      _cell(ts["ddqn"], b), dev)
+                 for b in range(B)]
+        out["d3pg"] = stack_d3pg(c["d3pg"] for c in cells)
+        out["ddqn"] = stack_ddqn(c["ddqn"] for c in cells)
+    return out
 
 
 def models_from_numpy(mp, device=None) -> ModelParams:
-    """A JAX ``ModelParams`` (numpy leaves) -> the port's ``ModelParams``."""
+    """A JAX ``ModelParams`` (numpy leaves, (M,) or B cells' (B, M)) ->
+    the port's ``ModelParams``."""
     dev = resolve_device(device)
     return ModelParams(*(_f32(getattr(mp, f), dev)
                          for f in ModelParams._fields))

@@ -1,6 +1,7 @@
 """The paper's contribution, ported: environment, D3PG and DDQN learners,
-baselines, replay buffers and the single-cell two-timescale loop
-(``t2drl``), with the names ``repro.core`` exports for what is ported.
+baselines, replay buffers, the two-timescale loop (``t2drl``: one cell and
+the vector-env modes) and population sweeps, with the names
+``repro.core`` exports for what is ported.
 
 The names are resolved at first use (PEP 562), so importing
 ``repro_torch.core.networks`` from ``repro_torch.diffusion`` does not pull
@@ -10,22 +11,28 @@ import importlib
 
 _EXPORTS = {
     "env": ("EnvCfg", "EnvState", "ModelParams", "env_reset",
-            "env_new_frame", "env_step_slot", "make_models",
-            "make_user_masks", "masked_mean", "observe", "slot_metrics",
-            "slot_reward"),
+            "env_reset_batch", "env_new_frame", "env_step_slot",
+            "make_models", "make_models_batch", "make_user_masks",
+            "masked_mean", "observe", "slot_metrics", "slot_reward"),
     "quality": ("tv_quality", "gen_delay"),
-    "ddqn": ("DDQNCfg", "amend_caching", "ddqn_act", "ddqn_init",
-             "ddqn_update"),
-    "d3pg": ("D3PGCfg", "actor_act", "amend_actions", "critic_q",
-             "d3pg_init", "d3pg_update", "make_actor_schedule"),
-    "buffers": ("buffer_add", "buffer_add_many", "buffer_init",
-                "buffer_sample"),
-    "baselines": ("GACfg", "random_cache", "rcars_allocate",
+    "ddqn": ("DDQNCfg", "amend_caching", "ddqn_act", "ddqn_act_stacked",
+             "ddqn_init", "ddqn_update", "ddqn_update_stacked"),
+    "d3pg": ("D3PGCfg", "actor_act", "actor_act_stacked", "amend_actions",
+             "critic_q", "critic_q_stacked", "d3pg_init", "d3pg_update",
+             "d3pg_update_stacked", "make_actor_schedule"),
+    "buffers": ("buffer_add", "buffer_add_batch", "buffer_add_many",
+                "buffer_add_many_batch", "buffer_add_many_stacked",
+                "buffer_init", "buffer_init_batch", "buffer_sample",
+                "buffer_sample_batch", "buffer_sample_stacked"),
+    "baselines": ("GACfg", "ga_allocate", "random_cache", "rcars_allocate",
                   "static_popular_cache"),
-    "t2drl": ("T2DRLCfg", "episode_epsilon", "episode_lr_scale",
-              "episode_sigma", "eval_t2drl", "export_policy",
-              "greedy_frame_cache", "greedy_slot_action", "run_eval",
-              "t2drl_init", "train_t2drl"),
+    "t2drl": ("T2DRLCfg", "cell_generators", "episode_epsilon",
+              "episode_lr_scale", "episode_sigma", "eval_t2drl",
+              "export_policy", "greedy_frame_cache", "greedy_slot_action",
+              "run_eval", "run_eval_batch", "run_training", "t2drl_init",
+              "t2drl_init_batch", "train_t2drl"),
+    "population": ("PopMember", "default_grid", "population_schedules",
+                   "rank_population", "train_population"),
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = sorted(_WHERE)

@@ -12,9 +12,15 @@ under ``torch.no_grad``; the actor's loss in ``d3pg_update`` goes through
 default) one ``ddpm_chain`` launch with its record and one
 ``ddpm_chain_bwd`` launch in the backward, with ``impl="step"`` the eager
 denoiser around L ``ddpm_step`` and L ``ddpm_step_bwd`` launches.  The
-telemetry variant
-(``diag=True``) waits for ROADMAP A.8, the stacked B-learner functions for
-A.6.
+telemetry variant (``diag=True``) waits for ROADMAP A.8.
+
+B independent learners (the fused vector-env path, DESIGN.md §13) keep one
+stacked state (``d3pg_init_stacked``: every network a ``StackedMLP`` or
+``StackedDenoiser``, every Adam moment B-leading): ``actor_act_stacked``
+acts for all B in one stacked ``ddpm_chain`` launch, and
+``d3pg_update_stacked`` updates all B with the launches of one update
+(two ``ddpm_chain``, one ``ddpm_chain_bwd``), each learner on its own
+minibatch, draws and learning rates.
 """
 from __future__ import annotations
 
@@ -23,10 +29,15 @@ import dataclasses
 
 import torch
 
-from repro_torch.diffusion import (denoiser_init, make_schedule,
-                                   reverse_sample_actions)
-from repro_torch.optim import adam_init, adam_update
-from .networks import mlp_apply, mlp_init, soft_update
+from repro_torch.diffusion import (Denoiser, denoiser_init, make_schedule,
+                                   reverse_sample_actions,
+                                   reverse_sample_actions_stacked,
+                                   stack_denoisers)
+from repro_torch.optim import (adam_init, adam_learner, adam_update,
+                               adam_update_stacked, learner_values,
+                               stack_adam)
+from .networks import (mlp_apply, mlp_apply_stacked, mlp_init,
+                       soft_update, stack_mlps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,15 +225,132 @@ def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
                  "actor_loss": a_loss.detach()}
 
 
-def _stacked(name: str):
-    def fn(*args, **kwargs):
+# -- B stacked learners (DESIGN.md §13) ---------------------------------------
+
+def _stack_net(nets):
+    nets = list(nets)
+    return (stack_denoisers(nets) if isinstance(nets[0], Denoiser)
+            else stack_mlps(nets))
+
+
+def stack_d3pg(states) -> dict:
+    """B learners' D3PG states (``d3pg_init``) -> one stacked state."""
+    states = list(states)
+    out = {k: _stack_net(st[k] for st in states)
+           for k in ("actor", "actor_t", "critic", "critic_t")}
+    for k in ("actor_t", "critic_t"):
+        out[k].requires_grad_(False)
+    out.update({k: stack_adam(st[k] for st in states)
+                for k in ("opt_a", "opt_c")})
+    return out
+
+
+def d3pg_init_stacked(cfg: D3PGCfg, generators) -> dict:
+    """B learners, learner b's state ``d3pg_init`` of ``generators[b]``."""
+    return stack_d3pg(d3pg_init(cfg, g) for g in generators)
+
+
+def d3pg_learner(params: dict, b: int) -> dict:
+    """Learner b's D3PG state: modules and moments that are views of the
+    stack's (what ``d3pg_update`` writes in place lands in the stack)."""
+    out = {k: params[k].learner(b)
+           for k in ("actor", "actor_t", "critic", "critic_t")}
+    out.update({k: adam_learner(params[k], b) for k in ("opt_a", "opt_c")})
+    return out
+
+
+def actor_forward_stacked(actor, cfg: D3PGCfg, sched, state,
+                          generators=None, *, x_L=None, noises=None,
+                          impl: str = "chain"):
+    """``actor_forward`` for B stacked learners: state (B, ..., S) ->
+    raw (B, ..., A) with the graph to every learner's parameters."""
+    if cfg.actor_kind == "diffusion":
+        return reverse_sample_actions_stacked(
+            actor, sched, state, cfg.action_dim, generators=generators,
+            x_L=x_L, noises=noises, impl=impl)
+    x = mlp_apply_stacked(actor, state, final_act=torch.tanh)
+    return 0.5 * (x + 1.0)
+
+
+@torch.no_grad()
+def actor_act_stacked(actor, cfg: D3PGCfg, sched, state, generators=None, *,
+                      x_L=None, noises=None, impl: str = "chain"):
+    """``actor_act`` for B stacked learners, no gradient: state
+    (B, ..., S); learner b's chain draws from ``generators[b]`` as
+    ``actor_act`` draws from one (or ``x_L`` (B, ..., A) / ``noises``
+    (B, L, ..., A) are injected).  One stacked ``ddpm_chain`` launch."""
+    return actor_forward_stacked(actor, cfg, sched, state, generators,
+                                 x_L=x_L, noises=noises, impl=impl)
+
+
+def critic_q_stacked(critic, state, action):
+    """Q(s, a) of B stacked critics: (B, ..., S), (B, ..., A) -> (B, ...)."""
+    return mlp_apply_stacked(critic, torch.cat([state, action],
+                                               dim=-1))[..., 0]
+
+
+def d3pg_update_stacked(params: dict, cfg: D3PGCfg, sched, batch: dict,
+                        generators=None, *, lr_a=None, lr_c=None, mask=None,
+                        diag: bool = False, draws=None,
+                        impl: str = "chain"):
+    """``d3pg_update`` for B stacked learners in one pass, in the same order
+    (target chain, critic step, policy chain against the updated critic,
+    actor step, soft updates), each learner on its own minibatch.
+
+    batch leaves are (B, n, ...); ``mask`` an optional (B, U) per-cell
+    mask; ``lr_a``/``lr_c`` numbers or per-learner sequences/(B,)
+    tensors (the population lever).  ``draws`` injects the chains' draws
+    as ``{"target": (x_L, noises), "policy": (x_L, noises)}`` with x_L
+    (B, n, A) and noises (B, L, n, A); otherwise learner b draws the
+    target's then the policy's from ``generators[b]``, as ``d3pg_update``
+    draws them from one.  The losses are summed over learners, so each
+    learner's gradient is its own loss's.  The diffusion actor's chains:
+    one stacked ``ddpm_chain`` launch each (the policy chain with its
+    record) and one stacked ``ddpm_chain_bwd``, whatever B.  Returns the
+    state (updated in place) and ``{"critic_loss": (B,), "actor_loss":
+    (B,)}``."""
+    if diag:
         raise NotImplementedError(
-            f"{name}: the fused B-learner D3PG is not ported yet; it comes "
-            "with the vector-env modes (ROADMAP queue A, item 6)")
-    fn.__name__ = name
-    return fn
+            "d3pg_update_stacked(diag=True): the update's telemetry is not "
+            "ported yet (ROADMAP queue A, item 8)")
+    B, dev = batch["s"].shape[0], batch["s"].device
+    lr_a = learner_values(cfg.lr_actor if lr_a is None else lr_a, B, dev)
+    lr_c = learner_values(cfg.lr_critic if lr_c is None else lr_c, B, dev)
+    U = cfg.action_dim // 2
+    draws = draws or {}
+    x_t, n_t = draws.get("target", (None, None))
+    x_pi, n_pi = draws.get("policy", (None, None))
+    m = None if mask is None else mask[:, None, :]
 
+    def amend(raw, req, rho):
+        return torch.cat(amend_actions(raw, req, rho, U, mask=m), dim=-1)
 
-actor_act_stacked = _stacked("actor_act_stacked")
-critic_q_stacked = _stacked("critic_q_stacked")
-d3pg_update_stacked = _stacked("d3pg_update_stacked")
+    with torch.no_grad():
+        raw1 = actor_act_stacked(params["actor_t"], cfg, sched, batch["s1"],
+                                 generators, x_L=x_t, noises=n_t)
+        a1 = amend(raw1, batch["req1"], batch["rho1"])
+        y_hat = batch["r"] + cfg.omega * critic_q_stacked(
+            params["critic_t"], batch["s1"], a1)
+    critic = params["critic"]
+    y = critic_q_stacked(critic, batch["s"], batch["a"])
+    c_loss = torch.mean(0.5 * (y_hat - y) ** 2, dim=-1)          # (B,)
+    c_grads = torch.autograd.grad(c_loss.sum(), list(critic.parameters()))
+    _, opt_c, _ = adam_update_stacked(c_grads, params["opt_c"], critic,
+                                      lr=lr_c)
+
+    actor = params["actor"]
+    raw = actor_forward_stacked(actor, cfg, sched, batch["s"], generators,
+                                x_L=x_pi, noises=n_pi, impl=impl)
+    act = amend(raw, batch["req"], batch["rho"])
+    a_loss = -torch.mean(critic_q_stacked(critic, batch["s"], act), dim=-1)
+    a_grads = torch.autograd.grad(a_loss.sum(), list(actor.parameters()))
+    _, opt_a, _ = adam_update_stacked(a_grads, params["opt_a"], actor,
+                                      lr=lr_a)
+    new = {"actor": actor,
+           "actor_t": soft_update(params["actor_t"], actor, cfg.eps_target),
+           "critic": critic,
+           "critic_t": soft_update(params["critic_t"], critic,
+                                   cfg.eps_target),
+           "opt_a": opt_a, "opt_c": opt_c}
+    return new, {"critic_loss": c_loss.detach(),
+                 "actor_loss": a_loss.detach()}

@@ -5,7 +5,9 @@ State: the popularity state gamma(t) (one-hot over J).  Action: an integer
 in [0, 2^M) decoded to the caching vector rho by the paper's floor/mod
 amender; ``feasible_amender`` additionally evicts the largest cached model
 until the storage constraint (11d) holds.  The telemetry variant of
-``ddqn_update`` (``diag=True``) waits for ROADMAP A.8.
+``ddqn_update`` (``diag=True``) waits for ROADMAP A.8.  B stacked learners
+(``ddqn_init_stacked``: the Q-nets as ``StackedMLP``) act and update in one
+pass (``ddqn_act_stacked``, ``ddqn_update_stacked``).
 """
 from __future__ import annotations
 
@@ -14,8 +16,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.optim import adam_init, adam_update
-from .networks import mlp_apply, mlp_init, soft_update
+from repro_torch.optim import (adam_init, adam_learner, adam_update,
+                               adam_update_stacked, learner_values,
+                               stack_adam)
+from .networks import (mlp_apply, mlp_apply_stacked, mlp_init, soft_update,
+                       stack_mlps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,10 +86,11 @@ def amend_caching(a_int, cfg: DDQNCfg, c=None, C: float = 0.0):
                     rounding_mode="floor") % 2
     rho = rho.to(torch.float32)
     if cfg.feasible_amender and c is not None:
-        for _ in range(cfg.M):
-            over = (torch.sum(rho * c) > C).to(torch.float32)
+        for _ in range(cfg.M):           # per cell over leading axes
+            over = (torch.sum(rho * c, dim=-1, keepdim=True)
+                    > C).to(torch.float32)
             largest = torch.nn.functional.one_hot(
-                torch.argmax(rho * c), cfg.M).to(torch.float32)
+                torch.argmax(rho * c, dim=-1), cfg.M).to(torch.float32)
             rho = rho * (1.0 - over * largest)
     return rho
 
@@ -115,3 +121,80 @@ def ddqn_update(params: dict, cfg: DDQNCfg, batch: dict, *, lr=None,
                                             cfg.kappa),
             "opt": opt}, loss.detach()
 
+
+
+# -- B stacked learners (DESIGN.md §13) ---------------------------------------
+
+def stack_ddqn(states) -> dict:
+    """B learners' DDQN states (``ddqn_init``) -> one stacked state."""
+    states = list(states)
+    return {"q": stack_mlps(st["q"] for st in states),
+            "q_target": stack_mlps(st["q_target"]
+                                   for st in states).requires_grad_(False),
+            "opt": stack_adam(st["opt"] for st in states)}
+
+
+def ddqn_init_stacked(cfg: DDQNCfg, generators) -> dict:
+    """B learners, learner b's state ``ddqn_init`` of ``generators[b]``."""
+    return stack_ddqn(ddqn_init(cfg, g) for g in generators)
+
+
+def ddqn_learner(params: dict, b: int) -> dict:
+    """Learner b's DDQN state: views of the stack's."""
+    return {"q": params["q"].learner(b),
+            "q_target": params["q_target"].learner(b),
+            "opt": adam_learner(params["opt"], b)}
+
+
+@torch.no_grad()
+def ddqn_act_stacked(params, cfg: DDQNCfg, gamma_idx, generators,
+                     eps=0.0):
+    """epsilon-greedy for B stacked learners: gamma_idx (B,), each
+    learner's own state; ``eps`` one number or B of them.  Learner b's
+    exploration draws come from ``generators[b]`` as ``ddqn_act``'s from
+    one (none where its eps is 0).  Returns (B,) actions."""
+    B = gamma_idx.shape[0]
+    qv = mlp_apply_stacked(params["q"], _obs(gamma_idx, cfg)[:, None, :])
+    greedy = torch.argmax(qv[:, 0], dim=-1)
+    eps = list(eps) if isinstance(eps, (list, tuple)) else [eps] * B
+    if all(e <= 0.0 for e in eps):
+        return greedy
+    dev = greedy.device
+    rand, explore = [], []
+    for g, e in zip(generators, eps):
+        if e <= 0.0:
+            rand.append(torch.zeros((), dtype=torch.int64, device=dev))
+            explore.append(torch.zeros((), dtype=torch.bool, device=dev))
+            continue
+        rand.append(torch.randint(0, cfg.n_actions, (), generator=g,
+                                  device=dev))
+        explore.append(torch.rand((), generator=g, device=dev) < e)
+    return torch.where(torch.stack(explore), torch.stack(rand), greedy)
+
+
+def ddqn_update_stacked(params: dict, cfg: DDQNCfg, batch: dict, *, lr=None,
+                        diag: bool = False):
+    """``ddqn_update`` for B stacked learners in one pass: batch leaves
+    (B, n); ``lr`` a number or per-learner sequence/(B,) tensor.  Returns
+    the state (updated in place) and the per-learner losses (B,)."""
+    if diag:
+        raise NotImplementedError(
+            "ddqn_update_stacked(diag=True): the update's telemetry is not "
+            "ported yet (ROADMAP queue A, item 8)")
+    q = params["q"]
+    B = batch["s"].shape[0]
+    lr = learner_values(cfg.lr if lr is None else lr, B, batch["r"].device)
+    s, s1 = _obs(batch["s"], cfg), _obs(batch["s1"], cfg)
+    y = torch.gather(mlp_apply_stacked(q, s), -1,
+                     batch["a"][..., None])[..., 0]
+    with torch.no_grad():
+        a1 = torch.argmax(mlp_apply_stacked(q, s1), dim=-1)
+        q1 = mlp_apply_stacked(params["q_target"], s1)
+        y_hat = batch["r"] + cfg.rho * torch.gather(q1, -1,
+                                                    a1[..., None])[..., 0]
+    loss = torch.mean(0.5 * (y_hat - y) ** 2, dim=-1)             # (B,)
+    grads = torch.autograd.grad(loss.sum(), list(q.parameters()))
+    _, opt, _ = adam_update_stacked(grads, params["opt"], q, lr=lr)
+    return {"q": q, "q_target": soft_update(params["q_target"], q,
+                                            cfg.kappa),
+            "opt": opt}, loss.detach()

@@ -10,6 +10,15 @@ rounding.  Random draws come from the ``torch.Generator`` the ``EnvState``
 carries (in place of a JAX key); they follow the same distributions, not
 the same streams.  Every draw is made on the generator's device and no
 function here reads a device value back to the host.
+
+B cells (the vector-env modes) are one ``EnvState`` whose tensors carry a
+leading (B,) axis and whose ``generator`` is a tuple of B generators
+(``env_reset_batch``); ``ModelParams`` then hold (B, M) leaves
+(``make_models_batch``) and masks are (B, U).  The same functions serve
+both: at each draw site cell b draws from its own generator exactly what
+a single cell draws there (so cell b's stream is that of a single-cell
+run on its generator), the draws are stacked, and the arithmetic runs
+once over all B cells.
 """
 from __future__ import annotations
 
@@ -92,7 +101,8 @@ class ModelParams(NamedTuple):
 
 
 class EnvState(NamedTuple):
-    generator: torch.Generator  # advances in place (the JAX state's key)
+    generator: torch.Generator  # advances in place (the JAX state's key);
+    #                             B cells: a tuple of B generators
     gamma_idx: torch.Tensor     # () int64 — popularity state (per frame)
     lambda_idx: torch.Tensor    # () int64 — location state (per slot)
     pos: torch.Tensor           # (U, 2) user positions (m)
@@ -120,18 +130,38 @@ def _consts(cfg: EnvCfg, device: torch.device):
     }
 
 
-def _uniform(g: torch.Generator, shape, lo: float, hi: float):
-    return lo + (hi - lo) * torch.rand(shape, generator=g, device=g.device)
+def _each(gen, draw):
+    """``draw(g)`` from one generator, or from each of a tuple of B
+    generators in turn, stacked on a leading (B,) axis."""
+    if isinstance(gen, tuple):
+        return torch.stack([draw(g) for g in gen])
+    return draw(gen)
 
 
-def _categorical(g: torch.Generator, logits, shape=()):
+def _lead(gen) -> tuple:
+    """The batch axes of what ``_each(gen, ...)`` returns: (B,) or ()."""
+    return (len(gen),) if isinstance(gen, tuple) else ()
+
+
+def _uniform(gen, shape, lo: float, hi: float):
+    return lo + (hi - lo) * _each(gen, lambda g: torch.rand(
+        shape, generator=g, device=g.device))
+
+
+def _categorical(gen, logits, shape=()):
     """Draws from ``softmax(logits)`` over the last axis by the Gumbel-max
-    trick (as ``jax.random.categorical`` does); ``shape`` is the sample
-    shape, which must end with ``logits.shape[:-1]``."""
-    u = torch.rand(tuple(shape) + (logits.shape[-1],), generator=g,
-                   device=g.device)
+    trick (as ``jax.random.categorical`` does).  ``logits``: (..., n), its
+    leading axes those of ``gen`` ((B,) for B generators); ``shape`` is
+    each cell's sample shape, which must end with the logits' other
+    axes."""
+    n = logits.shape[-1]
+    u = _each(gen, lambda g: torch.rand(tuple(shape) + (n,), generator=g,
+                                        device=g.device))
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    lead = _lead(gen)
+    if lead and logits.dim() == len(lead) + 1:
+        logits = logits.reshape(lead + (1,) * len(shape) + (n,))
     return torch.argmax(logits + gumbel, dim=-1)
 
 
@@ -143,26 +173,46 @@ def make_models(generator: torch.Generator, cfg: EnvCfg) -> ModelParams:
         d_op=u(cfg.d_op_mb[0], cfg.d_op_mb[1]) * MB_BITS)
 
 
+def make_models_batch(generators, cfg: EnvCfg) -> ModelParams:
+    """B cells' model zoos, (B, M) leaves; cell b's is ``make_models`` of
+    ``generators[b]``."""
+    return stack_models([make_models(g, cfg) for g in generators])
+
+
+def stack_models(zoos) -> ModelParams:
+    return ModelParams(*(torch.stack(f) for f in zip(*zoos)))
+
+
+def _take(table, idx):
+    """``table[idx]`` over the last axis: (M,) tables index directly, (...,
+    M) tables (B cells, or a population axis) gather row by row."""
+    if table.dim() == 1:
+        return table[idx]
+    return torch.gather(table.expand(idx.shape[:-1] + table.shape[-1:]),
+                        -1, idx)
+
+
 # -- sampling -----------------------------------------------------------------
 
-def _sample_positions(g: torch.Generator, lambda_idx, cfg: EnvCfg):
+def _sample_positions(gen, lambda_idx, cfg: EnvCfg):
     """lambda states: 0 uniform, 1 concentrated (around BS), 2 boundary.
     All three are drawn and one is selected on the device (no host read of
     ``lambda_idx``), as the JAX version does."""
-    A, U, dev = cfg.area, cfg.U, g.device
-    uni = _uniform(g, (U, 2), 0.0, A)
-    conc = torch.clamp(A / 2 + 30.0 * torch.randn((U, 2), generator=g,
-                                                  device=dev), 0.0, A)
-    edge = _uniform(g, (U, 2), 0.0, A)
-    side = torch.randint(0, 4, (U,), generator=g, device=dev)
-    off = _uniform(g, (U,), 0.0, 15.0)
+    A, U = cfg.area, cfg.U
+    uni = _uniform(gen, (U, 2), 0.0, A)
+    conc = torch.clamp(A / 2 + 30.0 * _each(gen, lambda g: torch.randn(
+        (U, 2), generator=g, device=g.device)), 0.0, A)
+    edge = _uniform(gen, (U, 2), 0.0, A)
+    side = _each(gen, lambda g: torch.randint(0, 4, (U,), generator=g,
+                                              device=g.device))
+    off = _uniform(gen, (U,), 0.0, 15.0)
     bx = torch.where(side == 0, off,
-                     torch.where(side == 1, A - off, edge[:, 0]))
+                     torch.where(side == 1, A - off, edge[..., 0]))
     by = torch.where(side == 2, off,
-                     torch.where(side == 3, A - off, edge[:, 1]))
+                     torch.where(side == 3, A - off, edge[..., 1]))
     bnd = torch.stack([bx, by], dim=-1)
-    return torch.where(lambda_idx == 0, uni,
-                       torch.where(lambda_idx == 1, conc, bnd))
+    lam = lambda_idx[..., None, None]
+    return torch.where(lam == 0, uni, torch.where(lam == 1, conc, bnd))
 
 
 def path_gain(pos, cfg: EnvCfg):
@@ -174,10 +224,10 @@ def path_gain(pos, cfg: EnvCfg):
     return 10.0 ** (g_db / 10.0)
 
 
-def _channel_gain(g: torch.Generator, pos, cfg: EnvCfg):
+def _channel_gain(gen, pos, cfg: EnvCfg):
     """h = g·|delta|^2: path loss times Rayleigh power, |CN(0,1)|^2 ~ Exp(1)."""
-    rayleigh2 = torch.empty(pos.shape[0], device=pos.device).exponential_(
-        1.0, generator=g)
+    rayleigh2 = _each(gen, lambda g: torch.empty(
+        cfg.U, device=pos.device).exponential_(1.0, generator=g))
     return path_gain(pos, cfg) * rayleigh2
 
 
@@ -185,18 +235,18 @@ def zipf_logits(gamma_idx, cfg: EnvCfg):
     """Unnormalized log-weights of the Eq. (1) Zipf popularity over model
     ids for skewness state ``gamma_idx``."""
     c = _consts(cfg, gamma_idx.device)
-    return -c["gammas"][gamma_idx] * c["log_ranks"]
+    return -c["gammas"][gamma_idx][..., None] * c["log_ranks"]
 
 
-def _sample_requests(g: torch.Generator, gamma_idx, cfg: EnvCfg):
-    """Zipf over model ids, Eq. (1): (U,) int64."""
-    return _categorical(g, zipf_logits(gamma_idx, cfg), (cfg.U,))
+def _sample_requests(gen, gamma_idx, cfg: EnvCfg):
+    """Zipf over model ids, Eq. (1): (U,) int64 ((B, U) for B cells)."""
+    return _categorical(gen, zipf_logits(gamma_idx, cfg), (cfg.U,))
 
 
-def _sample_markov(g: torch.Generator, idx, log_P):
+def _sample_markov(gen, idx, log_P):
     """Next state of the chain with log-transition matrix ``log_P`` from
-    ``idx`` (any shape; one draw per entry)."""
-    return _categorical(g, log_P[idx], idx.shape)
+    each cell's state ``idx`` (one draw per cell)."""
+    return _categorical(gen, log_P[idx], idx.shape[len(_lead(gen)):])
 
 
 def _refresh_slot(state: EnvState, cfg: EnvCfg,
@@ -205,7 +255,7 @@ def _refresh_slot(state: EnvState, cfg: EnvCfg,
     requests, input sizes."""
     g = state.generator
     lam = (_sample_markov(g, state.lambda_idx,
-                          _consts(cfg, g.device)["log_P_lambda"])
+                          _consts(cfg, state.h.device)["log_P_lambda"])
            if new_lambda else state.lambda_idx)
     pos = _sample_positions(g, lam, cfg)
     h = _channel_gain(g, pos, cfg)
@@ -214,22 +264,39 @@ def _refresh_slot(state: EnvState, cfg: EnvCfg,
     return state._replace(lambda_idx=lam, pos=pos, h=h, req=req, d_in=d_in)
 
 
-def env_reset(generator: torch.Generator, cfg: EnvCfg) -> EnvState:
+def env_reset(generator, cfg: EnvCfg) -> EnvState:
     """Initial env state (slot 0 randomness included), on the generator's
-    device; the state keeps ``generator`` and advances it."""
-    dev = generator.device
+    device; the state keeps ``generator`` and advances it.  A tuple of B
+    generators resets B cells (``env_reset_batch``)."""
+    gen = generator
+    dev = (gen[0] if isinstance(gen, tuple) else gen).device
+    lead = _lead(gen)
+
+    def randint(n):
+        return _each(gen, lambda g: torch.randint(0, n, (), generator=g,
+                                                  device=dev))
     st = EnvState(
-        generator=generator,
-        gamma_idx=torch.randint(0, len(cfg.gammas), (), generator=generator,
-                                device=dev),
-        lambda_idx=torch.randint(0, len(cfg.P_lambda), (),
-                                 generator=generator, device=dev),
-        pos=torch.zeros((cfg.U, 2), device=dev),
-        h=torch.ones((cfg.U,), device=dev),
-        req=torch.zeros((cfg.U,), dtype=torch.int64, device=dev),
-        d_in=torch.ones((cfg.U,), device=dev) * cfg.d_in_mb[0] * MB_BITS,
-        rho=torch.zeros((cfg.M,), device=dev))
+        generator=gen,
+        gamma_idx=randint(len(cfg.gammas)),
+        lambda_idx=randint(len(cfg.P_lambda)),
+        pos=torch.zeros(lead + (cfg.U, 2), device=dev),
+        h=torch.ones(lead + (cfg.U,), device=dev),
+        req=torch.zeros(lead + (cfg.U,), dtype=torch.int64, device=dev),
+        d_in=torch.ones(lead + (cfg.U,), device=dev) * cfg.d_in_mb[0]
+        * MB_BITS,
+        rho=torch.zeros(lead + (cfg.M,), device=dev))
     return _refresh_slot(st, cfg, new_lambda=False)
+
+
+def env_reset_batch(generators, cfg: EnvCfg) -> EnvState:
+    """Reset B cells, cell b from ``generators[b]`` (cell b's state is what
+    ``env_reset`` gives from that generator)."""
+    return env_reset(tuple(generators), cfg)
+
+
+def env_cell(state: EnvState, b: int) -> EnvState:
+    """Cell b of a B-cell state: views of its tensors, its generator."""
+    return EnvState(state.generator[b], *(t[b] for t in state[1:]))
 
 
 def make_user_masks(cfg: EnvCfg, counts) -> torch.Tensor:
@@ -246,7 +313,7 @@ def env_advance_frame(state: EnvState, cfg: EnvCfg) -> EnvState:
     decision is applied afterwards with ``env_set_cache``."""
     g = state.generator
     gamma = _sample_markov(g, state.gamma_idx,
-                           _consts(cfg, g.device)["log_P_gamma"])
+                           _consts(cfg, state.h.device)["log_P_gamma"])
     req = _sample_requests(g, gamma, cfg)
     return state._replace(gamma_idx=gamma, req=req)
 
@@ -275,22 +342,24 @@ def radio_rates(h, b, cfg: EnvCfg):
 
 def slot_metrics(state: EnvState, cfg: EnvCfg, models: ModelParams, b, xi):
     """Per-user delay/quality/utility for allocation (b, xi)."""
-    cached = state.rho[state.req]                      # (U,) 0/1
+    cached = _take(state.rho, state.req)               # (U,) 0/1
     b = torch.clamp_min(b, 1e-9)
     r_up, r_dw = radio_rates(state.h, b, cfg)
     # Eq. (4): upload delay (+ backhaul if not cached)
     d_up = state.d_in / r_up + (1.0 - cached) * state.d_in / cfg.r_bc
-    d_op = models.d_op[state.req]
+    d_op = _take(models.d_op, state.req)
     # Eq. (6): feedback delay
     d_dw = d_op / r_dw + (1.0 - cached) * d_op / cfg.r_cb
     # Eqs. (7)-(8): generation quality / delay
     steps = xi * cfg.L_steps
     m = state.req
-    q_edge = tv_quality(steps, models.a1[m], models.a2[m], models.a3[m],
-                        models.a4[m])
-    q = torch.where(cached > 0, q_edge, models.a4[m])
-    d_gt_edge = gen_delay(steps, models.b1[m], models.b2[m])
-    d_gt_cloud = models.b1[m] * models.a3[m] + models.b2[m]
+    a1, a2, a3, a4 = (_take(t, m) for t in (models.a1, models.a2, models.a3,
+                                            models.a4))
+    b1, b2 = _take(models.b1, m), _take(models.b2, m)
+    q_edge = tv_quality(steps, a1, a2, a3, a4)
+    q = torch.where(cached > 0, q_edge, a4)
+    d_gt_edge = gen_delay(steps, b1, b2)
+    d_gt_cloud = b1 * a3 + b2
     d_gt = torch.where(cached > 0, d_gt_edge, d_gt_cloud)
     # Eqs. (9)-(10)
     d_tl = d_up + d_dw + d_gt
@@ -301,8 +370,13 @@ def slot_metrics(state: EnvState, cfg: EnvCfg, models: ModelParams, b, xi):
 
 
 def masked_mean(x, mask=None):
-    """Mean over the user axis; with a (U,) 0/1 mask, over active users
-    only (safe when none is active)."""
+    """Mean over the user axis (the last); with a 0/1 mask, over active
+    users only (safe when none is active).  x: (U,) or (B, U)."""
+    if x.dim() > 1:
+        if mask is None:
+            return torch.mean(x, dim=-1)
+        return torch.sum(x * mask, dim=-1) / torch.clamp_min(
+            torch.sum(mask, dim=-1), 1.0)
     if mask is None:
         return torch.mean(x)
     return torch.sum(x * mask) / torch.clamp_min(torch.sum(mask), 1.0)
@@ -330,8 +404,8 @@ def observe(state: EnvState, cfg: EnvCfg, models: ModelParams, mask=None):
     h_n = (torch.log10(state.h + 1e-30) + 12.0) / 5.0
     req_n = state.req.to(torch.float32) / cfg.M
     din_n = state.d_in / (cfg.d_in_mb[1] * MB_BITS)
-    dop_n = models.d_op[state.req] / (cfg.d_op_mb[1] * MB_BITS)
+    dop_n = _take(models.d_op, state.req) / (cfg.d_op_mb[1] * MB_BITS)
     if mask is not None:
         h_n, req_n = h_n * mask, req_n * mask
         din_n, dop_n = din_n * mask, dop_n * mask
-    return torch.cat([h_n, req_n, state.rho, din_n, dop_n])
+    return torch.cat([h_n, req_n, state.rho, din_n, dop_n], dim=-1)

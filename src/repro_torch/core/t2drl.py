@@ -1,22 +1,33 @@
-"""T2DRL — the paper's Algorithm 1 on one edge cell, port of
-``repro.core.t2drl``: per frame the cacher picks rho (long timescale), per
-slot the allocator picks (b, xi) (short timescale), the environment scores
-the result, and in training both learn from replay.
+"""T2DRL — the paper's Algorithm 1, port of ``repro.core.t2drl``: per frame
+the cacher picks rho (long timescale), per slot the allocator picks (b, xi)
+(short timescale), the environment scores the result, and in training both
+learn from replay.
 
 The loop is written against the agent protocol (``repro_torch.agents``,
 DESIGN.md §12); ``_agents`` is the one place method names are dispatched:
 
   T2DRL             allocator="d3pg",  cacher="ddqn"
   DDPG-based T2DRL  allocator="ddpg",  cacher="ddqn"
+  SCHRS             allocator="schrs", cacher="static"
   RCARS             allocator="rcars", cacher="random"
 
-plus cacher="static" (SCHRS' cache).  SCHRS' genetic allocator (ROADMAP
-A.5) and the classical cachers (A.7) raise ``NotImplementedError``.
+The classical cachers (ROADMAP A.7), scenario schedules and telemetry
+(A.8) raise ``NotImplementedError``, naming their items.
 
-Training (``train_t2drl``) runs one cell: ``num_envs=1``,
-``policy="independent"``.  The vector-env modes, per-cell user masks,
-scenario schedules and telemetry raise, naming their ROADMAP items (A.6,
-A.8).  An episode keeps the reference's semantics (``_episode_core``):
+Vector-env training (DESIGN.md §6, §13) runs B cells, each with its own
+model zoo, replay buffers and Markov chains, and optional per-cell user
+masks (``user_counts``): ``policy="independent"`` trains B learners, as
+one fused stacked program (``independent_impl="fused"``,
+``_episode_core_fused``) or as a loop of the single-cell episode over the
+cells (``"vmap"``, the fused path's reference); ``policy="shared"`` trains
+one learner on a minibatch pooled over the cells
+(``_episode_core_shared``).  Cell b draws from its own generator
+(``cell_generators``; cell 0's is seeded as the single-cell run's, so cell
+0 of an independent run replays ``num_envs=1``), and at each draw site it
+draws what a single cell draws there.  Population schedules (per-learner
+step values, ``core/population.py``) reach the fused core.
+
+An episode keeps the reference's semantics (``_episode_core``):
 
 - replay writes are batched once per frame, so a slot's minibatch samples
   the buffer as of the frame start, and a slot updates when
@@ -39,27 +50,34 @@ launch (a greedy d3pg episode launches it exactly T*K times); a D3PG
 update adds two ``ddpm_chain`` launches (the target chain over the
 minibatch, then the policy chain with its record) and one
 ``ddpm_chain_bwd`` launch (the actor's policy gradient), and no
-``ddpm_step`` or ``ddpm_step_bwd``.
+``ddpm_step`` or ``ddpm_step_bwd``.  The fused learners launch the same
+counts whatever B: one stacked chain a slot for all B actors, and 2 + 1
+stacked launches a stacked update.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.agents.base import FrameObs, SlotObs
-from repro_torch.device import make_generator
+from repro_torch.agents.base import FrameObs, SlotObs, cell_of, vmap_agent
+from repro_torch.device import make_generator, resolve_device
 from .baselines import GACfg
-from .buffers import (buffer_add, buffer_add_many, buffer_init,
-                      buffer_sample)
-from .d3pg import D3PGCfg, d3pg_init
-from .ddqn import DDQNCfg, ddqn_init
+from .buffers import (buffer_add, buffer_add_batch, buffer_add_many,
+                      buffer_add_many_batch, buffer_add_many_stacked,
+                      buffer_cell, buffer_init, buffer_sample,
+                      buffer_sample_batch, buffer_sample_stacked,
+                      set_buffer_cell, stack_buffers)
+from .d3pg import D3PGCfg, d3pg_init, d3pg_learner, stack_d3pg
+from .ddqn import DDQNCfg, ddqn_init, ddqn_learner, stack_ddqn
 from .env import (EnvCfg, EnvState, ModelParams, env_advance_frame,
-                  env_reset, env_set_cache, env_step_slot, make_models,
-                  masked_mean, observe)
+                  env_reset, env_reset_batch, env_set_cache, env_step_slot,
+                  make_models, make_user_masks, masked_mean, observe,
+                  stack_models)
 
 STAT_KEYS = ("episode_reward", "mean_reward", "hit_ratio", "utility",
              "delay", "quality", "deadline_viol", "storage_viol")
@@ -78,9 +96,9 @@ class ObsCfg:
 @dataclasses.dataclass(frozen=True)
 class T2DRLCfg:
     """Static configuration of the two-timescale loop; the fields of the
-    JAX ``T2DRLCfg``.  ``policy`` and ``independent_impl`` select
-    vector-env modes, which wait for ROADMAP A.6 (one cell trains as
-    ``"independent"``); ``ga`` configures SCHRS (A.5)."""
+    JAX ``T2DRLCfg``.  ``policy`` ("independent" | "shared") and
+    ``independent_impl`` ("fused" | "vmap") select the vector-env mode;
+    ``ga`` configures SCHRS."""
     env: EnvCfg = EnvCfg()
     allocator: str = "d3pg"     # d3pg | ddpg | schrs | rcars
     cacher: str = "ddqn"        # ddqn | static | random
@@ -153,6 +171,73 @@ def t2drl_init(generator: torch.Generator, cfg: T2DRLCfg) -> dict:
             "fbuf": buffer_init(dq.buffer, frame_item), "cache": {}}
 
 
+def cell_generators(seed: int, num_envs: int, device=None) -> list:
+    """One generator per cell on ``resolve_device(device)``.  Cell 0's is
+    seeded with ``seed`` itself, as ``train_t2drl(num_envs=1)`` seeds its
+    one cell, so cell 0 of any batch replays the single-cell run; cell
+    b >= 1's with the 64-bit integer that
+    ``numpy.random.SeedSequence([seed, b]).generate_state(2, uint32)``
+    gives (low word first)."""
+    gens = [make_generator(seed, device)]
+    for b in range(1, num_envs):
+        lo, hi = np.random.SeedSequence([seed, b]).generate_state(
+            2, np.uint32)
+        gens.append(make_generator(int(lo) | int(hi) << 32, device))
+    return gens
+
+
+def t2drl_init_batch(generators, cfg: T2DRLCfg, *,
+                     share_models: bool = False) -> dict:
+    """Train state for B = ``len(generators)`` cells: cell b's
+    ``t2drl_init`` from ``generators[b]``, stacked.  Models and replay
+    buffers always carry the cell axis; with ``cfg.policy ==
+    "independent"`` the agents are stacked too (B learners), while
+    ``"shared"`` keeps cell 0's agents, one learner for all cells.
+    ``share_models=True`` gives every cell cell 0's model zoo."""
+    if cfg.policy not in ("independent", "shared"):
+        raise ValueError(f"unknown policy {cfg.policy!r}; "
+                         "expected 'independent' or 'shared'")
+    if len(generators) < 1:
+        raise ValueError("num_envs must be >= 1")
+    cells = [t2drl_init(g, cfg) for g in generators]
+    zoos = [c["models"] for c in cells]
+    if share_models:
+        zoos = [zoos[0]] * len(cells)
+    ts = {"models": stack_models(zoos),
+          "ebuf": stack_buffers(c["ebuf"] for c in cells),
+          "fbuf": stack_buffers(c["fbuf"] for c in cells), "cache": {}}
+    if cfg.policy == "shared":
+        ts.update(d3pg=cells[0]["d3pg"], ddqn=cells[0]["ddqn"])
+    else:
+        ts.update(d3pg=stack_d3pg(c["d3pg"] for c in cells),
+                  ddqn=stack_ddqn(c["ddqn"] for c in cells))
+    return ts
+
+
+def cell_state(ts: dict, cfg: T2DRLCfg, b: int) -> dict:
+    """Cell b of a batched train state as a single-cell state whose
+    tensors are views of the batch's: what an episode on it writes in
+    place lands in the batch (take the buffers' ``ptr``/``size`` and the
+    Adam steps back with ``_take_back``).  Shared agents are the batch's
+    own."""
+    shared = cfg.policy == "shared"
+    return {"models": cell_of(ts["models"], b),
+            "d3pg": ts["d3pg"] if shared else d3pg_learner(ts["d3pg"], b),
+            "ddqn": ts["ddqn"] if shared else ddqn_learner(ts["ddqn"], b),
+            "ebuf": buffer_cell(ts["ebuf"], b),
+            "fbuf": buffer_cell(ts["fbuf"], b), "cache": {}}
+
+
+def _take_back(ts: dict, b: int, cell: dict) -> None:
+    """The host counters of an episode run on ``cell_state(ts, cfg, b)``:
+    the buffers' ``ptr``/``size`` and the learners' Adam steps."""
+    for k in ("ebuf", "fbuf"):
+        set_buffer_cell(ts[k], b, cell[k])
+    for k, opts in (("d3pg", ("opt_a", "opt_c")), ("ddqn", ("opt",))):
+        for o in opts:
+            ts[k][o]["step"] = cell[k][o]["step"]
+
+
 # -- exploration / learning-rate schedules --------------------------------------
 
 def _eps_frac(cfg: T2DRLCfg, episode):
@@ -204,10 +289,11 @@ def episode_lr_scale(cfg: T2DRLCfg, episode):
     return 1.0 + (cfg.lr_end_scale - 1.0) * frac
 
 
-def _training_steps(cfg: T2DRLCfg, episodes: int) -> List[dict]:
+def _training_steps(cfg: T2DRLCfg, episodes: int, pop=None) -> List[dict]:
     """Each episode's schedule values as host floats (of the f32 values):
     ``eps``, ``sigma`` and, under an LR warmdown, ``lr_actor`` and
-    ``lr_critic``."""
+    ``lr_critic``.  ``pop`` (``_validate_pop``'s (E, B) lists) adds or
+    replaces values with per-member lists of B."""
     alloc, _ = _agents(cfg)
     e = torch.arange(episodes, dtype=torch.float32)
     cols = {"eps": episode_epsilon(cfg, e), "sigma": episode_sigma(cfg, e)}
@@ -216,25 +302,27 @@ def _training_steps(cfg: T2DRLCfg, episodes: int) -> List[dict]:
         cols["lr_actor"] = cfg.lr_actor * scale
         cols["lr_critic"] = cfg.lr_critic * scale
     vals = {k: v.tolist() for k, v in cols.items()}
+    vals.update(pop or {})
     return [{k: v[i] for k, v in vals.items()} for i in range(episodes)]
 
 
-def _update_aux(step: dict) -> dict:
+def _update_aux(step: dict, mask=None) -> dict:
     """Reserved minibatch auxiliaries for Agent.update (DESIGN.md §12):
-    the schedule-driven learning rates.  The active-user mask joins them
-    with per-cell user masks (ROADMAP A.6)."""
-    if "lr_actor" not in step:
-        return {}
-    return {"lr_actor": step["lr_actor"], "lr_critic": step["lr_critic"]}
+    the active-user mask and the schedule-driven learning rates."""
+    aux = {} if mask is None else {"mask": mask}
+    if "lr_actor" in step:
+        aux.update(lr_actor=step["lr_actor"], lr_critic=step["lr_critic"])
+    return aux
 
 
 def _slot_updates(alloc, cfg: T2DRLCfg, state, generator, step: dict,
-                  sample):
+                  sample, mask=None):
     """``updates_per_slot`` sample-and-update steps of the allocator, each
-    on its own minibatch ``sample(generator)``."""
+    on its own minibatch ``sample(generator)``.  ``generator`` is one
+    generator, or the B learners' (the stacked agent)."""
     for _ in range(cfg.updates_per_slot):
         batch = sample(generator)
-        state, _ = alloc.update(state, {**batch, **_update_aux(step)},
+        state, _ = alloc.update(state, {**batch, **_update_aux(step, mask)},
                                 generator)
     return state
 
@@ -244,43 +332,52 @@ def _slot_updates(alloc, cfg: T2DRLCfg, state, generator, step: dict,
 _SLOT_COLS = ("r", "hit", "G", "delay", "quality", "viol")
 
 
-def _record_slot(cols: dict, ec: EnvCfg, r, m) -> None:
-    """Append one slot's reward and metrics to the episode's columns."""
+def _record_slot(cols: dict, ec: EnvCfg, r, m, mask=None) -> None:
+    """Append one slot's reward and metrics (per cell for B cells) to the
+    episode's columns."""
     cols["r"].append(r)
-    cols["hit"].append(masked_mean(m["cached"]))
-    cols["G"].append(masked_mean(m["G"]))
-    cols["delay"].append(masked_mean(m["d_tl"]))
-    cols["quality"].append(masked_mean(m["quality"]))
-    cols["viol"].append(masked_mean((m["d_tl"] > ec.tau).to(torch.float32)))
+    cols["hit"].append(masked_mean(m["cached"], mask))
+    cols["G"].append(masked_mean(m["G"], mask))
+    cols["delay"].append(masked_mean(m["d_tl"], mask))
+    cols["quality"].append(masked_mean(m["quality"], mask))
+    cols["viol"].append(masked_mean((m["d_tl"] > ec.tau).to(torch.float32),
+                                    mask))
 
 
 def _episode_stats(cols: dict, storage_viols: list) -> dict:
     """The eight episode stats (``STAT_KEYS``) from the slot columns and
-    the frames' storage violations, as 0-dim device tensors."""
+    the frames' storage violations, as device tensors: 0-dim, or (B,) per
+    cell."""
     col = {k: torch.stack(v) for k, v in cols.items()}
-    return {"episode_reward": torch.sum(col["r"]),
-            "mean_reward": torch.mean(col["r"]),
-            "hit_ratio": torch.mean(col["hit"]),
-            "utility": torch.mean(col["G"]),
-            "delay": torch.mean(col["delay"]),
-            "quality": torch.mean(col["quality"]),
-            "deadline_viol": torch.mean(col["viol"]),
-            "storage_viol": torch.mean(torch.stack(storage_viols))}
+    return {"episode_reward": torch.sum(col["r"], dim=0),
+            "mean_reward": torch.mean(col["r"], dim=0),
+            "hit_ratio": torch.mean(col["hit"], dim=0),
+            "utility": torch.mean(col["G"], dim=0),
+            "delay": torch.mean(col["delay"], dim=0),
+            "quality": torch.mean(col["quality"], dim=0),
+            "deadline_viol": torch.mean(col["viol"], dim=0),
+            "storage_viol": torch.mean(torch.stack(storage_viols), dim=0)}
 
 
 def _storage_viol(rho, models: ModelParams, ec: EnvCfg):
-    return (torch.sum(rho * models.c) > ec.C).to(torch.float32)
+    return (torch.sum(rho * models.c, dim=-1) > ec.C).to(torch.float32)
+
+
+def _stack_items(items: list, dim: int = 0) -> dict:
+    return {k: torch.stack([it[k] for it in items], dim=dim)
+            for k in items[0]}
 
 
 def _episode_core(ts: dict, cfg: T2DRLCfg, generator: torch.Generator,
-                  step: dict):
-    """One training episode of Algorithm 1 for a single cell, with the
-    reference's semantics (module docstring).  ``step`` holds the
-    episode's schedule values (``eps``, ``sigma``, optional ``lr_*``) as
-    host floats.  Learned state, buffers included, is updated in place.
-    Returns ``(ts, stats)``, the eight stats as 0-dim device tensors (no
-    host read inside the episode; the update gates read host counters
-    only)."""
+                  step: dict, *, train: bool = True, mask=None):
+    """One episode of Algorithm 1 for a single cell, with the reference's
+    semantics (module docstring).  ``step`` holds the episode's schedule
+    values (``eps``, ``sigma``, optional ``lr_*``) as host floats;
+    ``mask`` an optional (U,) active-user mask.  ``train=False`` acts
+    only: no replay write, no update.  Learned state, buffers included, is
+    updated in place.  Returns ``(ts, stats)``, the eight stats as 0-dim
+    device tensors (no host read inside the episode; the update gates read
+    host counters only)."""
     ec = cfg.env
     d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
     alloc, cacher = _agents(cfg)
@@ -303,29 +400,29 @@ def _episode_core(ts: dict, cfg: T2DRLCfg, generator: torch.Generator,
         env = env_set_cache(env, rho)
         size0 = ebuf["size"]
         items, frame_r = [], []
-        s = observe(env, ec, models) if alloc.learns else None
+        s = observe(env, ec, models, mask) if alloc.learns else None
         for k in range(ec.K):
-            b, xi = alloc.act(alloc_state, SlotObs(s, env, models),
+            b, xi = alloc.act(alloc_state, SlotObs(s, env, models, mask),
                               generator, step)
-            env1, r, m = env_step_slot(env, ec, models, b, xi)
+            env1, r, m = env_step_slot(env, ec, models, b, xi, mask)
             frame_r.append(r)
-            _record_slot(cols, ec, r, m)
+            _record_slot(cols, ec, r, m, mask)
             if alloc.learns:
-                s1 = observe(env1, ec, models)
+                s1 = observe(env1, ec, models, mask)
                 items.append({"s": s, "a": torch.cat([b, xi]), "r": r,
                               "s1": s1, "req": env.req, "rho": env.rho,
                               "req1": env1.req, "rho1": env1.rho})
                 # transitions stored so far = frame-start size + slot
                 # count (the write itself is batched at frame end)
-                if min(size0 + k + 1, cap_e) > cfg.warmup and size0 > 0:
+                if (train and min(size0 + k + 1, cap_e) > cfg.warmup
+                        and size0 > 0):
                     alloc_state = _slot_updates(alloc, cfg, alloc_state,
-                                                generator, step, sample)
+                                                generator, step, sample,
+                                                mask)
                 s = s1
             env = env1
-        if alloc.learns:
-            ebuf = buffer_add_many(
-                ebuf, {k: torch.stack([it[k] for it in items])
-                       for k in items[0]})
+        if alloc.learns and train:
+            ebuf = buffer_add_many(ebuf, _stack_items(items))
         # frame reward (32): mean slot reward minus the storage penalty
         # (erratum-corrected sign, DESIGN.md §8)
         storage_viol = _storage_viol(rho, models, ec)
@@ -336,7 +433,7 @@ def _episode_core(ts: dict, cfg: T2DRLCfg, generator: torch.Generator,
         storage_viols.append(storage_viol)
 
     # DDQN frame transitions (gamma_t, a_t, r_t, gamma_{t+1}) for t < T-1
-    if cacher.learns:
+    if cacher.learns and train:
         for t in range(ec.T - 1):
             fbuf = buffer_add(fbuf, {"s": gammas[t], "a": a_ints[t],
                                      "r": r_frames[t], "s1": gammas[t + 1]})
@@ -350,8 +447,242 @@ def _episode_core(ts: dict, cfg: T2DRLCfg, generator: torch.Generator,
     return ts, _episode_stats(cols, storage_viols)
 
 
+def _pool(batch: dict) -> dict:
+    """(B, n, ...) per-cell samples -> one (B*n, ...) minibatch."""
+    return {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()}
+
+
+def _episode_core_shared(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
+                         train: bool = True, masks=None):
+    """One episode of B cells in lockstep feeding their own replay buffers
+    and ONE shared learner (the reference's ``_episode_core_shared``): the
+    learner acts for all cells at once (``batch_act``, else the
+    batch-transparent ``act``) and takes one step a slot on a minibatch
+    pooled from ``d3.batch // B`` rows of each cell's buffer (the DDQN
+    likewise, ``dq.batch // B`` per cell), so its cost per step does not
+    grow with B.  Cell b's env draws from ``generators[b]``; the learner's
+    actions, minibatches and chains from the driver generator, cell 0's.
+    ``masks``: optional (B, U).  Returns ``(ts, stats)`` with (B,)
+    stats."""
+    ec = cfg.env
+    d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
+    alloc, cacher = _agents(cfg)
+    act = alloc.batch_act or alloc.act
+    cact = cacher.batch_act or cacher.act
+    models: ModelParams = ts["models"]
+    alloc_state, cacher_state = ts["d3pg"], ts["ddqn"]
+    ebuf, fbuf = ts["ebuf"], ts["fbuf"]
+    cap_e, B = d3.buffer, len(generators)
+    driver = generators[0]
+    env = env_reset_batch(generators, ec)
+    n_slot, n_frame = max(1, d3.batch // B), max(1, dq.batch // B)
+    row_masks = (None if masks is None
+                 else masks.repeat_interleave(n_slot, dim=0))
+    cols = {k: [] for k in _SLOT_COLS}
+    gammas, a_ints, r_frames, storage_viols = [], [], [], []
+
+    def sample(g):
+        return _pool(buffer_sample_batch(ebuf, g, n_slot))
+
+    for _ in range(ec.T):
+        env = env_advance_frame(env, ec)
+        gamma_t = env.gamma_idx
+        a_int, rho = cact(cacher_state, FrameObs(gamma_t, models), driver,
+                          step)
+        env = env_set_cache(env, rho)
+        size0 = list(ebuf["size"])
+        items, frame_r = [], []
+        s = observe(env, ec, models, masks) if alloc.learns else None
+        for k in range(ec.K):
+            b, xi = act(alloc_state, SlotObs(s, env, models, masks), driver,
+                        step)
+            env1, r, m = env_step_slot(env, ec, models, b, xi, masks)
+            frame_r.append(r)
+            _record_slot(cols, ec, r, m, masks)
+            if alloc.learns:
+                s1 = observe(env1, ec, models, masks)
+                items.append({"s": s, "a": torch.cat([b, xi], dim=-1),
+                              "r": r, "s1": s1, "req": env.req,
+                              "rho": env.rho, "req1": env1.req,
+                              "rho1": env1.rho})
+                stored = sum(min(sz + k + 1, cap_e) for sz in size0)
+                if train and stored > cfg.warmup and min(size0) > 0:
+                    alloc_state = _slot_updates(alloc, cfg, alloc_state,
+                                                driver, step, sample,
+                                                row_masks)
+                s = s1
+            env = env1
+        if alloc.learns and train:
+            ebuf = buffer_add_many_batch(ebuf, _stack_items(items, dim=1))
+        storage_viol = _storage_viol(rho, models, ec)
+        r_frames.append(torch.mean(torch.stack(frame_r), dim=0)
+                        - storage_viol * ec.Xi)
+        gammas.append(gamma_t)
+        a_ints.append(a_int)
+        storage_viols.append(storage_viol)
+
+    if cacher.learns and train:
+        for t in range(ec.T - 1):
+            fbuf = buffer_add_batch(fbuf, {"s": gammas[t], "a": a_ints[t],
+                                           "r": r_frames[t],
+                                           "s1": gammas[t + 1]})
+            if sum(fbuf["size"]) > dq.batch:
+                batch = _pool(buffer_sample_batch(fbuf, driver, n_frame))
+                cacher_state, _ = cacher.update(cacher_state, batch, driver)
+
+    ts = {"models": models, "d3pg": alloc_state, "ddqn": cacher_state,
+          "ebuf": ebuf, "fbuf": fbuf, "cache": ts["cache"]}
+    return ts, _episode_stats(cols, storage_viols)
+
+
+def _device_step(step: dict, device) -> dict:
+    """Per-learner step values (lists of B) as the stacked closures take
+    them, moved to the device once an episode: ``sigma``, the learning
+    rates and ``shape_hit`` become (B,) tensors; ``eps`` stays a host list
+    (the epsilon-greedy draw is skipped for a learner whose eps is 0)."""
+    return {k: (torch.tensor(v, dtype=torch.float32, device=device)
+                if isinstance(v, (list, tuple)) and k != "eps" else v)
+            for k, v in step.items()}
+
+
+def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
+                        train: bool = True, masks=None):
+    """One episode of B INDEPENDENT learners as one fused program (the
+    reference's ``_episode_core_fused``): every learner and buffer leaf
+    carries the (B,) axis, each slot's B actions are one stacked chain
+    launch, each update step one stacked update (2 + 1 chain launches for
+    all B) on every learner's own minibatch (one gather per leaf), and the
+    frame's replay writes one indexed write per leaf.  Cell b draws from
+    ``generators[b]`` exactly what the single-cell core draws, in its
+    order, so each cell's episode is that core's on its generator, to
+    float round-off (the batched products sum as the single ones do only
+    up to rounding).
+
+    The update gates are scalar: every cell writes K slot items a frame in
+    lockstep, so the per-cell gates of the single core agree, and one
+    gate over all cells runs or skips the stacked update.  ``step`` values
+    may be per-learner lists of B (population training): ``eps``,
+    ``sigma``, ``lr_actor``, ``lr_critic``, plus ``lr_ddqn`` (the DDQN's
+    rate) and ``shape_hit`` (adds ``shape_hit * mean(hit)`` to the stored
+    slot rewards and the frame reward; the stats stay unshaped).
+    ``masks``: optional (B, U).  Returns ``(ts, stats)`` with (B,)
+    stats."""
+    ec = cfg.env
+    d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
+    alloc0, cacher0 = _agents(cfg)
+    alloc = vmap_agent(alloc0, impl="fused")
+    cacher = vmap_agent(cacher0, impl="fused")
+    models: ModelParams = ts["models"]
+    alloc_state, cacher_state = ts["d3pg"], ts["ddqn"]
+    ebuf, fbuf = ts["ebuf"], ts["fbuf"]
+    cap_e = d3.buffer
+    step = _device_step(step, models.c.device)
+    shape_hit = step.get("shape_hit")
+    env = env_reset_batch(generators, ec)
+    cols = {k: [] for k in _SLOT_COLS}
+    gammas, a_ints, r_frames, storage_viols = [], [], [], []
+
+    def sample(gens):
+        return buffer_sample_stacked(ebuf, gens, d3.batch)
+
+    for _ in range(ec.T):
+        env = env_advance_frame(env, ec)
+        gamma_t = env.gamma_idx
+        a_int, rho = cacher.act(cacher_state, FrameObs(gamma_t, models),
+                                generators, step)
+        env = env_set_cache(env, rho)
+        size0 = list(ebuf["size"])
+        items, frame_r = [], []
+        s = observe(env, ec, models, masks) if alloc0.learns else None
+        for k in range(ec.K):
+            b, xi = alloc.act(alloc_state, SlotObs(s, env, models, masks),
+                              generators, step)
+            env1, r, m = env_step_slot(env, ec, models, b, xi, masks)
+            frame_r.append(r)
+            _record_slot(cols, ec, r, m, masks)
+            if alloc0.learns:
+                s1 = observe(env1, ec, models, masks)
+                r_store = (r if shape_hit is None
+                           else r + shape_hit * cols["hit"][-1])
+                items.append({"s": s, "a": torch.cat([b, xi], dim=-1),
+                              "r": r_store, "s1": s1, "req": env.req,
+                              "rho": env.rho, "req1": env1.req,
+                              "rho1": env1.rho})
+                if train and all(min(sz + k + 1, cap_e) > cfg.warmup
+                                 and sz > 0 for sz in size0):
+                    alloc_state = _slot_updates(alloc, cfg, alloc_state,
+                                                generators, step, sample,
+                                                masks)
+                s = s1
+            env = env1
+        if alloc0.learns and train:
+            ebuf = buffer_add_many_stacked(ebuf, _stack_items(items, dim=1))
+        storage_viol = _storage_viol(rho, models, ec)
+        r_frame = torch.mean(torch.stack(frame_r), dim=0) \
+            - storage_viol * ec.Xi
+        if shape_hit is not None:
+            r_frame = r_frame + shape_hit * torch.mean(
+                torch.stack(cols["hit"][-ec.K:]), dim=0)
+        r_frames.append(r_frame)
+        gammas.append(gamma_t)
+        a_ints.append(a_int)
+        storage_viols.append(storage_viol)
+
+    if cacher0.learns and train:
+        for t in range(ec.T - 1):
+            fbuf = buffer_add_batch(fbuf, {"s": gammas[t], "a": a_ints[t],
+                                           "r": r_frames[t],
+                                           "s1": gammas[t + 1]})
+            if all(sz > dq.batch for sz in fbuf["size"]):
+                batch = buffer_sample_stacked(fbuf, generators, dq.batch)
+                if "lr_ddqn" in step:
+                    batch["lr"] = step["lr_ddqn"]
+                cacher_state, _ = cacher.update(cacher_state, batch,
+                                                generators)
+
+    ts = {"models": models, "d3pg": alloc_state, "ddqn": cacher_state,
+          "ebuf": ebuf, "fbuf": fbuf, "cache": ts["cache"]}
+    return ts, _episode_stats(cols, storage_viols)
+
+
+def _is_per_learner(v) -> bool:
+    return isinstance(v, (list, tuple)) or (torch.is_tensor(v) and v.dim())
+
+
+def _episode_batch(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
+                   train: bool = True, masks=None):
+    """One episode across B = ``len(generators)`` cells.  ``"shared"``
+    runs the shared-learner core; ``"independent"`` the fused core
+    (``independent_impl="fused"``, for B > 1 or per-learner step values)
+    or the single-cell core on each cell in turn, on views of the batch
+    (``"vmap"``, and B = 1), the fused core's reference.  Returns ``(ts,
+    stats)`` with (B,) device stats."""
+    if cfg.policy == "shared":
+        return _episode_core_shared(ts, cfg, generators, step, train=train,
+                                    masks=masks)
+    if cfg.independent_impl not in ("fused", "vmap"):
+        raise ValueError(
+            f"unknown independent_impl {cfg.independent_impl!r}; "
+            "expected 'fused' or 'vmap'")
+    pop_step = any(_is_per_learner(v) for v in step.values())
+    if pop_step and cfg.independent_impl != "fused":
+        raise ValueError("per-cell (population) schedules require "
+                         "independent_impl='fused'")
+    if cfg.independent_impl == "fused" and (len(generators) > 1 or pop_step):
+        return _episode_core_fused(ts, cfg, generators, step, train=train,
+                                   masks=masks)
+    cells = [cell_state(ts, cfg, b) for b in range(len(generators))]
+    stats = []
+    for b, (cell, g) in enumerate(zip(cells, generators)):
+        cell, st = _episode_core(cell, cfg, g, cell_of(step, b),
+                                 train=train, mask=cell_of(masks, b))
+        _take_back(ts, b, cell)
+        stats.append(st)
+    return ts, {k: torch.stack([st[k] for st in stats]) for k in stats[0]}
+
+
 def _stats_to_host(stats: dict) -> Dict[str, float]:
-    """One host read for the eight stats."""
+    """One host read for the eight stats: floats, or lists of B."""
     return dict(zip(STAT_KEYS,
                     torch.stack([stats[k] for k in STAT_KEYS]).tolist()))
 
@@ -361,63 +692,165 @@ def _not_ported(what: str, item: int):
                                f"A, item {item})")
 
 
+_POP_KEYS = ("eps", "sigma", "lr_actor", "lr_critic", "lr_ddqn", "shape_hit")
+
+
+def _validate_pop(pop, cfg: T2DRLCfg, B: int, E: int):
+    """A population-schedule dict as (E, B) lists of host floats, as the
+    reference's ``_validate_pop``: keys among ``_POP_KEYS``, values (B,)
+    (one per member, every episode) or (E, B); only the fused independent
+    core takes them.  A missing partner of ``lr_actor``/``lr_critic`` is
+    filled with the configured rate."""
+    if pop is None:
+        return None
+    unknown = set(pop) - set(_POP_KEYS)
+    if unknown:
+        raise ValueError(f"unknown population keys {sorted(unknown)}; "
+                         f"expected a subset of {_POP_KEYS}")
+    if cfg.policy != "independent" or cfg.independent_impl != "fused":
+        raise ValueError(
+            "population schedules require policy='independent' and "
+            "independent_impl='fused' (DESIGN.md §13)")
+    out = {}
+    for k, v in pop.items():
+        v = np.asarray(torch.as_tensor(v, dtype=torch.float32).cpu(),
+                       np.float32)
+        if v.ndim == 1:
+            v = np.broadcast_to(v[None], (E,) + v.shape)
+        if v.shape != (E, B):
+            raise ValueError(f"population key {k!r} must be (B,)=({B},) or "
+                             f"(E, B)=({E}, {B}); got {v.shape}")
+        out[k] = v.tolist()
+    if ("lr_actor" in out) != ("lr_critic" in out):
+        k_have = "lr_actor" if "lr_actor" in out else "lr_critic"
+        k_miss = "lr_critic" if k_have == "lr_actor" else "lr_actor"
+        const = cfg.lr_critic if k_miss == "lr_critic" else cfg.lr_actor
+        out[k_miss] = np.full((E, B), const, np.float32).tolist()
+    return out
+
+
+def run_training(ts: dict, cfg: T2DRLCfg, generators, episodes: int,
+                 masks=None, *, train: bool = True, pop=None,
+                 log_every: int = 0, callback=None):
+    """``episodes`` batched episodes (``_episode_batch``) of the B cells of
+    ``ts`` with their generators, on the episode schedules (and ``pop``'s
+    per-member ones, see ``_validate_pop``).  Returns ``(ts, history)``:
+    per key, a list of episodes of lists of B host floats (one host read
+    per episode).  ``log_every``/``callback`` see the means over cells."""
+    pop = _validate_pop(pop, cfg, len(generators), episodes)
+    state = {"ts": ts}
+
+    def episode(step):
+        state["ts"], stats = _episode_batch(state["ts"], cfg, generators,
+                                            step, train=train, masks=masks)
+        return stats
+
+    history = _run_episodes(episode, _training_steps(cfg, episodes, pop),
+                            log_every, callback)
+    return state["ts"], history
+
+
+def _run_episodes(episode, steps: List[dict], log_every: int, callback):
+    """``episode(step)`` for each episode's schedule values, its stats read
+    to the host once; returns the history (per key, a list over
+    episodes).  ``log_every`` prints and ``callback(episode, stats)``
+    receives the stats, means over cells for B cells."""
+    history = {k: [] for k in STAT_KEYS}
+    for ep, step in enumerate(steps):
+        host = _stats_to_host(episode(step))
+        for k, v in host.items():
+            history[k].append(v)
+        shown = {k: (sum(v) / len(v) if isinstance(v, list) else v)
+                 for k, v in host.items()}
+        if log_every and (ep + 1) % log_every == 0:
+            print(f"episode {ep + 1}/{len(steps)} " + " ".join(
+                f"{k}={v:.4g}" for k, v in shown.items()), flush=True)
+        if callback is not None:
+            callback(ep, shown)
+    return history
+
+
 def train_t2drl(cfg: T2DRLCfg, *, episodes: Optional[int] = None,
-                num_envs: int = 1, user_counts=None,
+                num_envs: int = 1, user_counts: Optional[Sequence[int]] = None,
                 share_models: bool = False, log_every: int = 0,
                 callback=None, mods=None, writer=None, device=None):
-    """Train one edge cell for ``episodes`` episodes (default
+    """Train ``num_envs`` edge cells for ``episodes`` episodes (default
     ``cfg.episodes``) on ``resolve_device(device)``: the card unless
     ``device="cpu"`` is passed.
 
-    Everything is drawn from one generator seeded with ``cfg.seed``: the
-    initial state (``t2drl_init``), then each episode's env, actions,
-    minibatches and chains in order.  ``log_every`` prints a progress
-    line every N episodes; ``callback(episode, stats)`` runs after each
-    episode with its stats as host floats.  ``num_envs > 1``,
-    ``cfg.policy="shared"`` and ``user_counts`` (ROADMAP A.6), and
-    ``mods``, ``writer`` and ``cfg.obs.enabled`` (A.8) raise
-    ``NotImplementedError``.
+    One cell (``num_envs=1``, ``policy="independent"``): everything is
+    drawn from one generator seeded with ``cfg.seed``, the initial state
+    (``t2drl_init``) then each episode's env, actions, minibatches and
+    chains in order.  B cells: ``cell_generators(cfg.seed, B)``, cell b's
+    state and episodes from generator b; ``cfg.policy`` picks B
+    independent learners (``independent_impl``: "fused" or "vmap") or one
+    shared learner (cell 0's init).  ``user_counts`` gives each cell its
+    active users (masks); ``share_models`` gives every cell cell 0's zoo.
+    ``log_every`` prints a progress line every N episodes;
+    ``callback(episode, stats)`` runs after each episode with its stats as
+    host floats (means over cells).  ``mods``, ``writer`` and
+    ``cfg.obs.enabled`` (ROADMAP A.8) raise ``NotImplementedError``.
 
-    Returns ``(ts, history)``: the final train state and the per-episode
-    stats as lists of host floats (one host read per episode)."""
-    if num_envs != 1:
-        raise _not_ported(f"num_envs={num_envs} (vector-env training)", 6)
-    if cfg.policy != "independent":
-        raise _not_ported(f"policy={cfg.policy!r} (the shared learner)", 6)
-    if user_counts is not None:
-        raise _not_ported("user_counts (per-cell user masks)", 6)
+    Returns ``(ts, history)``: the final train state (the single-cell
+    layout for ``num_envs=1``, B-leading otherwise) and the per-episode
+    stats, lists of host floats for ``num_envs=1`` and lists of B-lists,
+    (episodes, B), otherwise."""
     if mods is not None:
         raise _not_ported("mods (scenario schedules)", 8)
     if writer is not None or cfg.obs.enabled:
         raise _not_ported("telemetry (writer, obs.enabled)", 8)
+    if num_envs < 1:
+        raise ValueError("num_envs must be >= 1")
+    if cfg.policy not in ("independent", "shared"):
+        raise ValueError(f"unknown policy {cfg.policy!r}; "
+                         "expected 'independent' or 'shared'")
     episodes = episodes or cfg.episodes
-    generator = make_generator(cfg.seed, device)
-    ts = t2drl_init(generator, cfg)
-    history = {k: [] for k in STAT_KEYS}
-    for ep, step in enumerate(_training_steps(cfg, episodes)):
-        ts, stats = _episode_core(ts, cfg, generator, step)
-        host = _stats_to_host(stats)
-        for k, v in host.items():
-            history[k].append(v)
-        if log_every and (ep + 1) % log_every == 0:
-            print(f"episode {ep + 1}/{episodes} " + " ".join(
-                f"{k}={v:.4g}" for k, v in host.items()), flush=True)
-        if callback is not None:
-            callback(ep, host)
+    masks = None
+    if user_counts is not None:
+        if len(user_counts) != num_envs:
+            raise ValueError("user_counts must have one entry per env")
+        masks = make_user_masks(cfg.env, user_counts).to(
+            resolve_device(device))
+    if num_envs == 1 and cfg.policy == "independent":
+        generator = make_generator(cfg.seed, device)
+        state = {"ts": t2drl_init(generator, cfg)}
+        mask = None if masks is None else masks[0]
+
+        def episode(step):
+            state["ts"], stats = _episode_core(state["ts"], cfg, generator,
+                                               step, mask=mask)
+            return stats
+
+        history = _run_episodes(episode, _training_steps(cfg, episodes),
+                                log_every, callback)
+        return state["ts"], history
+    gens = cell_generators(cfg.seed, num_envs, device)
+    ts = t2drl_init_batch(gens, cfg, share_models=share_models)
+    ts, history = run_training(ts, cfg, gens, episodes, masks,
+                               log_every=log_every, callback=callback)
+    if num_envs == 1:               # the shared learner on one cell
+        ts = cell_state(ts, cfg, 0)
+        history = {k: [v[0] for v in vs] for k, vs in history.items()}
     return ts, history
 
 
 # -- policy deployment (inference only, DESIGN.md §11/§12) ------------------------
 
+def _is_batched(ts: dict) -> bool:
+    return ts["models"].a1.dim() == 2
+
+
 def export_policy(ts: dict, cfg: T2DRLCfg, cell: int = 0) -> dict:
-    """The inference-only policy of a single-cell train state, as each
-    agent exports it: ``{"actor": Denoiser|MLP}`` and ``{"ddqn": {"q":
-    MLP}}``, keys only for learned components (empty for RCARS).  The
-    modules are the train state's own, not copies.  ``cell`` other than 0
-    (batched states) waits for ROADMAP A.6."""
-    if cell != 0:
-        raise _not_ported("export_policy(cell>0) (batched train states)", 6)
+    """The inference-only policy of a train state, as each agent exports
+    it: ``{"actor": Denoiser|MLP}`` and ``{"ddqn": {"q": MLP}}``, keys only
+    for learned components (empty for RCARS/SCHRS).  The modules are the
+    train state's own, not copies.  For a batched independent state,
+    ``cell`` picks the learner (its modules are views of the stack's); a
+    shared state has one learner and ``cell`` is ignored."""
     alloc, cacher = _agents(cfg)
+    if _is_batched(ts) and cfg.policy != "shared":
+        ts = {"d3pg": d3pg_learner(ts["d3pg"], cell),
+              "ddqn": ddqn_learner(ts["ddqn"], cell)}
     pol = {}
     if alloc.learns:
         pol.update(alloc.export(ts["d3pg"]))
@@ -443,8 +876,9 @@ def greedy_slot_action(policy, cfg: T2DRLCfg, env: EnvState,
                        x_L=None, noises=None, impl: str = "chain"):
     """Greedy (no exploration noise) per-slot allocation: the amended
     ``(b, xi)`` of the allocator's ``greedy``.  ``generator`` drives the
-    diffusion actor's reverse chain; ``x_L``/``noises`` inject its draws
-    instead; ``impl`` picks its kernels (``reverse_sample``)."""
+    diffusion actor's reverse chain (or SCHRS' GA); ``x_L``/``noises``
+    inject the chain's draws instead; ``impl`` picks its kernels
+    (``reverse_sample``)."""
     alloc, _ = _agents(cfg)
     s = observe(env, cfg.env, models, mask) if alloc.learns else None
     return alloc.greedy(policy, SlotObs(s, env, models, mask), generator,
@@ -460,12 +894,13 @@ def greedy_frame_cache(policy, cfg: T2DRLCfg, models: ModelParams,
 
 
 def greedy_episode(policy, cfg: T2DRLCfg, models: ModelParams,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+                   generator: torch.Generator,
+                   mask=None) -> Dict[str, torch.Tensor]:
     """One greedy episode of Algorithm 1 from an exported policy: T frames
     of K slots, each agent acting through its ``greedy`` (no exploration,
-    no replay, no updates).  Returns the eight episode stats of
-    ``_episode_core`` as 0-dim device tensors (no host read inside the
-    episode)."""
+    no replay, no updates); ``mask`` an optional (U,) active-user mask.
+    Returns the eight episode stats of ``_episode_core`` as 0-dim device
+    tensors (no host read inside the episode)."""
     ec = cfg.env
     env = env_reset(generator, ec)
     cols = {k: [] for k in _SLOT_COLS}
@@ -476,34 +911,59 @@ def greedy_episode(policy, cfg: T2DRLCfg, models: ModelParams,
                                  generator)
         env = env_set_cache(env, rho)
         for _ in range(ec.K):
-            b, xi = greedy_slot_action(policy, cfg, env, models, generator)
-            env, r, m = env_step_slot(env, ec, models, b, xi)
-            _record_slot(cols, ec, r, m)
+            b, xi = greedy_slot_action(policy, cfg, env, models, generator,
+                                       mask)
+            env, r, m = env_step_slot(env, ec, models, b, xi, mask)
+            _record_slot(cols, ec, r, m, mask)
         storage_viols.append(_storage_viol(rho, models, ec))
     return _episode_stats(cols, storage_viols)
 
 
 def run_eval(policy, models: ModelParams, cfg: T2DRLCfg, *,
-             episodes: int = 10, seed: int = 10_000,
-             device=None) -> Dict[str, List[float]]:
+             episodes: int = 10, seed: int = 10_000, device=None,
+             mask=None) -> Dict[str, List[float]]:
     """Greedy evaluation: per-episode stats as lists of host floats (one
-    host read per episode).  ``policy`` and ``models`` must lie on
-    ``resolve_device(device)``."""
+    host read per episode).  ``policy``, ``models`` and the optional (U,)
+    ``mask`` must lie on ``resolve_device(device)``."""
     g = make_generator(seed, device)
     hist = {k: [] for k in STAT_KEYS}
     for _ in range(episodes):
-        for k, v in _stats_to_host(greedy_episode(policy, cfg, models,
-                                                  g)).items():
+        for k, v in _stats_to_host(greedy_episode(policy, cfg, models, g,
+                                                  mask)).items():
             hist[k].append(v)
     return hist
 
 
+def run_eval_batch(ts: dict, cfg: T2DRLCfg, *, episodes: int = 10,
+                   seed: int = 10_000, masks=None,
+                   device=None) -> Dict[str, list]:
+    """Greedy evaluation of a batched train state's B cells in lockstep,
+    as the reference's ``run_eval``: each episode is the batched episode
+    (``_episode_batch``) at eps = sigma = 0 with no replay write and no
+    update, so ``ts`` is left as it is; cell b draws from
+    ``cell_generators(seed, B)[b]``.  ``masks``: optional (B, U).  Returns
+    per key a list of episodes of lists of B host floats."""
+    gens = cell_generators(seed, ts["models"].a1.shape[0], device)
+    return _run_episodes(
+        lambda step: _episode_batch(ts, cfg, gens, step, train=False,
+                                    masks=masks)[1],
+        [{"eps": 0.0, "sigma": 0.0}] * episodes, 0, None)
+
+
 def eval_t2drl(policy, models: ModelParams, cfg: T2DRLCfg, *,
-               episodes: int = 10, seed: int = 10_000,
-               device=None) -> Dict[str, float]:
+               episodes: int = 10, seed: int = 10_000, device=None,
+               user_counts: Optional[Sequence[int]] = None
+               ) -> Dict[str, float]:
     """Greedy evaluation (no exploration, no updates) of one cell from an
     exported policy (``export_policy``) and its model zoo: the eight stats
-    of the JAX ``eval_t2drl``, as means over episodes."""
+    of the JAX ``eval_t2drl``, as means over episodes.  ``user_counts``
+    (one entry) masks the cell to its first users."""
+    mask = None
+    if user_counts is not None:
+        if len(user_counts) != 1:
+            raise ValueError("eval_t2drl evaluates one cell: user_counts "
+                             "needs one entry")
+        mask = make_user_masks(cfg.env, user_counts)[0].to(models.c.device)
     hist = run_eval(policy, models, cfg, episodes=episodes, seed=seed,
-                    device=device)
+                    device=device, mask=mask)
     return {k: sum(v) / len(v) for k, v in hist.items()}

@@ -9,6 +9,9 @@ with sigma_1 = 0.  ``impl="chain"`` (the default, as the JAX sampler's
 one ``lax.scan``) runs the whole chain in one ``kernels.ops.ddpm_chain``
 launch: denoiser MLP and update fused over all L steps.  ``impl="step"``
 runs the denoiser eagerly and one ``kernels.ops.ddpm_step`` a step.
+``reverse_sample_stacked`` runs B learners' chains (a ``StackedDenoiser``)
+the same way: one stacked ``ddpm_chain`` launch for all of them, or one
+``ddpm_step`` a step for all of them.
 
 Both are differentiable in the denoiser's parameters, as ``jax.grad``
 differentiates the reference's sampler: when grad mode is on and the
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
-from .denoiser import Denoiser, time_embedding
+from .denoiser import Denoiser, StackedDenoiser, time_embedding
 from .schedule import DiffusionSchedule
 
 IMPLS = ("chain", "step")
@@ -101,4 +104,77 @@ def reverse_sample_actions(p: Denoiser, sched: DiffusionSchedule, state,
     """Action in [0, 1]^A (the paper's raw action range)."""
     x0 = reverse_sample(p, sched, state, action_dim, generator=generator,
                         x_L=x_L, noises=noises, impl=impl)
+    return 0.5 * (x0 + 1.0)
+
+
+def _draw_stacked(generators, shape, L, device):
+    """Each learner's x_L then its noises from its own generator, as
+    ``reverse_sample`` draws them: (B,) + shape and (B, L) + shape."""
+    x_L = torch.stack([torch.randn(shape, generator=g, device=device)
+                       for g in generators])
+    noises = torch.stack([torch.randn((L,) + shape, generator=g,
+                                      device=device) for g in generators])
+    return x_L, noises
+
+
+def reverse_sample_stacked(p: StackedDenoiser, sched: DiffusionSchedule,
+                           state, action_dim: int, *, generators=None,
+                           x_L=None, noises=None, impl: str = "chain"):
+    """B learners' reverse chains.  state: (B, ..., S) -> x0: (B, ..., A) in
+    [-1, 1], learner b's rows denoised by learner b's net.
+
+    ``x_L`` ((B, ..., A)) and ``noises`` ((B, L, ..., A): each learner's
+    own (L, ..., A) draws, consumed in chain order) may be injected;
+    otherwise learner b's are drawn from ``generators[b]`` exactly as
+    ``reverse_sample`` draws them from one generator, so learner b sees
+    the draws a single-learner run on that generator sees.  ``impl``:
+    ``"chain"`` one stacked ``ddpm_chain`` launch (differentiable in every
+    learner's weights through ``DdpmChain``), ``"step"`` the stacked eager
+    denoiser and one ``ddpm_step`` a step."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
+    L, B = sched.L, state.shape[0]
+    shape = state.shape[1:-1] + (action_dim,)
+    dev = state.device
+    if (x_L is None) != (noises is None):
+        raise ValueError("inject both x_L and noises, or neither")
+    if x_L is None:
+        if len(generators) != B:
+            raise ValueError(f"{len(generators)} generators for {B} "
+                             "learners")
+        x_L, noises = _draw_stacked(generators, shape, L, dev)
+    if impl == "chain":
+        R = math.prod(shape[:-1])
+        coef, te = chain_tables(sched, p.time_dim, dev)
+        args = (p.net, x_L.reshape(B, R, action_dim).contiguous(),
+                state.reshape(B, R, state.shape[-1]).contiguous(),
+                noises.reshape(B, L, R, action_dim).contiguous(), coef, te)
+        if torch.is_grad_enabled() and any(q.requires_grad
+                                           for q in p.net.parameters()):
+            x0 = kops.ddpm_chain(*args)          # DdpmChain: differentiable
+        else:
+            with torch.no_grad():
+                x0 = kops.ddpm_chain(*args)
+        return torch.tanh(x0.reshape((B,) + shape))
+    _, te = chain_tables(sched, p.time_dim, dev)
+    steps = noises.movedim(1, 0).contiguous()      # (L, B, ..., A)
+    x = x_L
+    for i in range(L):
+        l_rev = L - 1 - i
+        eps_hat = p(x, None, state, te=te[l_rev])
+        x = kops.ddpm_step(x, eps_hat, steps[i], sched.alphas_host[l_rev],
+                           sched.alpha_bars_host[l_rev],
+                           sched.beta_tildes_host[l_rev], l_rev)
+    return torch.tanh(x)
+
+
+def reverse_sample_actions_stacked(p: StackedDenoiser,
+                                   sched: DiffusionSchedule, state,
+                                   action_dim: int, *, generators=None,
+                                   x_L=None, noises=None,
+                                   impl: str = "chain"):
+    """Stacked actions in [0, 1]^A; see ``reverse_sample_stacked``."""
+    x0 = reverse_sample_stacked(p, sched, state, action_dim,
+                                generators=generators, x_L=x_L,
+                                noises=noises, impl=impl)
     return 0.5 * (x0 + 1.0)

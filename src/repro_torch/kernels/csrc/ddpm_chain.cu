@@ -127,6 +127,21 @@
 //    scratch and a second grid sums them in cluster order: no float
 //    atomics, the same bits from the same inputs.
 //
+// The learner axis.  B independent learners (the fused vector-env
+// training's stacked actors, repro/diffusion/sampler.py::
+// reverse_sample_stacked) run their chains in one launch: grid y picks the
+// learner, and each cluster reads its learner's weights from the layer's
+// base pointer plus ChainNet.w_lstride / b_lstride, and its rows, draws,
+// output and record from B-leading tensors.  A learner's clusters are
+// those of a single-learner launch on its weights (same plan, same rows,
+// same order of every sum), so each learner's slice is bit for bit what
+// that launch gives; B = 1 is the single-learner kernel.  The backward
+// keeps each learner's dW/db apart: its clusters write a learner's own
+// share of the scratch, and the second grid sums the clusters of one
+// learner only.  More learners only add clusters: at B = 8 and R = 64 the
+// policy chain's backward is 8 x 8 clusters of 8 CTAs, ~4 waves of the
+// 132 SMs at one CTA an SM.
+//
 // Interface: plain C, loaded with ctypes (kernels/ops.py).  The wrapper
 // checks shapes, dtypes and contiguity, allocates the output, passes the
 // MLP as pointers and widths in a ChainNet by value, and passes the plan's
@@ -148,6 +163,9 @@ struct ChainNet {
   int dims[CHAIN_MAX_LAYERS + 1];      // widths: in, hidden..., A
   const float* w[CHAIN_MAX_LAYERS];    // (dims[l], dims[l+1]) row-major
   const float* b[CHAIN_MAX_LAYERS];    // (dims[l+1],)
+  int learners;                        // B stacked weight sets (1: one)
+  int64_t w_lstride[CHAIN_MAX_LAYERS]; // floats from one learner's w to
+  int64_t b_lstride[CHAIN_MAX_LAYERS]; // the next's, and its b's
 };
 }
 
@@ -341,6 +359,14 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
   const int nrows = min(rows, R - row0);
   const int nl = net.n_layers;
   const int A = net.dims[nl];
+  // the learner whose chain this cluster runs (grid y): its weights, rows,
+  // draws, output and record, each a learner stride past learner 0's
+  const size_t lrn = blockIdx.y;
+  x_L += lrn * R * A;
+  state += lrn * R * S;
+  noises += lrn * L * R * A;
+  out += lrn * R * A;
+  if (record) record += lrn * L * R * record_width(net);
   const Layout lo = chain_layout(net, cn, rows);
   const int fs = lo.fs, buf = rows * fs;
   const int tid = threadIdx.x, j = tid % kSplit, slot = tid / kSplit;
@@ -356,9 +382,10 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
     const int cs = cdiv(ow, cn), c0 = rank * cs;
     const int nc = max(0, min(cs, ow - c0)), ws = wstride(cs);
     float* wl = smem + lo.w[l];
-    const float* wg = net.w[l] + c0;
+    const float* wbase = net.w[l] + lrn * net.w_lstride[l];
+    const float* wg = wbase + c0;
     if (c0 % 4 == 0 && nc % 4 == 0 && ow % 4 == 0 &&
-        (reinterpret_cast<uintptr_t>(net.w[l]) & 15) == 0) {
+        (reinterpret_cast<uintptr_t>(wbase) & 15) == 0) {
       const int nq = nc / 4;             // 16 bytes a copy
       for (int e = tid; e < in * nq; e += kThreads) {
         const int k = e / nq, q = 4 * (e - k * nq);
@@ -371,7 +398,8 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
       }
     }
     for (int c = tid; c < nc; c += kThreads)
-      cp_async4(smem + lo.b[l] + c, net.b[l] + c0 + c);
+      cp_async4(smem + lo.b[l] + c,
+                net.b[l] + lrn * net.b_lstride[l] + c0 + c);
     cp_async_commit();
   }
 
@@ -571,6 +599,20 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
   cluster.sync();
 }
 
+// the learner axis: 1 to 65535 weight sets (grid y), and with more than
+// one, every layer's strides at least its own size (no two learners share
+// a weight)
+bool learners_ok(const ChainNet& net) {
+  if (net.learners < 1 || net.learners > 65535) return false;
+  if (net.learners == 1) return true;
+  for (int l = 0; l < net.n_layers; ++l)
+    if (net.w_lstride[l] < static_cast<int64_t>(net.dims[l]) *
+                               net.dims[l + 1] ||
+        net.b_lstride[l] < net.dims[l + 1])
+      return false;
+  return true;
+}
+
 // shared-memory bytes of one CTA: the layout the kernel carves
 int64_t smem_bytes_of(const ChainNet& net, int cluster, int rows) {
   return 4 * static_cast<int64_t>(chain_layout(net, cluster, rows).total);
@@ -653,6 +695,12 @@ ddpm_chain_bwd_kernel(const ChainNet net, const float* __restrict__ record,
   const int nrows = min(rows, R - row0);
   const int nl = net.n_layers;
   const int A = net.dims[nl];
+  // the learner (grid y): its record, state, g and share of dst; the
+  // gradients of two learners never meet
+  const size_t lrn = blockIdx.y;
+  record += lrn * L * R * record_width(net);
+  state += lrn * R * S;
+  gin += lrn * R * A;
   const BwdLayout lo = bwd_layout(net, cn, rows);
   const int wa = lo.wa, dlw = lo.dlw, rs = lo.rs, csl = lo.csl;
   const int wrec = wa - net.dims[0] + A;     // the record's row
@@ -682,10 +730,11 @@ ddpm_chain_bwd_kernel(const ChainNet net, const float* __restrict__ record,
     if (l >= nl) break;
     const int in = lin[l], nc = lnc[l], ow = low[l];
     float* wt = smem + lo.wt[l];
+    const float* wg = net.w[l] + lrn * net.w_lstride[l];
     for (int e = tid; e < in * nc; e += kThreads) {
       const int j = e / nc, c = e - j * nc;
       cp_async4(wt + c * in + j,
-                net.w[l] + static_cast<size_t>(j) * ow + lc0[l] + c);
+                wg + static_cast<size_t>(j) * ow + lc0[l] + c);
     }
     float* dw = smem + lo.dw[l];
     for (int e = tid; e < cdiv(ow, cn) * in; e += kThreads) dw[e] = 0.f;
@@ -866,8 +915,9 @@ ddpm_chain_bwd_kernel(const ChainNet net, const float* __restrict__ record,
     }
   }
 
-  // 3. own columns of dW and db into this cluster's share of dst
-  float* out = dst + static_cast<size_t>(cid) * P;
+  // 3. own columns of dW and db into this cluster's share of dst: the
+  //    learner's clusters lie together, in cluster order
+  float* out = dst + (lrn * gridDim.x / cn + cid) * static_cast<size_t>(P);
   int64_t off = 0;
 #pragma unroll
   for (int l = 0; l < CHAIN_MAX_LAYERS; ++l) {
@@ -887,27 +937,33 @@ ddpm_chain_bwd_kernel(const ChainNet net, const float* __restrict__ record,
   cluster.sync();
 }
 
-// out[e] = the clusters' partial gradients summed in cluster order
+// out[b * P + e] = learner b's K cluster partials summed in cluster
+// order (parts (B, K, P)); learners are never summed together
 __global__ void ddpm_chain_bwd_reduce_kernel(const float* __restrict__ part,
                                              float* __restrict__ out,
-                                             int64_t P, int K) {
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                                             int64_t P, int K, int B) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
-       e < P; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float a = part[e];
-    for (int k = 1; k < K; ++k) a = __fadd_rn(a, part[k * P + e]);
-    out[e] = a;
+       i < B * P; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = i / P, e = i - b * P;
+    const float* pb = part + b * K * P;
+    float a = pb[e];
+    for (int k = 1; k < K; ++k) a = __fadd_rn(a, pb[k * P + e]);
+    out[i] = a;
   }
 }
 
 }  // namespace
 
-// Runs the L-step chain for R rows.  x_L (R, A), state (R, S), noises
-// (L, R, A), coef (L, 3) = [c1, c2, sigma], te (L, T), out (R, A): f32,
-// contiguous.  record: null, or (L, R, record_width) f32 that receives
-// each step's x and hidden outputs for ddpm_chain_bwd_launch.  cluster,
-// rows and smem_bytes come from ops.chain_plan.  started[0] = grids
-// launched, started[1] = clusters in them.  Returns the CUDA error code of
+// Runs the L-step chain for R rows of each of B = net.learners weight
+// sets.  x_L (B, R, A), state (B, R, S), noises (B, L, R, A), coef (L, 3)
+// = [c1, c2, sigma], te (L, T), out (B, R, A): f32, contiguous (B = 1:
+// the unstacked shapes).  record: null, or (B, L, R, record_width) f32
+// that receives each step's x and hidden outputs for
+// ddpm_chain_bwd_launch.  cluster, rows and smem_bytes come from
+// ops.chain_plan for one learner's R rows; the grid runs every learner's
+// clusters side by side (grid y).  started[0] = grids launched,
+// started[1] = clusters in them.  Returns the CUDA error code of
 // the launch (0 on success).
 extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
                                  const void* state, const void* noises,
@@ -925,6 +981,7 @@ extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
             R <= (int64_t)1 << 30 && L <= (int64_t)1 << 30;
   for (int l = 0; ok && l <= nl; ++l) ok = net.dims[l] >= 1;
   ok = ok && net.dims[0] == net.dims[nl] + S + T;
+  ok = ok && learners_ok(net);
   ok = ok && smem_bytes <= kSmemLimit &&
        smem_bytes == smem_bytes_of(net, cluster, rows);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -941,7 +998,8 @@ extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
   }
   const int clusters = static_cast<int>((R + rows - 1) / rows);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster),
+                     static_cast<unsigned>(net.learners));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -966,12 +1024,14 @@ extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
   return 0;
 }
 
-// The backward of the chain for R rows: record (L, R, record_width) from
-// ddpm_chain_launch on the same inputs, state (R, S), coef (L, 3), te
-// (L, T), g (R, A) = dloss/dx_0; out (param_count) receives dW (in, out)
-// then db of every layer, in layer order.  scratch: clusters x
+// The backward of the chain for R rows of each of B = net.learners
+// weight sets: record (B, L, R, record_width) from ddpm_chain_launch on
+// the same inputs, state (B, R, S), coef (L, 3), te (L, T), g (B, R, A) =
+// dloss/dx_0; out (B, param_count) receives each learner's dW (in, out)
+// then db of every layer, in layer order.  scratch: B x clusters x
 // param_count floats when R spans more than one cluster of `rows` rows,
-// else unused (may be null).  cluster, rows and smem_bytes come from
+// else unused (may be null); the second grid sums each learner's
+// clusters in cluster order.  cluster, rows and smem_bytes come from
 // ops.chain_bwd_plan; this file recomputes the layout and refuses bytes
 // that disagree.  started[0] = grids launched (1, or 2 with the
 // cross-cluster sum), started[1] = clusters.  Returns the CUDA error code
@@ -993,6 +1053,7 @@ extern "C" int ddpm_chain_bwd_launch(ChainNet net, const void* record,
             R <= (int64_t)1 << 30 && L <= (int64_t)1 << 30;
   for (int l = 0; ok && l <= nl; ++l) ok = net.dims[l] >= 1;
   ok = ok && net.dims[0] == net.dims[nl] + S + T;
+  ok = ok && learners_ok(net);
   ok = ok && smem_bytes <= kSmemLimit &&
        smem_bytes == bwd_smem_bytes_of(net, cluster, rows);
   const int clusters = static_cast<int>((R + rows - 1) / rows);
@@ -1012,7 +1073,8 @@ extern "C" int ddpm_chain_bwd_launch(ChainNet net, const void* record,
   const int64_t P = param_count(net);
   float* dst = static_cast<float*>(clusters > 1 ? scratch : out);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster),
+                     static_cast<unsigned>(net.learners));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -1034,13 +1096,14 @@ extern "C" int ddpm_chain_bwd_launch(ChainNet net, const void* record,
   started[0] = 1;
   started[1] = clusters;
   if (clusters > 1) {
-    const int64_t blocks = (P + kThreads - 1) / kThreads;
+    const int64_t n = P * net.learners;
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
     ddpm_chain_bwd_reduce_kernel<<<static_cast<unsigned>(
                                        blocks < 1024 ? blocks : 1024),
                                    kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(scratch), static_cast<float*>(out), P,
-        clusters);
+        clusters, net.learners);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     started[0] = 2;

@@ -50,12 +50,17 @@ CHAIN_MAX_LAYERS = 8
 
 
 class _ChainNet(ctypes.Structure):
-    """``struct ChainNet`` of ddpm_chain.cu: the MLP's widths and the
-    pointers of its ``w`` (in, out) and ``b`` (out,), passed by value."""
+    """``struct ChainNet`` of ddpm_chain.cu: the MLP's widths, the pointers
+    of its ``w`` (in, out) and ``b`` (out,) (learner 0's for stacked
+    weights), the number of stacked learners and each layer's learner
+    strides in floats, passed by value."""
     _fields_ = [("n_layers", ctypes.c_int),
                 ("dims", ctypes.c_int * (CHAIN_MAX_LAYERS + 1)),
                 ("w", ctypes.c_void_p * CHAIN_MAX_LAYERS),
-                ("b", ctypes.c_void_p * CHAIN_MAX_LAYERS)]
+                ("b", ctypes.c_void_p * CHAIN_MAX_LAYERS),
+                ("learners", ctypes.c_int),
+                ("w_lstride", ctypes.c_int64 * CHAIN_MAX_LAYERS),
+                ("b_lstride", ctypes.c_int64 * CHAIN_MAX_LAYERS)]
 
 
 # c_void_p for every pointer and the stream: a bare Python int would be
@@ -363,7 +368,14 @@ class _Weights(NamedTuple):
 def _check_chain(ws, bs, x_L, state, noises, coef, te) -> tuple:
     """The MLP's widths, once every tensor is f32 and contiguous, every
     shape fits the chain (on either device: the kernel reads the tensors
-    in place) and no draw or state asks for a gradient."""
+    in place) and no draw or state asks for a gradient.
+
+    One learner: ``w`` (in, out), ``b`` (out,), x_L (R, A), state (R, S),
+    noises (L, R, A).  B stacked learners: every ``w`` (B, in, out), every
+    ``b`` (B, out), x_L (B, R, A), state (B, R, S), noises (B, L, R, A).
+    Layers of both forms, or of different B, are refused; so are
+    non-contiguous weights (an expanded or strided stack), whose learner
+    stride is not the layer's size."""
     for t in (x_L, state, noises, coef, te, *ws, *bs):
         if t.dtype != torch.float32:
             raise TypeError(f"ddpm_chain takes float32 tensors, not "
@@ -371,28 +383,40 @@ def _check_chain(ws, bs, x_L, state, noises, coef, te) -> tuple:
         if not t.is_contiguous():
             raise ValueError("ddpm_chain: the kernel takes contiguous "
                              "tensors")
-    if x_L.dim() != 2 or state.dim() != 2 or noises.dim() != 3:
-        raise ValueError("ddpm_chain: x_L (R, A), state (R, S) and noises "
-                         "(L, R, A)")
-    (R, A), L = x_L.shape, noises.shape[0]
-    if (R < 1 or L < 1 or state.shape[0] != R
-            or tuple(noises.shape) != (L, R, A)
+    stacked = bool(ws) and ws[0].dim() == 3
+    lead = (x_L.shape[0],) if stacked and x_L.dim() == 3 else ()
+    if (any(w.dim() != (3 if stacked else 2) for w in ws)
+            or any(b.dim() != (2 if stacked else 1) for b in bs)
+            or x_L.dim() != 2 + len(lead) or state.dim() != 2 + len(lead)
+            or noises.dim() != 3 + len(lead)):
+        raise ValueError(
+            "ddpm_chain: x_L (R, A), state (R, S), noises (L, R, A) with "
+            "w (in, out) and b (out,); or, for B stacked learners, x_L "
+            "(B, R, A), state (B, R, S), noises (B, L, R, A) with every w "
+            "(B, in, out) and b (B, out)")
+    (R, A), L = x_L.shape[len(lead):], noises.shape[len(lead)]
+    if (R < 1 or L < 1 or tuple(state.shape[:-1]) != lead + (R,)
+            or tuple(noises.shape) != lead + (L, R, A)
             or tuple(coef.shape) != (L, 3) or te.dim() != 2
-            or te.shape[0] != L):
+            or te.shape[0] != L or (lead and lead[0] < 1)):
         raise ValueError(
             f"ddpm_chain: x_L {tuple(x_L.shape)}, state "
             f"{tuple(state.shape)}, noises {tuple(noises.shape)}, coef "
             f"{tuple(coef.shape)}, te {tuple(te.shape)} do not fit")
-    dims = tuple([ws[0].shape[0]] + [w.shape[1] for w in ws]) if ws else ()
+    wsh = [tuple(w.shape[len(lead):]) for w in ws]
+    dims = tuple([wsh[0][0]] + [w[1] for w in wsh]) if ws else ()
     if (not 1 <= len(ws) <= CHAIN_MAX_LAYERS or len(bs) != len(ws)
-            or any(tuple(w.shape) != (i, o) or tuple(b.shape) != (o,)
-                   for w, b, i, o in zip(ws, bs, dims[:-1], dims[1:]))
-            or dims[0] != A + state.shape[1] + te.shape[1]
+            or any(tuple(w.shape[:len(lead)]) != lead
+                   or tuple(b.shape) != lead + (o,) or sh != (i, o)
+                   for w, b, sh, i, o in zip(ws, bs, wsh, dims[:-1],
+                                             dims[1:]))
+            or dims[0] != A + state.shape[-1] + te.shape[1]
             or dims[-1] != A):
         raise ValueError(f"ddpm_chain: the MLP's layers "
                          f"{[tuple(w.shape) for w in ws]} do not map "
-                         f"[x, state, te] of widths {A}, {state.shape[1]}, "
-                         f"{te.shape[1]} to {A}")
+                         f"[x, state, te] of widths {A}, {state.shape[-1]}, "
+                         f"{te.shape[1]} to {A}"
+                         + (f" for {lead[0]} learners" if lead else ""))
     if torch.is_grad_enabled():
         for name, t in (("x_L", x_L), ("state", state), ("noises", noises),
                         ("coef", coef), ("te", te)):
@@ -404,46 +428,58 @@ def _check_chain(ws, bs, x_L, state, noises, coef, te) -> tuple:
 
 
 @functools.lru_cache(maxsize=64)
-def _chain_net(w_ptrs: tuple, b_ptrs: tuple, dims: tuple) -> _ChainNet:
+def _chain_net(w_ptrs: tuple, b_ptrs: tuple, dims: tuple,
+               learners: int) -> _ChainNet:
     """The ``ChainNet`` of an MLP's widths and weight addresses, built once
     for each (an update writes its weights in place, so their addresses
-    stay)."""
+    stay).  Stacked weights are contiguous (``_check_chain``), so a
+    learner's stride is its layer's size."""
     pad = (None,) * (CHAIN_MAX_LAYERS - len(w_ptrs))
-    return _ChainNet(len(w_ptrs),
-                     (ctypes.c_int * (CHAIN_MAX_LAYERS + 1))(*dims),
-                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(*w_ptrs, *pad),
-                     (ctypes.c_void_p * CHAIN_MAX_LAYERS)(*b_ptrs, *pad))
+    zeros = (0,) * (CHAIN_MAX_LAYERS - len(w_ptrs))
+    return _ChainNet(
+        len(w_ptrs), (ctypes.c_int * (CHAIN_MAX_LAYERS + 1))(*dims),
+        (ctypes.c_void_p * CHAIN_MAX_LAYERS)(*w_ptrs, *pad),
+        (ctypes.c_void_p * CHAIN_MAX_LAYERS)(*b_ptrs, *pad), learners,
+        (ctypes.c_int64 * CHAIN_MAX_LAYERS)(
+            *(i * o for i, o in zip(dims[:-1], dims[1:])), *zeros),
+        (ctypes.c_int64 * CHAIN_MAX_LAYERS)(*dims[1:], *zeros))
 
 
 def _chain_net_of(ws, bs, dims) -> _ChainNet:
     return _chain_net(tuple(w.data_ptr() for w in ws),
-                      tuple(b.data_ptr() for b in bs), dims)
+                      tuple(b.data_ptr() for b in bs), dims,
+                      ws[0].shape[0] if ws[0].dim() == 3 else 1)
 
 
 def _chain_fwd(ws, bs, x_L, state, noises, coef, te, record: bool,
                dims=None):
-    """x_0, and with ``record`` also the (L, R, ``chain_record_width``)
+    """x_0, and with ``record`` also the ((B,) L, R, ``chain_record_width``)
     record of every step's x and hidden outputs; one ``ddpm_chain`` launch
-    for CUDA tensors, the plain version for CPU tensors (any float dtype
-    there: the f64 gradcheck).  ``dims``: the widths ``_check_chain``
-    returned, or None to check here."""
+    for CUDA tensors (all B learners of stacked weights in it), the plain
+    version for CPU tensors (any float dtype there: the f64 gradcheck).
+    ``dims``: the widths ``_check_chain`` returned, or None to check
+    here."""
     if x_L.device.type == "cpu":
+        plain = (ref.ddpm_chain_stacked_ref if ws[0].dim() == 3
+                 else ref.ddpm_chain_ref)
         with torch.no_grad():
-            return ref.ddpm_chain_ref(_Weights(ws, bs), x_L, state, noises,
-                                      coef, te, record=record)
+            return plain(_Weights(ws, bs), x_L, state, noises, coef, te,
+                         record=record)
     if dims is None:
         dims = _check_chain(ws, bs, x_L, state, noises, coef, te)
     _check_cuda("ddpm_chain", x_L, state, noises, coef, te, *ws, *bs)
-    (R, A), L = x_L.shape, noises.shape[0]
+    lead = tuple(x_L.shape[:-2])
+    R, L = x_L.shape[-2], coef.shape[0]
     plan = chain_plan(dims, R)
     out = torch.empty_like(x_L)
-    rec = (torch.empty((L, R, chain_record_width(dims)), dtype=x_L.dtype,
-                       device=x_L.device) if record else None)
+    rec = (torch.empty(lead + (L, R, chain_record_width(dims)),
+                       dtype=x_L.dtype, device=x_L.device)
+           if record else None)
     started = (ctypes.c_int * 2)()
     err = _fn("ddpm_chain", "ddpm_chain_launch")(
         _chain_net_of(ws, bs, dims), x_L.data_ptr(), state.data_ptr(),
         noises.data_ptr(), coef.data_ptr(), te.data_ptr(), out.data_ptr(),
-        rec.data_ptr() if record else None, R, L, state.shape[1],
+        rec.data_ptr() if record else None, R, L, state.shape[-1],
         te.shape[1], plan.cluster, plan.rows, plan.smem_bytes, started,
         _stream(x_L))
     if err != 0:
@@ -456,38 +492,46 @@ def _chain_fwd(ws, bs, x_L, state, noises, coef, te, record: bool,
 
 
 def _chain_bwd(ws, bs, record, state, coef, te, g):
-    """(dws, dbs) of the chain for the upstream gradient g (R, A): one
-    ``ddpm_chain_bwd`` launch for CUDA tensors, the plain version for CPU
-    tensors."""
+    """(dws, dbs) of the chain for the upstream gradient g ((B,) R, A): one
+    ``ddpm_chain_bwd`` launch for CUDA tensors (all B learners of stacked
+    weights in it, each learner's gradients apart), the plain version for
+    CPU tensors."""
+    stacked = ws[0].dim() == 3
     if g.device.type == "cpu":
-        return ref.ddpm_chain_bwd_ref(_Weights(ws, bs), record, state, coef,
-                                      te, g)
-    dims = tuple([ws[0].shape[0]] + [w.shape[1] for w in ws])
+        plain = (ref.ddpm_chain_bwd_stacked_ref if stacked
+                 else ref.ddpm_chain_bwd_ref)
+        return plain(_Weights(ws, bs), record, state, coef, te, g)
+    lead = tuple(ws[0].shape[:1]) if stacked else ()
+    dims = tuple([ws[0].shape[-2]] + [w.shape[-1] for w in ws])
     for t in (record, state, coef, te, g, *ws, *bs):
         if t.dtype != torch.float32:
             raise TypeError(f"ddpm_chain_bwd takes float32 tensors, not "
                             f"{t.dtype}")
     _check_cuda("ddpm_chain_bwd", record, state, coef, te, g, *ws, *bs)
-    (R, A), L = g.shape, coef.shape[0]
-    if (tuple(record.shape) != (L, R, chain_record_width(dims))
-            or tuple(state.shape[:1]) != (R,) or A != dims[-1]
-            or dims[0] != A + state.shape[1] + te.shape[1]):
+    L = coef.shape[0]
+    R, A = g.shape[-2:]
+    if (tuple(g.shape[:-2]) != lead
+            or tuple(record.shape) != lead + (L, R, chain_record_width(dims))
+            or tuple(state.shape[:-1]) != lead + (R,) or A != dims[-1]
+            or dims[0] != A + state.shape[-1] + te.shape[1]):
         raise ValueError(f"ddpm_chain_bwd: record {tuple(record.shape)}, "
                          f"state {tuple(state.shape)}, g {tuple(g.shape)} "
-                         f"do not fit the widths {dims} over {L} steps")
+                         f"do not fit the widths {dims} over {L} steps"
+                         + (f" for {lead[0]} learners" if lead else ""))
     plan = chain_bwd_plan(dims, R)
     n_params = sum((i + 1) * o for i, o in zip(dims[:-1], dims[1:]))
-    flat = torch.empty(n_params, dtype=g.dtype, device=g.device)
+    B = lead[0] if lead else 1
+    flat = torch.empty(lead + (n_params,), dtype=g.dtype, device=g.device)
     clusters = _cdiv(R, plan.rows)
-    scratch = (torch.empty(clusters * n_params, dtype=g.dtype,
+    scratch = (torch.empty(B * clusters * n_params, dtype=g.dtype,
                            device=g.device) if clusters > 1 else None)
     started = (ctypes.c_int * 2)()
     err = _fn("ddpm_chain", "ddpm_chain_bwd_launch")(
         _chain_net_of(ws, bs, dims), record.data_ptr(), state.data_ptr(),
         coef.data_ptr(), te.data_ptr(), g.data_ptr(), flat.data_ptr(),
-        scratch.data_ptr() if clusters > 1 else None, R, L, state.shape[1],
-        te.shape[1], plan.cluster, plan.rows, plan.smem_bytes, started,
-        _stream(g))
+        scratch.data_ptr() if clusters > 1 else None, R, L,
+        state.shape[-1], te.shape[1], plan.cluster, plan.rows,
+        plan.smem_bytes, started, _stream(g))
     if err != 0:
         raise RuntimeError(f"ddpm_chain_bwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -496,8 +540,8 @@ def _chain_bwd(ws, bs, record, state, coef, te, g):
     CLUSTERS["ddpm_chain_bwd"] += started[1]
     dws, dbs, off = [], [], 0
     for i, o in zip(dims[:-1], dims[1:]):
-        dws.append(flat[off:off + i * o].view(i, o))
-        dbs.append(flat[off + i * o:off + (i + 1) * o])
+        dws.append(flat[..., off:off + i * o].view(lead + (i, o)))
+        dbs.append(flat[..., off + i * o:off + (i + 1) * o])
         off += (i + 1) * o
     return dws, dbs
 
@@ -538,8 +582,14 @@ def ddpm_chain(net, x_L, state, noises, coef, te, *, record: bool = False):
     net: the denoiser's ``MLP`` (``w`` (in, out), ``b`` (out,)); x_L (R, A),
     state (R, S), noises (L, R, A), coef (L, 3), te (L, T): float32, one
     device.  Returns x_0 (R, A), before the sampler's tanh.  One launch on
-    the card, however long the chain.  When grad mode is on and a weight
-    or bias requires a gradient, x_0 carries the graph (``DdpmChain``:
+    the card, however long the chain.  For B stacked learners (a
+    ``StackedMLP``: every ``w`` (B, in, out), ``b`` (B, out)) x_L is
+    (B, R, A), state (B, R, S), noises (B, L, R, A) (each learner's own
+    draws, as ``reverse_sample_stacked`` makes them) and x_0 (B, R, A):
+    still one launch, and on the card each learner's slice is the same bits
+    as a launch on that learner's weights alone.  When grad mode is on and
+    a weight or bias requires a gradient, x_0 carries the graph
+    (``DdpmChain``:
     ``ddpm_chain_bwd`` in the backward); x_L, state and noises must not
     require one.  ``record=True`` returns ``(x_0, record)`` without a
     graph, the record as ``ddpm_chain_bwd`` reads it."""
@@ -556,7 +606,9 @@ def ddpm_chain_bwd(net, record, state, coef, te, g):
     """The chain's backward for the upstream gradient g = dloss/dx_0 (R, A):
     ``(dws, dbs)``, the gradients of the MLP's ``w`` (in, out) and ``b``
     (out,), from the ``record`` of ``ddpm_chain(..., record=True)`` on the
-    same inputs.  float32, one device: one launch on the card."""
+    same inputs.  float32, one device: one launch on the card.  Stacked
+    weights take g (B, R, A), the record (B, L, R, W) and state (B, R, S)
+    and give every learner's own (B, ...) gradients, in one launch."""
     ws, bs = list(net.w), list(net.b)
     _check_device("ddpm_chain_bwd", record, state, coef, te, g, *ws, *bs)
     if g.dtype != torch.float32:

@@ -4,7 +4,9 @@ The CPU tests and ``chip_smoke.py`` hold the kernels against these.
 ``ddpm_step_ref`` repeats its kernel's arithmetic op for op, so on the card
 the two agree bit for bit; the chain's MLP and its backward, attention and
 the SSD scan sum in another order than their kernels and agree to a
-tolerance.
+tolerance.  The chain and its backward have stacked versions beside them
+(``*_stacked_ref``: B learners' weights with a leading axis, batched
+products), which the CPU path of a stacked chain runs.
 """
 from __future__ import annotations
 
@@ -128,5 +130,63 @@ def ddpm_chain_bwd_ref(net, record, state, coef, te, g):
                 d = (d @ wm[l].T) * (hs[l] > 0)
             elif i > 0:
                 g = c1 * g + d @ wm[0][:A].T
+    return ([d.to(w.dtype) for d, w in zip(dws, ws)],
+            [d.to(b.dtype) for d, b in zip(dbs, bs)])
+
+
+def ddpm_chain_stacked_ref(net, x_L, state, noises, coef, te, *,
+                           record=False):
+    """``ddpm_chain_ref`` for B stacked learners in batched products: every
+    ``w`` (B, in, out), ``b`` (B, out); x_L (B, R, A), state (B, R, S),
+    noises (B, L, R, A), each learner's chain on its own weights and rows.
+    Returns x_0 (B, R, A); with ``record`` also the (B, L, R, A + hidden
+    widths) record, as the stacked kernel writes it."""
+    L = coef.shape[0]
+    coefs = coef.tolist()
+    n = len(net.w)
+    x, rec = x_L, []
+    for i in range(L):
+        l_rev = L - 1 - i
+        t = te[l_rev].expand(x.shape[:-1] + te.shape[-1:])
+        h, hs = torch.cat([x, state, t], dim=-1), [x]
+        for k, (w, b) in enumerate(zip(net.w, net.b)):
+            h = torch.bmm(h, w) + b[:, None, :]
+            if k < n - 1:
+                h = torch.relu(h)
+                hs.append(h)
+        if record:
+            rec.append(torch.cat(hs, dim=-1))
+        x = ddpm_step_ref(x, h, noises[:, i], *coefs[l_rev])
+    return (x, torch.stack(rec, dim=1)) if record else x
+
+
+def ddpm_chain_bwd_stacked_ref(net, record, state, coef, te, g):
+    """``ddpm_chain_bwd_ref`` for B stacked learners in batched products:
+    record (B, L, R, W), state (B, R, S), g (B, R, A); returns each
+    learner's ``(dws, dbs)``, (B, in, out) and (B, out), never summed
+    across learners."""
+    ws, bs = list(net.w), list(net.b)
+    n, L, A = len(ws), coef.shape[0], g.shape[-1]
+    md = _math_dtype(g.dtype)
+    wm = [w.to(md) for w in ws]
+    dws = [torch.zeros(w.shape, dtype=md, device=g.device) for w in ws]
+    dbs = [torch.zeros(b.shape, dtype=md, device=g.device) for b in bs]
+    coefs = coef.tolist()
+    cols = [A] + [w.shape[-1] for w in ws[:-1]]
+    g, state = g.to(md), state.to(md)
+    for i in reversed(range(L)):
+        l_rev = L - 1 - i
+        c1, c2, _ = coefs[l_rev]
+        parts = torch.split(record[:, i].to(md), cols, dim=-1)
+        t = te[l_rev].to(md).expand(g.shape[:-1] + te.shape[-1:])
+        hs = [torch.cat([parts[0], state, t], dim=-1), *parts[1:]]
+        d = (-c2) * g
+        for l in reversed(range(n)):
+            dws[l] += torch.bmm(hs[l].transpose(1, 2), d)
+            dbs[l] += d.sum(1)
+            if l > 0:
+                d = torch.bmm(d, wm[l].transpose(1, 2)) * (hs[l] > 0)
+            elif i > 0:
+                g = c1 * g + torch.bmm(d, wm[0][:, :A].transpose(1, 2))
     return ([d.to(w.dtype) for d, w in zip(dws, ws)],
             [d.to(b.dtype) for d, b in zip(dbs, bs)])

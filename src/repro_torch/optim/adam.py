@@ -9,7 +9,9 @@ norm before the moments, the bias corrections are ``1 - b ** step`` in
 f32, and the moments may be kept in bf16.
 
 ``params`` and ``grads`` are an ``nn.Module`` (its ``parameters()``, in
-order) or a sequence of tensors.  Unlike the pure JAX update, this one
+order) or a sequence of tensors.  The ``*_stacked`` functions step B
+learners' stacked parameters (a leading (B,) axis on every leaf) at once,
+with per-learner learning rates.  Unlike the pure JAX update, this one
 works in place: the parameters and the moments are overwritten and the
 same tensors come back, so no second copy of either is made.  ``step``
 is a host int, read by the bias corrections without a device read.
@@ -97,16 +99,114 @@ def adam_update(grads, state, params, *, lr, b1: float = 0.9,
     return params, {"mu": mus, "nu": nus, "step": step}, {"gnorm": gnorm}
 
 
-def _stacked(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the stacked (B-learner) Adam is not ported yet; it "
-            "comes with the vector-env modes (ROADMAP queue A, item 6)")
-    fn.__name__ = name
-    fn.__doc__ = f"Not ported yet (ROADMAP A.6): ``repro.optim.{name}``."
-    return fn
+# -- B stacked learners (DESIGN.md §13) ---------------------------------------
+#
+# Every parameter and moment carries a leading (B,) learner axis (a
+# ``StackedMLP``'s layers); the step counter is one host int, since the
+# fused learners take their updates together.  One pass per leaf advances
+# all B learners; per-learner values (lr, the clip scale) broadcast over a
+# leaf's trailing axes.
 
 
-adam_init_stacked = _stacked("adam_init_stacked")
-adam_update_stacked = _stacked("adam_update_stacked")
-global_norm_stacked = _stacked("global_norm_stacked")
+def _per_learner(v, ndim: int):
+    """A per-learner (B,) tensor shaped to broadcast against a (B, ...)
+    leaf of rank ``ndim``; a number passes through."""
+    if not torch.is_tensor(v) or v.dim() == 0:
+        return v
+    return v.reshape(v.shape + (1,) * (ndim - 1))
+
+
+def global_norm_stacked(tree) -> torch.Tensor:
+    """Per-learner global norms (B,), f32: each leaf's sum of squares over
+    its non-learner axes, summed over the leaves in order, then sqrt."""
+    total = None
+    for x in _leaves(tree):
+        x = x.detach().float()
+        s = torch.sum(torch.square(x).reshape(x.shape[0], -1), dim=1)
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def adam_init_stacked(params, *, moment_dtype=torch.float32) -> dict:
+    """Zero moments for stacked (B-leading) parameters; ``step`` 0."""
+    return adam_init(params, moment_dtype=moment_dtype)
+
+
+@torch.no_grad()
+def adam_update_stacked(grads, state, params, *, lr, b1: float = 0.9,
+                        b2: float = 0.999, eps: float = 1e-8,
+                        weight_decay: float = 0.0, max_norm: float = 0.0):
+    """B independent Adam steps in one pass per leaf, in place, with the
+    single-learner arithmetic.  ``lr`` is a number or a per-learner (B,)
+    tensor on the parameters' device (the population lever).  Returns
+    ``(params, state, {"gnorm": (B,)})``."""
+    ps, mus, nus = _leaves(params), state["mu"], state["nu"]
+    gs = [g.float() for g in _leaves(grads)]
+    gnorm = global_norm_stacked(gs)
+    if max_norm:
+        scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+        gs = [g * _per_learner(scale, g.dim()) for g in gs]
+    step = state["step"] + 1
+    f32 = np.float32
+    b1c = float(f32(1.0) - f32(b1) ** f32(step))
+    b2c = float(f32(1.0) - f32(b2) ** f32(step))
+    mu = [m.float() for m in mus]
+    nu = [v.float() for v in nus]
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(gs, 1 - b1))
+    torch._foreach_mul_(nu, b2)
+    g2 = torch._foreach_mul(gs, 1 - b2)
+    torch._foreach_mul_(g2, gs)
+    torch._foreach_add_(nu, g2)
+    delta = torch._foreach_div(mu, b1c)
+    lrs = [_per_learner(lr, p.dim()) for p in ps]
+    if torch.is_tensor(lr) and lr.dim():
+        torch._foreach_mul_(delta, lrs)
+    else:
+        torch._foreach_mul_(delta, lr)
+    den = torch._foreach_div(nu, b2c)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    torch._foreach_div_(delta, den)
+    pf = [p.float() for p in ps]
+    if weight_decay:
+        torch._foreach_add_(delta, [p * (l * weight_decay)
+                                    for p, l in zip(pf, lrs)])
+    torch._foreach_sub_(pf, delta)
+    for dst, src in ((ps, pf), (mus, mu), (nus, nu)):
+        for d, s in zip(dst, src):
+            if d is not s:
+                d.copy_(s)
+    return params, {"mu": mus, "nu": nus, "step": step}, {"gnorm": gnorm}
+
+
+def stack_adam(states) -> dict:
+    """B learners' Adam states -> one stacked state (copies); their steps
+    must agree (the stacked learners step together)."""
+    states = list(states)
+    steps = {st["step"] for st in states}
+    if len(steps) != 1:
+        raise ValueError(f"stacked learners step together; got steps "
+                         f"{sorted(steps)}")
+    return {k: [torch.stack(m) for m in zip(*(st[k] for st in states))]
+            for k in ("mu", "nu")} | {"step": steps.pop()}
+
+
+def adam_learner(state: dict, b: int) -> dict:
+    """Learner b's Adam state: views of the stacked moments."""
+    return {"mu": [m[b] for m in state["mu"]],
+            "nu": [v[b] for v in state["nu"]], "step": state["step"]}
+
+
+def learner_values(v, B: int, device):
+    """A per-learner value as the stacked math takes it: a number stays a
+    number; a sequence or tensor of B becomes a (B,) f32 tensor."""
+    if v is None or isinstance(v, (int, float)):
+        return v
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if t.dim() == 0:
+        return t
+    if t.shape != (B,):
+        raise ValueError(f"per-learner value of shape {tuple(t.shape)} for "
+                         f"{B} learners")
+    return t

@@ -6,7 +6,11 @@ launches per full-width prefill), and the training path: the step
 sampler's gradients through ddpm_step and ddpm_step_bwd, the chain's
 through ddpm_chain's record and ddpm_chain_bwd, one d3pg_update on the
 card against the CPU with either policy chain, and a two-episode
-train_t2drl.
+train_t2drl; the chain kernels' learner axis against the plain stacked
+versions and, slice by slice, the single-learner launches; one fused
+D3PG update on the card against the CPU; a fused vector-env run whose
+first update is held against the same run on the CPU, and a shared
+one.
 
 Run on a machine with an NVIDIA GPU (it has no JAX, so skip the suite's
 conftest, which imports it):
@@ -595,3 +599,251 @@ def test_full_width_prefill_launches_one_kernel_per_layer(cuda, name,
     assert ops.LAUNCHES[kernel] == cfg.n_layers == 24
     assert sum(ops.LAUNCHES.values()) == 24
     assert bool(torch.isfinite(logits).all())
+
+
+# -- the learner axis (the fused vector-env learners) -------------------------
+
+def _stacked_case(dims, S, B, R, L, dev, seed):
+    from repro_torch.core.networks import mlp_init, stack_mlps
+    from repro_torch.diffusion.sampler import chain_tables
+    g = torch.Generator().manual_seed(seed)
+    nets = [mlp_init(list(dims), g) for _ in range(B)]
+    for net in nets:
+        with torch.no_grad():
+            for b in net.b:
+                b.copy_(0.1 * torch.randn(b.shape, generator=g))
+    nets = [n.to(dev).requires_grad_(False) for n in nets]
+    A, T = dims[-1], dims[0] - dims[-1] - S
+    coef, te = chain_tables(make_schedule(L), T, dev)
+    x_L = torch.randn(B, R, A, generator=g).to(dev)
+    state = torch.randn(B, R, S, generator=g).to(dev)
+    noises = torch.randn(B, L, R, A, generator=g).to(dev)
+    gup = torch.randn(B, R, A, generator=g).to(dev)
+    return (nets, stack_mlps(nets).requires_grad_(False), x_L, state, noises,
+            coef, te, gup)
+
+
+@pytest.mark.parametrize("dims,S,B,R,L", [
+    ((86, 128, 128, 128, 20), 50, 8, 64, 5),
+    ((86, 128, 128, 128, 20), 50, 8, 1, 5),
+    ((86, 128, 128, 128, 20), 50, 4, 64, 5),
+    ((86, 128, 128, 128, 20), 50, 4, 1, 5),
+    ((53, 90, 90, 90, 30), 7, 3, 9, 7),
+    ((86, 128, 128, 128, 20), 50, 1, 64, 5)])
+def test_stacked_chain_kernels_match_plain_and_single(cuda, dims, S, B, R,
+                                                      L):
+    """One stacked ddpm_chain (with its record) and one stacked
+    ddpm_chain_bwd for B learners: within 2e-5 of the plain stacked
+    versions (the backward within 2e-5 of each leaf's max), and each
+    learner's slice bit for bit the single-learner launch on its
+    weights."""
+    nets, net, x_L, state, noises, coef, te, g = _stacked_case(
+        dims, S, B, R, L, cuda, 1000 + B + R)
+    ops.reset_launches()
+    x0, rec = ops.ddpm_chain(net, x_L, state, noises, coef, te, record=True)
+    dws, dbs = ops.ddpm_chain_bwd(net, rec, state, coef, te, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ddpm_chain"] == ops.LAUNCHES["ddpm_chain_bwd"] == 1
+    x0p, recp = ref.ddpm_chain_stacked_ref(net, x_L, state, noises, coef, te,
+                                           record=True)
+    assert (x0 - x0p).abs().max().item() <= 2e-5 * (1 + x0p.abs().max())
+    pw, pb = ref.ddpm_chain_bwd_stacked_ref(net, rec, state, coef, te, g)
+    for a, p in zip(dws + dbs, pw + pb):
+        for b in range(B):
+            assert (a[b] - p[b]).abs().max().item() <= \
+                2e-5 * p[b].abs().max().item()
+    for b in range(B):
+        one, rec1 = ops.ddpm_chain(nets[b], x_L[b], state[b], noises[b],
+                                   coef, te, record=True)
+        w1, b1 = ops.ddpm_chain_bwd(nets[b], rec1, state[b], coef, te,
+                                    g[b].contiguous())
+        assert torch.equal(x0[b], one) and torch.equal(rec[b], rec1)
+        assert all(torch.equal(a[b], o) for a, o in zip(dws + dbs, w1 + b1))
+
+
+def test_stacked_chain_rejects_on_the_card(cuda):
+    nets, net, x_L, state, noises, coef, te, g = _stacked_case(
+        (86, 128, 128, 128, 20), 50, 2, 4, 5, cuda, 7)
+    ws = list(net.w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._chain_fwd([ws[0][:1].expand(2, -1, -1)] + ws[1:], list(net.b),
+                       x_L, state, noises, coef, te, False)
+    with pytest.raises(ValueError):
+        ops.ddpm_chain(net, x_L[0], state[0], noises[0], coef, te)
+
+
+def test_d3pg_update_stacked_on_card_matches_cpu(cuda):
+    """One fused update of 3 learners (per-cell masks, per-learner rates)
+    on the card against the same update on the CPU from the same state,
+    minibatch and draws: losses to 1e-4, Adam's first moments to 1e-4 of
+    each leaf's max; 2 ddpm_chain and 1 ddpm_chain_bwd launches for the
+    three learners."""
+    from repro_torch.agents.allocators import actor_schedule
+    from repro_torch.core.d3pg import d3pg_init_stacked, d3pg_update_stacked
+    from repro_torch.core.env import make_user_masks
+    cfg = T2DRLCfg(env=EnvCfg(U=4, M=5))
+    d3 = cfg.d3pg_cfg()
+    B, n, A, U = 3, 64, cfg.env.action_dim, cfg.env.U
+    g = torch.Generator().manual_seed(2)
+    batch = {"s": torch.randn(B, n, cfg.env.state_dim, generator=g),
+             "a": torch.softmax(torch.randn(B, n, A, generator=g), -1),
+             "r": torch.randn(B, n, generator=g),
+             "s1": torch.randn(B, n, cfg.env.state_dim, generator=g),
+             "req": torch.randint(0, 5, (B, n, U), generator=g),
+             "rho": torch.randint(0, 2, (B, n, 5), generator=g).float(),
+             "req1": torch.randint(0, 5, (B, n, U), generator=g),
+             "rho1": torch.randint(0, 2, (B, n, 5), generator=g).float()}
+    draws = {k: (torch.randn(B, n, A, generator=g),
+                 torch.randn(B, 5, n, A, generator=g))
+             for k in ("target", "policy")}
+    mask = make_user_masks(cfg.env, [4, 2, 3])
+    lr = torch.tensor([1e-4, 2e-4, 0.0])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        gens = [torch.Generator().manual_seed(b) for b in range(B)]
+        params = d3pg_init_stacked(d3, gens)
+        params = {k: (v.to(dev) if isinstance(v, torch.nn.Module) else
+                      {"mu": [m.to(dev) for m in v["mu"]],
+                       "nu": [m.to(dev) for m in v["nu"]],
+                       "step": v["step"]})
+                  for k, v in params.items()}
+        ops.reset_launches()
+        new, m = d3pg_update_stacked(
+            params, d3, actor_schedule(d3),
+            {k: v.to(dev) for k, v in batch.items()},
+            lr_a=lr.to(dev), lr_c=lr.to(dev), mask=mask.to(dev),
+            draws={k: tuple(t.to(dev) for t in v) for k, v in draws.items()})
+        if dev.type == "cuda":
+            assert (ops.LAUNCHES["ddpm_chain"],
+                    ops.LAUNCHES["ddpm_chain_bwd"]) == (2, 1)
+        out[dev.type] = (m, new)
+    (mc, nc), (mh, nh) = out["cuda"], out["cpu"]
+    for k in mc:
+        assert ((mc[k].cpu() - mh[k]).abs() <= 1e-4 * mh[k].abs()).all()
+    for opt in ("opt_a", "opt_c"):
+        for a, b in zip(nc[opt]["mu"], nh[opt]["mu"]):
+            assert (a.cpu() - b).abs().max().item() <= \
+                1e-4 * b.abs().max().item()
+
+
+_DRAWS = ("rand", "randn", "randint", "randperm")
+
+
+@pytest.fixture
+def cpu_streams(monkeypatch):
+    """Every draw that the port makes from a generator on the card is made
+    instead from a CPU generator with the same seed (paired at that
+    generator's first draw) and copied to the card, so a run on the card
+    consumes, bit for bit, the random streams of the same run on the CPU.
+    The port draws only through ``torch.rand``, ``randn``, ``randint``,
+    ``randperm`` and ``Tensor.exponential_``, each with ``generator=``."""
+    pairs = {}
+
+    def host(g):
+        if g is None or g.device.type != "cuda":
+            return None
+        if id(g) not in pairs:
+            pairs[id(g)] = (g, torch.Generator().manual_seed(
+                g.initial_seed()))
+        return pairs[id(g)][1]
+
+    for name in _DRAWS:
+        def draw(*args, _orig=getattr(torch, name), generator=None,
+                 device=None, **kw):
+            h = host(generator)
+            if h is None:
+                return _orig(*args, generator=generator, device=device, **kw)
+            return _orig(*args, generator=h, **kw).to(
+                device if device is not None else generator.device)
+        monkeypatch.setattr(torch, name, draw)
+    exp = torch.Tensor.exponential_
+
+    def exponential_(self, *args, generator=None, **kw):
+        h = host(generator)
+        if h is None:
+            return exp(self, *args, generator=generator, **kw)
+        return self.copy_(exp(torch.empty(self.shape, dtype=self.dtype),
+                              *args, generator=h, **kw))
+    monkeypatch.setattr(torch.Tensor, "exponential_", exponential_)
+    return pairs
+
+
+def _first_update(monkeypatch):
+    """Record the first stacked D3PG update of each device's run: its
+    minibatch, and copies of the learners, Adam's first moments and the
+    losses it returns, on the CPU, by the device's name."""
+    import repro_torch.agents.allocators as alloc_mod
+    seen = {}
+    fn = alloc_mod.d3pg_update_stacked
+
+    def cpu(ts):
+        return [t.detach().cpu().clone() for t in ts]
+
+    def update(state, cfg, sched, batch, *args, **kw):
+        out, m = fn(state, cfg, sched, batch, *args, **kw)
+        dev = batch["s"].device.type
+        if dev not in seen:
+            seen[dev] = {
+                "batch": {k: v.cpu().clone() for k, v in batch.items()},
+                "losses": {k: v.detach().cpu().clone() for k, v in m.items()},
+                **{k: cpu(out[k].parameters())
+                   for k in ("actor", "critic", "actor_t", "critic_t")},
+                **{k: cpu(out[k]["mu"]) for k in ("opt_a", "opt_c")}}
+        return out, m
+    monkeypatch.setattr(alloc_mod, "d3pg_update_stacked", update)
+    return seen
+
+
+def test_train_t2drl_fused_two_episodes_on_card(cuda, cpu_streams,
+                                                monkeypatch):
+    """Three fused learners for two episodes on the card: ddpm_chain once a
+    slot for all three and 2 + 1 launches a stacked update, whatever B;
+    every learner's actor moved; (episodes, B) history; the shared learner
+    over masked cells runs too.  The same run on the CPU, from the same
+    random streams (``cpu_streams``), agrees on the first stacked update
+    to round-off: its minibatch to 1e-5 of each field's max, its losses to 1e-4 relative,
+    Adam's first moments to 1e-4 of each leaf's max, and the new learners
+    to 2e-5 where |mu| > 1e-3 max|mu| of the leaf (Adam steps a weight
+    whose gradient sits at rounding noise by lr * g / (|g| + eps), so
+    there the two may step apart by up to lr)."""
+    from repro_torch.core.t2drl import (cell_generators, t2drl_init_batch,
+                                        train_t2drl)
+    cfg = T2DRLCfg(env=EnvCfg(U=4, M=5, T=4, K=5), warmup=10, lr_actor=1e-4,
+                   lr_critic=1e-3, lr_ddqn=1e-3)
+    first = _first_update(monkeypatch)
+    for dev in ("cpu", cuda):
+        ops.reset_launches()
+        ts, hist = train_t2drl(cfg, episodes=2, num_envs=3, device=dev)
+    assert cpu_streams                        # the card drew the CPU's
+    n = ts["d3pg"]["opt_a"]["step"]
+    assert n == 30
+    assert {k: ops.LAUNCHES[k] for k in ("ddpm_chain", "ddpm_chain_bwd",
+                                         "ddpm_step")} == \
+        {"ddpm_chain": 2 * 4 * 5 + 2 * n, "ddpm_chain_bwd": n,
+         "ddpm_step": 0}
+    assert np.asarray(hist["mean_reward"]).shape == (2, 3)
+    assert np.isfinite(np.asarray(hist["mean_reward"])).all()
+    init = t2drl_init_batch(cell_generators(cfg.seed, 3, "cpu"), cfg)
+    for p, p0 in zip(ts["d3pg"]["actor"].parameters(),
+                     init["d3pg"]["actor"].parameters()):
+        assert all(not torch.equal(p[b].cpu(), p0[b]) for b in range(3))
+    card, host = first["cuda"], first["cpu"]
+    for k, v in host["batch"].items():
+        v = v.float()
+        assert (card["batch"][k] - v).abs().max().item() <= \
+            1e-5 * (1 + v.abs().max().item()), k
+    for k, v in host["losses"].items():
+        assert ((card["losses"][k] - v).abs() <= 1e-4 * v.abs()).all(), k
+    for opt, nets in (("opt_a", ("actor", "actor_t")),
+                      ("opt_c", ("critic", "critic_t"))):
+        for a, b in zip(card[opt], host[opt]):
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+        for net in nets:
+            for a, b, g in zip(card[net], host[net], host[opt]):
+                keep = g.abs() > 1e-3 * g.abs().max()
+                assert (a - b)[keep].abs().max().item() <= 2e-5, net
+    shared = T2DRLCfg(env=cfg.env, warmup=10, policy="shared")
+    ts2, h2 = train_t2drl(shared, episodes=1, num_envs=3,
+                          user_counts=[4, 3, 2])
+    assert np.asarray(h2["hit_ratio"]).shape == (1, 3)
+    assert ts2["ebuf"]["data"]["s"].device.type == "cuda"

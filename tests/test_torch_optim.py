@@ -109,9 +109,47 @@ def test_global_norm_and_clip_match_jax():
                                    atol=2e-7)
 
 
-def test_stacked_adam_waits_for_the_vector_env_modes():
-    with pytest.raises(NotImplementedError, match="A, item 6"):
-        tadam.adam_update_stacked([], {}, [], lr=1.0)
+@pytest.mark.parametrize("lr,max_norm,weight_decay", [
+    ("scalar", 0.0, 0.0), ("per_learner", 0.0, 0.0),
+    ("per_learner", 1.0, 0.01)])
+def test_stacked_adam_matches_jax(lr, max_norm, weight_decay):
+    """Three steps of B = 3 stacked learners against
+    ``repro.optim.adam_update_stacked``, with one lr or one per learner
+    (the population lever), to 2e-5; the per-learner global norms too."""
+    B = 3
+    rng = np.random.default_rng(2)
+
+    def stacked(scale=1.0):
+        return [{k: scale * rng.standard_normal((B,) + v.shape).astype(
+            np.float32) for k, v in layer.items()} for layer in _tree(rng)]
+
+    params = stacked()
+    lrs = 1e-2 if lr == "scalar" else np.array([1e-2, 3e-3, 0.0],
+                                               np.float32)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jadam.adam_init_stacked(jp)
+    tp = _leaves_t(params)
+    ts = tadam.adam_init_stacked(tp)
+    kw = dict(max_norm=max_norm, weight_decay=weight_decay)
+    t_lr = lrs if lr == "scalar" else torch.from_numpy(lrs)
+    for _ in range(3):
+        grads = stacked(3.0)
+        jp, js, jm = jadam.adam_update_stacked(
+            jax.tree.map(jnp.asarray, grads), js, jp, lr=jnp.asarray(lrs),
+            **kw)
+        tp, ts, tm = tadam.adam_update_stacked(_leaves_t(grads), ts, tp,
+                                               lr=t_lr, **kw)
+        np.testing.assert_allclose(tm["gnorm"].numpy(),
+                                   np.asarray(jm["gnorm"]), rtol=2e-5)
+    assert ts["step"] == 3 and list(np.asarray(js["step"])) == [3] * B
+    for name, jt, tt in (("params", jp, tp), ("mu", js["mu"], ts["mu"]),
+                         ("nu", js["nu"], ts["nu"])):
+        for j, t in zip(jax.tree.leaves(jt), tt):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-5,
+                                       atol=2e-5, err_msg=name)
+    if lr != "scalar":          # lr 0 leaves learner 2 where it started
+        for t, p0 in zip(tp, _leaves_t(params)):
+            assert torch.equal(t[2], p0[2])
 
 
 @pytest.mark.parametrize("name,args", [

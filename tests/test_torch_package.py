@@ -455,3 +455,55 @@ def test_kernels_line_grids_come_from_the_path_run():
         cs.kernel_summary(rows, {8: 24, 512: 24}, 8, (), path_grids=48)
     assert cs.kernel_summary(rows, {8: 24, 512: 24}, 8, (),
                              path_grids=24 + 3 * 24)["grids_per_call"] == 2
+
+
+def test_chip_smoke_vector_phase_runs_small_on_cpu(one_thread):
+    """The vector-env phase at a small env on the CPU: the fused run's
+    gate count, history shape and learners moved, the shared learner over
+    masked cells, a 2-member population and its ranking, the SCHRS episode
+    and lockstep slot; no launch on the CPU, the launches the card must
+    make computed all the same (one chain a slot whatever B, 2 + 1 a
+    stacked update)."""
+    cs = _chip_smoke()
+    from repro_torch.core.env import EnvCfg
+    out = cs.phase_vector("cpu", EnvCfg(U=3, M=4, T=10, K=4), episodes=3,
+                          B=3, shared_counts=(3, 2),
+                          members=cs.POP_MEMBERS[:2],
+                          ga=cs.GACfg(pop=6, gens=2))
+    fused = out["fused"]
+    assert fused["history_shape"] == [3, 3] and fused["d3pg_updates"] == 20
+    assert fused["expected_launches"] == {"ddpm_chain": 3 * 40 + 2 * 20,
+                                          "ddpm_chain_bwd": 20,
+                                          "ddpm_step": 0, "ddpm_step_bwd": 0}
+    assert sum(fused["launches"].values()) == 0               # CPU
+    assert fused["launches_by_shape"]["ddpm_chain"] == {
+        "B3_R1": 120, "B3_R64": 20, "B3_R64+record": 20}
+    assert len(fused["wall_s_per_episode"]) == 3
+    upd = out["fused_update"]
+    assert upd["B"] == 3 and len(upd["losses"]["actor_loss"]) == 3
+    assert upd["fused"]["ms"] > 0 and upd["single_x_B"]["ms"] > 0
+    assert out["shared"]["launches_by_shape"]["ddpm_chain_bwd"] == {
+        "train": out["shared"]["d3pg_updates"]}
+    pop = out["population"]
+    assert len(pop["ranking"]) == 2 and pop["groups"][0]["members"] == [
+        m.label() for m in cs.POP_MEMBERS[:2]]
+    assert out["schrs"]["ms_per_slot"] > 0
+    by, grids = cs._vector_paths(out, "ddpm_chain")
+    assert by["B3_R1"] == 120 and by["B2_R1"] == 4 * 40 and grids == 0
+
+
+def test_chip_smoke_stacked_checks_run_on_cpu(one_thread):
+    """Phase 3's learner-axis cases on the CPU (plain stacked against the
+    plain single-learner versions, slice by slice), at every (B, R) the
+    vector-env phase launches (the fused run's 8 learners and the
+    population's 4) and that the timing phase times."""
+    cs = _chip_smoke()
+    out = cs._check_chain_stacked("cpu")
+    assert [c["case"] for c in out["cases"]] == [
+        c[0] for c in cs.STACKED_CASES]
+    paths = {(cs.VECTOR_B, 1), (cs.VECTOR_B, 64),
+             (len(cs.POP_MEMBERS), 1), (len(cs.POP_MEMBERS), 64)}
+    assert paths == set(cs.STACKED_TIMING)
+    assert paths <= {(c["B"], c["R"]) for c in out["cases"]}
+    assert all(c["learner_slices_bit_equal"] for c in out["cases"])
+    assert out["max_abs_err"] == 0.0 and out["bwd_rel_err"] == 0.0

@@ -121,10 +121,12 @@ def test_eval_matches_jax_in_distribution():
 @pytest.mark.parametrize("allocator,cacher", [("d3pg", "ddqn"),
                                               ("ddpg", "ddqn"),
                                               ("rcars", "random"),
-                                              ("d3pg", "static")])
+                                              ("d3pg", "static"),
+                                              ("schrs", "static")])
 def test_eval_t2drl_runs_every_served_method(allocator, cacher):
     cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(U=3, M=3, T=2, K=2),
-                       allocator=allocator, cacher=cacher)
+                       allocator=allocator, cacher=cacher,
+                       ga=tt2.GACfg(pop=8, gens=3))
     pol = tt2.policy_init(cfg, seed=0, device="cpu")
     models = tenv.make_models(torch.Generator().manual_seed(1), cfg.env)
     out = tt2.eval_t2drl(pol, models, cfg, episodes=2, device="cpu")
@@ -135,8 +137,8 @@ def test_eval_t2drl_runs_every_served_method(allocator, cacher):
         out["mean_reward"] * cfg.env.T * cfg.env.K, rel=1e-5)
 
 
-@pytest.mark.parametrize("allocator,cacher", [("schrs", "static"),
-                                              ("d3pg", "arc")])
+@pytest.mark.parametrize("allocator,cacher", [("d3pg", "arc"),
+                                              ("rcars", "lru")])
 def test_unported_methods_raise_not_implemented(allocator, cacher):
     cfg = tt2.T2DRLCfg(allocator=allocator, cacher=cacher)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

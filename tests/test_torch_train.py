@@ -15,9 +15,9 @@ Tolerances, each with its reason:
   weight by about lr * sign(g), and where |g| sits at rounding noise the
   two frameworks may step in opposite directions, so there the new
   parameters are compared only where |g| > 1e-3 max|g| of their leaf;
-* episode semantics: the methods train end to end and unported modes
-  raise (the update gates and the frame reward's sign are held against
-  the JAX package in ``test_torch_train_gates.py``).
+* episode semantics: the methods and the vector-env modes train end to
+  end and unported modes raise (the update gates and the frame reward's
+  sign are held against the JAX package in ``test_torch_train_gates.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -247,13 +247,18 @@ def test_amender_is_rounding_noise_where_the_actor_saturates():
 
 
 def test_telemetry_and_stacked_updates_are_not_ported_yet():
+    """The updates' telemetry (``diag=True``), single and stacked, waits
+    for ROADMAP A.8; the stacked updates themselves are ported
+    (``test_torch_stacked.py``)."""
     cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(**SMALL))
     with pytest.raises(NotImplementedError, match="A, item 8"):
         td3.d3pg_update({}, cfg.d3pg_cfg(), None, {}, diag=True)
     with pytest.raises(NotImplementedError, match="A, item 8"):
         tdq.ddqn_update({}, cfg.ddqn_cfg(), {}, diag=True)
-    with pytest.raises(NotImplementedError, match="A, item 6"):
-        td3.d3pg_update_stacked()
+    with pytest.raises(NotImplementedError, match="A, item 8"):
+        td3.d3pg_update_stacked({}, cfg.d3pg_cfg(), None, {}, diag=True)
+    with pytest.raises(NotImplementedError, match="A, item 8"):
+        tdq.ddqn_update_stacked({}, cfg.ddqn_cfg(), {}, diag=True)
 
 
 def test_bridged_train_state_has_the_port_layout():
@@ -295,19 +300,36 @@ def test_train_t2drl_covers_the_ported_methods(allocator, cacher):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(num_envs=2), "item 6"), (dict(user_counts=[1]), "item 6"),
     (dict(mods=object()), "item 8"), (dict(writer=object()), "item 8")])
 def test_unported_training_modes_raise(kw, item):
     cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(U=2, M=3, T=2, K=2))
     with pytest.raises(NotImplementedError, match=item):
         tt2.train_t2drl(cfg, episodes=1, device="cpu", **kw)
-    for bad, item in ((dict(policy="shared"), "item 6"),
-                      (dict(obs=tt2.ObsCfg(enabled=True)), "item 8"),
-                      (dict(allocator="schrs"), "item 5"),
+    for bad, item in ((dict(obs=tt2.ObsCfg(enabled=True)), "item 8"),
                       (dict(cacher="lru"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             tt2.train_t2drl(tt2.T2DRLCfg(env=cfg.env, **bad), episodes=1,
                             device="cpu")
+
+
+@pytest.mark.parametrize("kw,cfg_kw", [
+    (dict(num_envs=2), {}), (dict(user_counts=[1]), {}),
+    (dict(num_envs=2), dict(policy="shared")),
+    ({}, dict(policy="shared")),
+    (dict(num_envs=2), dict(allocator="schrs", cacher="static")),
+    ({}, dict(allocator="schrs"))])
+def test_ported_training_modes_run(kw, cfg_kw):
+    """The modes that raised until the vector-env slice (ROADMAP A.5, A.6)
+    train: B cells give (episodes, B) histories, one cell the single-cell
+    layout."""
+    cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(U=2, M=3, T=2, K=2), warmup=2, L=2,
+                       ga=tt2.GACfg(pop=6, gens=3), **cfg_kw)
+    ts, hist = tt2.train_t2drl(cfg, episodes=2, device="cpu", **kw)
+    B = kw.get("num_envs", 1)
+    shape = np.asarray(hist["mean_reward"]).shape
+    assert shape == ((2, B) if B > 1 else (2,))
+    assert all(np.isfinite(np.asarray(v)).all() for v in hist.values())
+    assert (ts["models"].a1.dim() == 2) == (B > 1)
 
 
 @pytest.mark.parametrize("schedule", ["linear", "cosine"])

@@ -5,9 +5,11 @@ The config is ``benchmarks/bench_cache.py``'s smoke cell
 tuned learning rates of ``benchmarks/common.py`` (``TUNED``) and
 ``eps_decay_episodes = 0.6 * 25``.  The reference trains 4 independent
 learners on one model zoo in one compile
-(``train_t2drl(num_envs=4, share_models=True)``); the port trains 3 seeds
-on cell 0's zoo, bridged.  The two frameworks draw different random
-streams, so the runs are compared as distributions:
+(``train_t2drl(num_envs=4, share_models=True)``, made once and shared by
+both tests); the port trains 3 seeds on cell 0's zoo, bridged, one cell
+at a time and, as the vector-env modes, 4 fused learners at once.  The two
+frameworks draw different random streams, so the runs are compared as
+distributions:
 
     for mean_reward and hit_ratio, the port's mean over its 3 seeds of
     each seed's mean over its last 5 episodes lies within the reference's
@@ -15,8 +17,9 @@ streams, so the runs are compared as distributions:
     widened by half that range on each side.
 
 This file is the slowest of the port's tests: on one CPU core the JAX
-compile of the 4-learner program takes ~55 s and the port's ~2500 D3PG
-updates ~75 s.
+compile of the 4-learner program takes ~55 s, the port's ~2500 D3PG
+updates one cell at a time ~75 s, and its ~850 fused 4-learner updates
+more.
 """
 import jax
 import numpy as np
@@ -51,12 +54,31 @@ def _cfg(mod, allocator, cacher):
                         eps_decay_episodes=int(EPISODES * 0.6), **TUNED)
 
 
+_JAX_RUNS = {}
+
+
+def _jax_run(allocator, cacher):
+    """The reference's 4-learner run of a method, made once per worker and
+    shared by the single-cell and the vector-env test."""
+    if (allocator, cacher) not in _JAX_RUNS:
+        _JAX_RUNS[allocator, cacher] = jt2.train_t2drl(
+            _cfg(jt2, allocator, cacher), episodes=EPISODES, num_envs=4,
+            share_models=True)
+    return _JAX_RUNS[allocator, cacher]
+
+
+def _in_band(k, got, jhist):
+    ref = np.asarray(jhist[k])[-LAST:].mean(axis=0)            # (4,) cells
+    lo, hi = ref.min(), ref.max()
+    band = (lo - 0.5 * (hi - lo), hi + 0.5 * (hi - lo))
+    assert band[0] <= got <= band[1], (k, got, band, ref)
+
+
 @pytest.mark.parametrize("allocator,cacher", [("d3pg", "ddqn"),
                                               ("rcars", "static")])
 def test_training_matches_jax_in_distribution(allocator, cacher):
-    cfg_j, cfg_t = _cfg(jt2, allocator, cacher), _cfg(tt2, allocator, cacher)
-    jts, jhist = jt2.train_t2drl(cfg_j, episodes=EPISODES, num_envs=4,
-                                 share_models=True)
+    cfg_t = _cfg(tt2, allocator, cacher)
+    jts, jhist = _jax_run(allocator, cacher)
     zoo = models_from_numpy(jax.tree.map(lambda x: np.asarray(x)[0],
                                          jts["models"]), device="cpu")
     port = {k: [] for k in ("mean_reward", "hit_ratio")}
@@ -71,8 +93,24 @@ def test_training_matches_jax_in_distribution(allocator, cacher):
         for k in port:
             port[k].append(np.mean(hist[k][-LAST:]))
     for k in port:
-        ref = np.asarray(jhist[k])[-LAST:].mean(axis=0)        # (4,) cells
-        lo, hi = ref.min(), ref.max()
-        band = (lo - 0.5 * (hi - lo), hi + 0.5 * (hi - lo))
-        got = float(np.mean(port[k]))
-        assert band[0] <= got <= band[1], (k, got, band, ref, port[k])
+        _in_band(k, float(np.mean(port[k])), jhist)
+
+
+def test_vector_training_matches_jax_in_distribution():
+    """The port's fused independent learners, 4 cells on the reference's
+    zoo (as ``share_models=True`` gives it) from ``cell_generators``,
+    against the same reference run: the port's mean over its 4 cells of
+    each cell's mean over its last 5 episodes lies within the band above,
+    for mean_reward and hit_ratio."""
+    cfg_t = _cfg(tt2, "d3pg", "ddqn")
+    jts, jhist = _jax_run("d3pg", "ddqn")
+    zoo = models_from_numpy(jax.tree.map(lambda x: np.asarray(x)[0],
+                                         jts["models"]), device="cpu")
+    gens = tt2.cell_generators(1, 4, "cpu")
+    ts = {**tt2.t2drl_init_batch(gens, cfg_t),
+          "models": tenv.stack_models([zoo] * 4)}
+    ts, hist = tt2.run_training(ts, cfg_t, gens, EPISODES)
+    assert np.asarray(hist["mean_reward"]).shape == (EPISODES, 4)
+    for k in ("mean_reward", "hit_ratio"):
+        got = np.asarray(hist[k])[-LAST:].mean(axis=0)            # (4,)
+        _in_band(k, float(got.mean()), jhist)
