@@ -61,6 +61,24 @@ Phases, each printing one JSON line:
                lockstep SCHRS batch_act over 4 cells; then one fused
                update at B = 8 against 8 single-learner updates (host ms,
                device ms, idle share).
+5c. ops          — the operations slice at the paper's EnvCfg(), warmup 20
+               (every one-episode run updates): one d3pg training episode
+               with each classical cacher (lru, lfu, lru-ghost, arc) and
+               two of 8 fused cells with arc (storage within budget every
+               frame, resident units within the capacity, hit ratios in
+               [0, 1]); one frame's replay of each policy on the card
+               against the CPU's, bit for bit, at 1 and 8 cells (ms and
+               device kernels per frame); every built-in scenario for one
+               training and one greedy eval episode (hetero-cells and
+               degraded-channel at 4 cells), paper-default the unmodulated
+               run bit for bit; a 2-episode state through
+               save_train_state/load_train_state onto the card (every leaf
+               equal, the same greedy episode), a 4-cell state and an ARC
+               policy; one episode with telemetry and a MetricWriter (the
+               log validates, the reference's diag/ keys, diag/updates the
+               gated count, the same launches as without it) and one
+               diag=True update through ddpm_chain's record with the plain
+               chain made to raise.  Every run's launches exact.
 6. control_plane — greedy T2DRL episodes at the paper's EnvCfg() (d3pg/ddqn,
                then rcars/random); checks stats, simplexes, and that
                ddpm_chain ran once per slot (T*K per d3pg episode); then one
@@ -103,6 +121,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -121,11 +140,17 @@ from repro_torch.core.env import (EnvCfg, ModelParams,  # noqa: E402
                                   env_advance_frame, env_cell, env_reset,
                                   env_reset_batch, env_set_cache,
                                   env_step_slot, make_models,
-                                  make_models_batch, observe)
+                                  make_models_batch, make_user_masks,
+                                  observe)
 from repro_torch.core.networks import mlp_init, stack_mlps  # noqa: E402
 from repro_torch.agents import SlotObs, make_allocator  # noqa: E402
 from repro_torch.core.baselines import (GACfg,  # noqa: E402
                                         static_popular_cache)
+from repro_torch.core.cache_policies import (  # noqa: E402
+    CACHE_POLICIES, cache_rho, cache_state_init, quantize_capacity,
+    quantize_sizes)
+from repro_torch.checkpoint import (load_train_state,  # noqa: E402
+                                    save_train_state)
 from repro_torch.core.buffers import (buffer_cell,  # noqa: E402
                                       buffer_sample, buffer_sample_stacked)
 from repro_torch.core.population import (PopMember,  # noqa: E402
@@ -134,8 +159,8 @@ from repro_torch.core.t2drl import (STAT_KEYS, T2DRLCfg,  # noqa: E402
                                     cell_generators, eval_t2drl,
                                     export_policy, greedy_frame_cache,
                                     greedy_slot_action, policy_init,
-                                    run_eval, t2drl_init, t2drl_init_batch,
-                                    train_t2drl)
+                                    run_eval, run_eval_batch, t2drl_init,
+                                    t2drl_init_batch, train_t2drl)
 from repro_torch.device import make_generator, resolve_device  # noqa: E402
 from repro_torch.diffusion import (Denoiser, make_schedule,  # noqa: E402
                                    reverse_sample, time_embedding)
@@ -1601,8 +1626,8 @@ def _timed_run(dev, fn) -> tuple:
 
 
 def _finite(hist, what: str) -> None:
-    require(bool(np.isfinite(np.asarray(list(hist.values()))).all()),
-            f"{what}: non-finite stats")
+    require(all(np.isfinite(np.asarray(v, np.float64)).all()
+                for v in hist.values()), f"{what}: non-finite stats")
 
 
 def _fused_update_timing(ts, cfg: T2DRLCfg, dev, n: int = 20) -> dict:
@@ -1833,6 +1858,390 @@ def phase_vector(device, env_cfg: EnvCfg = EnvCfg(), episodes: int = 2,
             "episodes": episodes, "fused": fused, "fused_update": upd,
             "env_slot_ms": _env_slot_timing(dev, ec, (1, B)),
             "shared": shared, "population": population, "schrs": schrs}
+
+
+# -- 5c. operations: classical cachers, scenarios, checkpoints, telemetry ---
+
+# the diag/ keys of the JAX package's telemetry history with ObsCfg(
+# enabled=True) for d3pg/ddqn (repro/core/t2drl.py:560-569), copied here:
+# the port imports nothing of the JAX package
+DIAG_KEYS = frozenset(
+    ["diag/" + k for k in ("critic_loss", "actor_loss", "q_mean",
+                           "td_abs_mean", "td_abs_max", "actor_grad_norm",
+                           "critic_grad_norm", "denoise_mag", "updates",
+                           "ebuf_size", "ebuf_fill", "fbuf_size",
+                           "fbuf_fill")]
+    + ["diag/ddqn_" + k for k in ("loss", "td_abs_mean", "td_abs_max",
+                                  "q_mean", "q_max", "target_div",
+                                  "grad_norm", "updates")])
+OPS_WARMUP = 20         # D3PG updates from the third frame of episode 1
+
+
+def _ops_cfg(allocator: str, cacher: str, ec: EnvCfg, episodes: int,
+             warmup: int) -> T2DRLCfg:
+    return dataclasses.replace(method_cfg(allocator, cacher, ec, episodes),
+                               warmup=warmup)
+
+
+def _shapes(B: int, slots: int, n: int, record_target: bool = False):
+    """The chain kernels' launches of a run by timing case: acting (one
+    chain a slot, R = 1 per learner), and per update the target chain
+    (R = 64, with its record under telemetry), the policy chain with its
+    record and one backward; B = 1 is the single learner's cases."""
+    act, upd = ("control", "control_R64") if B == 1 else (f"B{B}_R1",
+                                                         f"B{B}_R64")
+    chain = {act: slots, upd + "+record": n * (2 if record_target else 1)}
+    if not record_target:
+        chain[upd] = n
+    return {"ddpm_chain": {k: v for k, v in chain.items() if v},
+            "ddpm_chain_bwd": ({"train" if B == 1 else upd: n} if n
+                               else {})}
+
+
+def _add_shapes(total: dict, part: dict) -> None:
+    for kern, by in part.items():
+        for case, n in by.items():
+            total[kern][case] = total[kern].get(case, 0) + n
+
+
+def _ops_run(dev, fn, shapes: dict, totals: dict) -> tuple:
+    """``_timed_run`` of ``fn``, its launches checked on the card against
+    ``shapes`` (per kernel, by case) and added to the phase's totals."""
+    out, run = _timed_run(dev, fn)
+    want = {k: sum(shapes.get(k, {}).values()) for k in TRAIN_KERNELS}
+    if dev.type == "cuda":
+        require(run["launches"] == want, f"launched {run['launches']}, "
+                f"expected {want}")
+    _add_shapes(totals["by_shape"], shapes)
+    for k in ("ddpm_chain", "ddpm_chain_bwd"):
+        totals["grids"][k] += run["grids"][k]
+    return out, run
+
+
+def _cache_checks(ts, hist, cfg: T2DRLCfg, what: str) -> dict:
+    """A classical cacher's run: every frame within the storage budget
+    (storage_viol 0 in every episode and cell), the final resident units
+    within the integer capacity, hit ratios in [0, 1]."""
+    c_units = quantize_sizes(ts["models"].c)
+    units = torch.sum(cache_rho(ts["cache"]) * c_units, dim=-1)
+    cap = quantize_capacity(cfg.env.C)
+    viol = np.asarray(hist["storage_viol"], np.float64)
+    hit = np.asarray(hist["hit_ratio"], np.float64)
+    require(bool((units <= cap).all()), f"{what}: resident units "
+            f"{units.tolist()} over the capacity {cap}")
+    require(float(viol.max()) == 0.0, f"{what}: storage violations {viol}")
+    require(bool(((hit >= 0) & (hit <= 1)).all()), f"{what}: hit {hit}")
+    _finite(hist, what)
+    return {"hit_ratio": hit.tolist(), "resident_units":
+            units.tolist(), "capacity_units": cap}
+
+
+def _replay_checks(dev, ec: EnvCfg, Bs=(1, VECTOR_B), n_time: int = 5
+                   ) -> dict:
+    """One frame's replay of each classical policy on the card against the
+    same replay on the CPU, every state leaf bit for bit, at 1 and B
+    cells, from a warmed-up state and with a quarter of the users masked;
+    then host ms per frame (ending in a synchronise) and, on the card,
+    the device kernels per frame and their device ms (torch.profiler)."""
+    from repro_torch.agents.cachers import classical_cacher
+    out = {}
+    for kind in CACHE_POLICIES:
+        agent = classical_cacher(kind, ec)
+        for B in Bs:
+            lead = (B,) if B > 1 else ()
+            g = torch.Generator().manual_seed(71 + B)
+            zoo = (make_models_batch([g] * B, ec) if B > 1
+                   else make_models(g, ec))
+            reqs = [torch.randint(0, ec.M, lead + (ec.K, ec.U), generator=g)
+                    for _ in range(3)]
+            mask = (torch.rand(lead + (ec.U,), generator=g) > 0.25).float()
+            st = cache_state_init(ec.M, lead=lead)
+            st = agent.step_frame(st, reqs[0], zoo, None)    # warm state
+            want = agent.step_frame(agent.step_frame(st, reqs[1], zoo, mask),
+                                    reqs[2], zoo, None)
+            to = lambda x: x.to(dev)  # noqa: E731
+            st_d = {k: to(v) for k, v in st.items()}
+            zoo_d = ModelParams(*(to(t) for t in zoo))
+            got = agent.step_frame(agent.step_frame(
+                st_d, to(reqs[1]), zoo_d, to(mask)), to(reqs[2]), zoo_d,
+                None)
+            bad = [k for k in want if not torch.equal(got[k].cpu(),
+                                                      want[k])]
+            require(not bad, f"{kind} at B={B}: the card's replay differs "
+                    f"from the CPU's in {bad}")
+
+            def frame():
+                return agent.step_frame(st_d, to(reqs[1]), zoo_d,
+                                        to(mask))
+            frame()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(n_time):
+                frame()
+            sync(dev)
+            row = {"ms_per_frame": 1e3 * (time.perf_counter() - t0) / n_time,
+                   "accesses_per_frame": ec.K * ec.U * B}
+            if dev.type == "cuda":
+                events, kernels, _ = device_ms_per_call(frame, 2)
+                row["device_kernels_per_frame"] = kernels
+                row["device_ms_per_frame"] = sum(events.values())
+            out[f"{kind}/B{B}"] = row
+    return out
+
+
+def _port_leaves(tree, path: str = "") -> list:
+    """Every tensor and host value of a port state or policy, by path."""
+    if isinstance(tree, torch.nn.Module):
+        return [(f"{path}.{n}", p.detach()) for n, p in
+                tree.named_parameters()]
+    if torch.is_tensor(tree):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _port_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _port_leaves(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _same_leaves(a, b, what: str) -> int:
+    la, lb = _port_leaves(a), _port_leaves(b)
+    require([k for k, _ in la] == [k for k, _ in lb],
+            f"{what}: the restored state has other leaves")
+    bad = [k for (k, x), (_, y) in zip(la, lb)
+           if (not (x.device == y.device and x.dtype == y.dtype
+                    and torch.equal(x, y)) if torch.is_tensor(x)
+               else x != y)]
+    require(not bad, f"{what}: leaves differ after the round trip: "
+            f"{bad[:5]}")
+    return len(la)
+
+
+def _checkpoint_checks(dev, ec: EnvCfg, episodes: int, totals: dict,
+                       tmp: str, warmup: int) -> dict:
+    """Train d3pg/ddqn for ``episodes``, save_train_state, load_train_state
+    onto the device: every leaf equal, and a greedy episode from the
+    restored policy the live one's, bit for bit (the same generator
+    seed).  Then a 4-cell batched state and an ARC policy round trip."""
+    cfg = _ops_cfg("d3pg", "ddqn", ec, episodes, warmup)
+    n = sum(u for u, _ in predicted_updates(cfg, episodes))
+    (ts, _), run = _ops_run(dev, lambda cb: train_t2drl(
+        cfg, episodes=episodes, device=dev, callback=cb),
+        _shapes(1, ec.T * ec.K * episodes, n), totals)
+    path = str(Path(tmp) / "t2drl.ckpt")
+    sync(dev)
+    t0 = time.perf_counter()
+    save_train_state(path, ts, meta={"allocator": "d3pg", "cacher": "ddqn"},
+                     cfg=cfg)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got, meta = load_train_state(path, cfg, device=dev)
+    sync(dev)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    require(meta == {"allocator": "d3pg", "cacher": "ddqn"}, f"meta {meta}")
+    leaves = _same_leaves(got, ts, "trained state")
+    evals = []
+    for state in (ts, got):
+        ops.reset_launches()
+        evals.append(run_eval(export_policy(state, cfg), state["models"],
+                              cfg, episodes=1, seed=77, device=dev))
+    require(evals[0] == evals[1], f"greedy episodes differ after the round "
+            f"trip: {evals}")
+    cfg4 = _ops_cfg("d3pg", "lru", ec, 1, warmup)
+    ts4 = t2drl_init_batch(cell_generators(5, 4, dev), cfg4)
+    path4 = str(Path(tmp) / "batched.ckpt")
+    save_train_state(path4, ts4, cfg=cfg4)
+    got4, _ = load_train_state(path4, cfg4, device=dev)
+    _same_leaves(got4, ts4, "4-cell state")
+    cfg_a = _ops_cfg("rcars", "arc", ec, 1, warmup)
+    (ts_a, _), _ = _ops_run(dev, lambda cb: train_t2drl(
+        cfg_a, episodes=1, device=dev, callback=cb), {}, totals)
+    pol = export_policy(ts_a, cfg_a)
+    path_a = str(Path(tmp) / "arc_policy.ckpt")
+    save_train_state(path_a, pol)
+    got_a, _ = load_train_state(path_a, device=dev)
+    _same_leaves(got_a, pol, "ARC policy")
+    return {"episodes": episodes, "d3pg_updates": n, "leaves": leaves,
+            "bytes": Path(path).stat().st_size,
+            "batched_bytes": Path(path4).stat().st_size,
+            "save_ms": save_ms, "load_ms": load_ms,
+            "train_wall_s": run["wall_s"], "eval_stats": evals[0]}
+
+
+def _telemetry_checks(dev, ec: EnvCfg, totals: dict, tmp: str,
+                      warmup: int) -> dict:
+    """One d3pg/ddqn training episode with ObsCfg(enabled=True) and a
+    MetricWriter, then the same without telemetry from the same seed:
+    the log validates, the diag/ keys are the reference's (DIAG_KEYS),
+    diag/updates is the gated update count and both runs launch the same
+    kernels.  On the card one diag=True update then launches ddpm_chain
+    twice (the target chain with its record, read for denoise_mag, and
+    the policy chain) and ddpm_chain_bwd once, with the plain chain
+    versions made to raise."""
+    from repro_torch.agents.allocators import actor_schedule
+    from repro_torch.core.d3pg import d3pg_update
+    from repro_torch.obs import MetricWriter, ObsCfg, validate_jsonl
+    cfg_off = _ops_cfg("d3pg", "ddqn", ec, 1, warmup)
+    cfg_on = dataclasses.replace(cfg_off, obs=ObsCfg(enabled=True))
+    n = sum(u for u, _ in predicted_updates(cfg_off, 1))
+    slots = ec.T * ec.K
+    log = str(Path(tmp) / "telemetry.jsonl")
+    with MetricWriter(log) as w:
+        (ts, hist), on = _ops_run(dev, lambda cb: train_t2drl(
+            cfg_on, episodes=1, device=dev, callback=cb, writer=w),
+            _shapes(1, slots, n, record_target=True), totals)
+        eval_t2drl(export_policy(ts, cfg_on), ts["models"], cfg_on,
+                   episodes=1, device=dev, writer=w)
+    (ts_off, hist_off), off = _ops_run(dev, lambda cb: train_t2drl(
+        cfg_off, episodes=1, device=dev, callback=cb),
+        _shapes(1, slots, n), totals)
+    records = validate_jsonl(log)
+    kinds = [json.loads(line)["kind"] for line in open(log)]
+    require(kinds == ["manifest", "train_chunk", "eval"], f"log {kinds}")
+    diag = {k for k in hist if k.startswith("diag/")}
+    require(diag == DIAG_KEYS, f"diag keys {sorted(diag ^ DIAG_KEYS)} "
+            "differ from the reference's")
+    require(hist["diag/updates"] == [float(n)] == [float(
+        ts["d3pg"]["opt_a"]["step"])], f"diag/updates {hist['diag/updates']}"
+        f", {n} gated updates")
+    mag = hist["diag/denoise_mag"][0]
+    require(len(mag) == cfg_on.L and all(math.isfinite(v) and v > 0
+                                         for v in mag), f"denoise_mag {mag}")
+    require(sum(on["launches"].values()) == sum(off["launches"].values()),
+            f"telemetry changed the launches: {on['launches']} against "
+            f"{off['launches']}")
+    tap = None
+    if dev.type == "cuda":
+        d3 = cfg_on.d3pg_cfg()
+        g = make_generator(5, dev)
+        saved = (ref.ddpm_chain_ref, ref.ddpm_chain_stacked_ref)
+
+        def refuse(*a, **k):
+            raise SmokeError("the plain chain ran on the card")
+        ref.ddpm_chain_ref = ref.ddpm_chain_stacked_ref = refuse
+        try:
+            ops.reset_launches()
+            _, m = d3pg_update(ts["d3pg"], d3, actor_schedule(d3),
+                               buffer_sample(ts["ebuf"], g, d3.batch), g,
+                               diag=True)
+            sync(dev)
+        finally:
+            ref.ddpm_chain_ref, ref.ddpm_chain_stacked_ref = saved
+        tap = {k: ops.LAUNCHES[k] for k in TRAIN_KERNELS}
+        require(tap == update_launches("chain", cfg_on.L, 1),
+                f"a diag=True update launched {tap}")
+        require(m["denoise_mag"].shape == (cfg_on.L,)
+                and bool(torch.isfinite(m["denoise_mag"]).all()),
+                f"denoise_mag {m['denoise_mag']}")
+    return {"records": records, "record_kinds": kinds,
+            "diag_keys": len(diag), "diag_updates": hist["diag/updates"][0],
+            "denoise_mag": mag, "wall_s_on": on["wall_s"],
+            "wall_s_off": off["wall_s"], "launches_on": on["launches"],
+            "launches_off": off["launches"], "diag_update_launches": tap}
+
+
+def phase_ops(device, env_cfg: EnvCfg = EnvCfg(), B: int = VECTOR_B,
+              scenario_B: int = 4, warmup: int = OPS_WARMUP,
+              card=None) -> dict:
+    """The operations slice at the paper's EnvCfg() with method_cfg's
+    settings but ``warmup`` (so every one-episode run updates):
+
+    - classical cachers: one d3pg training episode with each of lru, lfu,
+      lru-ghost and arc on one cell, two episodes of B fused cells with
+      arc (each frame within the storage budget, the resident units
+      within the capacity, hit ratios in [0, 1]); one frame's replay of
+      each on the card against the CPU's, bit for bit, at 1 and B cells,
+      with its ms and device kernels per frame;
+    - scenarios: every built-in for one training episode and one greedy
+      eval episode, hetero-cells and degraded-channel at ``scenario_B``
+      fused cells; paper-default the unmodulated run bit for bit;
+    - checkpoints (``_checkpoint_checks``) and telemetry
+      (``_telemetry_checks``).
+
+    Every training run's launches are checked on the card and counted by
+    shape for the ``kernels`` line; ``card`` is nvidia-smi's name and
+    power limit, printed beside the numbers."""
+    from repro_torch.scenarios import build_scenario, list_scenarios
+    dev = resolve_device(device)
+    ec = env_cfg
+    slots = ec.T * ec.K
+    totals = {"by_shape": {"ddpm_chain": {}, "ddpm_chain_bwd": {}},
+              "grids": {"ddpm_chain": 0, "ddpm_chain_bwd": 0}}
+    cachers = {}
+    for kind in CACHE_POLICIES:
+        cfg = _ops_cfg("d3pg", kind, ec, 1, warmup)
+        n = sum(u for u, _ in predicted_updates(cfg, 1))
+        (ts, hist), run = _ops_run(dev, lambda cb: train_t2drl(
+            cfg, episodes=1, device=dev, callback=cb),
+            _shapes(1, slots, n), totals)
+        require(ts["d3pg"]["opt_a"]["step"] == n > 0,
+                f"{kind}: {ts['d3pg']['opt_a']['step']} updates, expected "
+                f"{n}")
+        cachers[kind] = {"s_per_episode": run["wall_s"], "d3pg_updates": n,
+                         **_cache_checks(ts, hist, cfg, kind)}
+    cfg = _ops_cfg("d3pg", "arc", ec, 2, warmup)
+    n = sum(u for u, _ in predicted_updates(cfg, 2))
+    (ts, hist), run = _ops_run(dev, lambda cb: train_t2drl(
+        cfg, episodes=2, num_envs=B, device=dev, callback=cb),
+        _shapes(B, 2 * slots, n), totals)
+    cachers[f"arc_fused_B{B}"] = {
+        "s_per_episode": run["wall_s_per_episode"], "d3pg_updates": n,
+        **_cache_checks(ts, hist, cfg, f"arc at B={B}")}
+    del ts
+    replay = _replay_checks(dev, ec, (1, B))
+
+    scen = {}
+    for name in list_scenarios():
+        Bn = scenario_B if name in ("hetero-cells",
+                                    "degraded-channel") else 1
+        b = build_scenario(name, ec, Bn, device=dev)
+        cfg = _ops_cfg("d3pg", "ddqn", b.env, 1, warmup)
+        n = sum(u for u, _ in predicted_updates(cfg, 1))
+        (ts, hist), run = _ops_run(dev, lambda cb: train_t2drl(
+            cfg, episodes=1, num_envs=Bn, user_counts=b.user_counts,
+            mods=b.mods, device=dev, callback=cb),
+            _shapes(Bn, slots, n), totals)
+        _finite(hist, name)
+        t0 = time.perf_counter()
+        if Bn == 1:
+            ops.reset_launches()
+            ev = eval_t2drl(export_policy(ts, cfg), ts["models"], cfg,
+                            episodes=1, device=dev, mods=b.mods,
+                            user_counts=b.user_counts)
+            require(dev.type != "cuda" or ops.LAUNCHES["ddpm_chain"]
+                    == slots, f"{name}: greedy episode launched "
+                    f"{dict(ops.LAUNCHES)}")
+        else:
+            masks = (None if b.user_counts is None else
+                     make_user_masks(b.env, b.user_counts).to(dev))
+            ops.reset_launches()
+            ev = {k: float(np.mean(v)) for k, v in run_eval_batch(
+                ts, cfg, episodes=1, mods=b.mods, masks=masks,
+                device=dev).items()}
+        eval_s = time.perf_counter() - t0
+        require(all(math.isfinite(v) for v in ev.values()),
+                f"{name}: eval {ev}")
+        scen[name] = {"cells": Bn, "modulated": b.mods is not None,
+                      "s_per_episode": run["wall_s"], "eval_s": eval_s,
+                      "d3pg_updates": n, "eval": ev}
+        if name == "paper-default":
+            require(b.mods is None, "paper-default built a schedule")
+            (ts_ref, hist_ref), _ = _ops_run(dev, lambda cb: train_t2drl(
+                cfg, episodes=1, device=dev, callback=cb),
+                _shapes(1, slots, n), totals)
+            require(hist_ref == hist, "paper-default differs from mods=None")
+            _same_leaves(ts_ref, ts, "paper-default state")
+        del ts
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = _checkpoint_checks(dev, ec, 2, totals, tmp, warmup)
+        tel = _telemetry_checks(dev, ec, totals, tmp, warmup)
+    return {"phase": "ops", "card": card,
+            "env": {"U": ec.U, "M": ec.M, "T": ec.T, "K": ec.K},
+            "warmup": warmup, "cachers": cachers, "replay": replay,
+            "scenarios": scen, "checkpoint": ckpt, "telemetry": tel,
+            "launches_by_shape": totals["by_shape"],
+            "grids": totals["grids"]}
 
 
 # -- 6. control plane -----------------------------------------------------------
@@ -2375,7 +2784,8 @@ def _vector_paths(vector, kernel: str) -> tuple:
     return by, sum(r["grids"][kernel] for r in runs)
 
 
-def kernels_line(check, timing, train, control, data, lm, vector) -> dict:
+def kernels_line(check, timing, train, control, data, lm, vector,
+                 ops_run) -> dict:
     """The ``kernels`` line.  ddpm_step: the control plane's impl="step"
     episode (at (20,)) and the impl="step" updates of the train phase's
     update timing (their policy chains, at (64, 20)).  ddpm_step_bwd:
@@ -2393,7 +2803,8 @@ def kernels_line(check, timing, train, control, data, lm, vector) -> dict:
     must have launched on its path.  The vector-env phase adds its
     launches to ddpm_chain's and ddpm_chain_bwd's paths at their shapes
     (the stacked ones under ``at`` with their B single-learner
-    yardstick, ``single_x_B_ms``)."""
+    yardstick, ``single_x_B_ms``); the ops phase (its cachers, scenarios,
+    checkpoint and telemetry runs) adds its launches alike."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
     upd = train["update_timing"]
@@ -2418,20 +2829,25 @@ def kernels_line(check, timing, train, control, data, lm, vector) -> dict:
     chain_rows = [(r["case"], r) for r in timing["ddpm_chain"]
                   + timing["stacked"]["ddpm_chain"]]
     vec_chain, vec_grids = _vector_paths(vector, "ddpm_chain")
+    ops_chain = ops_run["launches_by_shape"]["ddpm_chain"]
+    ops_bwd = ops_run["launches_by_shape"]["ddpm_chain_bwd"]
+    ops_grids = ops_run["grids"]
     by_plane = {"control": control["launches"]["ddpm_chain"],
                 "train": tl["ddpm_chain"],
                 "data": data["launches"]["ddpm_chain"],
                 "lm_gateway": lm["gateway"]["launches"]["ddpm_chain"],
-                "vector": sum(vec_chain.values())}
+                "vector": sum(vec_chain.values()),
+                "ops": sum(ops_chain.values())}
     acting = train["env"]["T"] * train["env"]["K"] * train["episodes"]
     n_d3 = train["d3pg_updates"]
     chain_path = {"control": by_plane["control"] + acting,
                   "control_R64": n_d3, "control_R64+record": n_d3}
-    for case, n in vec_chain.items():
+    for case, n in list(vec_chain.items()) + list(ops_chain.items()):
         chain_path[case] = chain_path.get(case, 0) + n
     chain = kernel_summary(
         chain_rows, chain_path, "control", [k for k, _ in chain_rows[1:]],
-        control["grids"] + train["grids"]["ddpm_chain"] + vec_grids)
+        control["grids"] + train["grids"]["ddpm_chain"] + vec_grids
+        + ops_grids["ddpm_chain"])
     chain["step_ms"] = timing["ddpm_chain"][0]["step_ms"]
     for k, row in chain_rows[1:]:
         if "step_ms" in row:
@@ -2440,31 +2856,35 @@ def kernels_line(check, timing, train, control, data, lm, vector) -> dict:
     chain["grids_per_call"] = (control["grids"] + data["grids"]
                                + train["grids"]["ddpm_chain"]
                                + lm["gateway"]["grids"]["ddpm_chain"]
-                               + vec_grids) / sum(by_plane.values())
+                               + vec_grids + ops_grids["ddpm_chain"]) \
+        / sum(by_plane.values())
     chain["clusters_per_call"] = (control["clusters"] + data["clusters"]) \
         / (by_plane["control"] + by_plane["data"])
     summary["ddpm_chain"] = chain
     vec_bwd, vec_bwd_grids = _vector_paths(vector, "ddpm_chain_bwd")
     bwd_path = {"train": tl["ddpm_chain_bwd"]}
-    for case, n in vec_bwd.items():
+    for case, n in list(vec_bwd.items()) + list(ops_bwd.items()):
         bwd_path[case] = bwd_path.get(case, 0) + n
     bwd = kernel_summary(
         [(r["case"], r) for r in timing["ddpm_chain_bwd"]
          + timing["stacked"]["ddpm_chain_bwd"]],
         bwd_path, "train", ("control_R1", "R1024")
         + tuple(r["case"] for r in timing["stacked"]["ddpm_chain_bwd"]),
-        train["grids"]["ddpm_chain_bwd"] + vec_bwd_grids)
+        train["grids"]["ddpm_chain_bwd"] + vec_bwd_grids
+        + ops_grids["ddpm_chain_bwd"])
     bwd["fwd_bwd"] = {r["case"]: r["fwd_bwd"]
                       for r in timing["ddpm_chain_bwd"]}
     bwd["launches_by_path"] = {
         "train": tl["ddpm_chain_bwd"], "vector": sum(vec_bwd.values()),
+        "ops": sum(ops_bwd.values()),
         "chain_updates": upd["chain"]["launches"]["ddpm_chain_bwd"]}
     summary["ddpm_chain_bwd"] = bwd
     launches = {"ddpm_step": sum(step_path.values()),
                 "ddpm_step_bwd": step_upd["launches"]["ddpm_step_bwd"],
                 "ddpm_chain": sum(by_plane.values()),
                 "ddpm_chain_bwd": (tl["ddpm_chain_bwd"]
-                                   + sum(vec_bwd.values())),
+                                   + sum(vec_bwd.values())
+                                   + sum(ops_bwd.values())),
                 "flash_attention": lm["flash_attention_launches"],
                 "ssd_scan": lm["ssd_scan_launches"]}
     for kname, model in (("flash_attention", "qwen2-0.5b"),
@@ -2503,13 +2923,16 @@ def main() -> int:
     emit(train)
     vector = phase_vector(device)
     emit(vector)
+    ops_run = phase_ops(device, card=dev_info["nvidia_smi"])
+    emit(ops_run)
     control = phase_control_plane(device)
     emit(control)
     data = phase_data_plane(device)
     emit(data)
     lm = phase_lm_plane(device)
     emit(lm)
-    emit(kernels_line(check, timing, train, control, data, lm, vector))
+    emit(kernels_line(check, timing, train, control, data, lm, vector,
+                      ops_run))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,9 +13,10 @@ import torch
 
 from repro_torch.core.baselines import GACfg, ga_allocate, rcars_allocate
 from repro_torch.core.d3pg import (D3PGCfg, actor_act, actor_act_stacked,
-                                   amend_actions, d3pg_init, d3pg_learner,
-                                   d3pg_update, d3pg_update_stacked,
-                                   make_actor_schedule, stack_d3pg)
+                                   amend_actions, d3pg_diag_zero, d3pg_init,
+                                   d3pg_learner, d3pg_update,
+                                   d3pg_update_stacked, make_actor_schedule,
+                                   stack_d3pg)
 from repro_torch.core.env import EnvCfg
 from repro_torch.optim import learner_values
 
@@ -27,7 +28,7 @@ _UPDATE_AUX = ("mask", "lr_actor", "lr_critic")
 actor_schedule = functools.lru_cache(maxsize=16)(make_actor_schedule)
 
 
-def d3pg_allocator(d3: D3PGCfg, sched=None) -> Agent:
+def d3pg_allocator(d3: D3PGCfg, sched=None, diag: bool = False) -> Agent:
     """The paper's D3PG allocator (``actor_kind="mlp"`` recovers DDPG).
 
     ``act`` runs the actor's chain (one ``ddpm_chain`` launch), adds
@@ -39,7 +40,9 @@ def d3pg_allocator(d3: D3PGCfg, sched=None) -> Agent:
     learners with learner b's draws from its own generator in ``act``'s /
     ``update``'s order (one stacked ``ddpm_chain`` launch a slot; one
     update's launches for all B).  ``sched`` overrides the actor's
-    schedule (default: derived from ``d3``)."""
+    schedule (default: derived from ``d3``).  ``diag=True`` builds the
+    telemetry variant: the updates return ``d3pg_update(diag=True)``'s
+    diagnostics and ``diag_zero(device)`` their zeros."""
     sched = actor_schedule(d3) if sched is None else sched
     U = d3.action_dim // 2
 
@@ -55,7 +58,7 @@ def d3pg_allocator(d3: D3PGCfg, sched=None) -> Agent:
         return d3pg_update(state, d3, sched, data, generator,
                            mask=batch.get("mask"),
                            lr_a=batch.get("lr_actor"),
-                           lr_c=batch.get("lr_critic"))
+                           lr_c=batch.get("lr_critic"), diag=diag)
 
     def greedy(policy, obs, generator=None, **chain):
         raw = actor_act(policy["actor"], d3, sched, obs.s, generator, **chain)
@@ -77,7 +80,7 @@ def d3pg_allocator(d3: D3PGCfg, sched=None) -> Agent:
         return d3pg_update_stacked(state, d3, sched, data, generators,
                                    mask=batch.get("mask"),
                                    lr_a=batch.get("lr_actor"),
-                                   lr_c=batch.get("lr_critic"))
+                                   lr_c=batch.get("lr_critic"), diag=diag)
 
     return Agent(name="d3pg" if d3.actor_kind == "diffusion" else "ddpg",
                  learns=True, init=lambda g: d3pg_init(d3, g),
@@ -85,7 +88,9 @@ def d3pg_allocator(d3: D3PGCfg, sched=None) -> Agent:
                  export=lambda state: {"actor": state["actor"]},
                  greedy=greedy, act_stacked=act_stacked,
                  update_stacked=update_stacked, stack=stack_d3pg,
-                 learner=d3pg_learner)
+                 learner=d3pg_learner,
+                 diag_zero=((lambda device=None: d3pg_diag_zero(d3, device))
+                            if diag else None))
 
 
 def schrs_allocator(env_cfg: EnvCfg, ga: GACfg) -> Agent:
@@ -127,11 +132,12 @@ ALLOCATORS = ("d3pg", "ddpg", "schrs", "rcars")
 
 
 def make_allocator(kind: str, env_cfg: EnvCfg, d3: D3PGCfg,
-                   ga: GACfg = GACfg()) -> Agent:
+                   ga: GACfg = GACfg(), diag: bool = False) -> Agent:
     """Dispatch an allocator name to its Agent bundle — the only place
-    allocator kinds are branched on (DESIGN.md §12)."""
+    allocator kinds are branched on (DESIGN.md §12).  ``diag`` builds the
+    learned allocators' telemetry variant (no-op for the others)."""
     if kind in ("d3pg", "ddpg"):
-        return d3pg_allocator(d3)
+        return d3pg_allocator(d3, diag=diag)
     if kind == "schrs":
         return schrs_allocator(env_cfg, ga)
     if kind == "rcars":

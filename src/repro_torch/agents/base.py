@@ -66,9 +66,11 @@ class Agent(NamedTuple):
     ``update(state, batch, generator) -> (state, metrics)``;
     ``export(state)`` the inference-only slice (empty for non-learned
     agents); ``greedy(policy, obs, generator)`` inference from an exported
-    policy at zero exploration; ``step_frame`` the per-frame state advance
-    of a stateful cacher (``None`` for every ported agent; the classical
-    cachers that need it wait for ROADMAP A.7).
+    policy at zero exploration; ``step_frame(state, reqs, models, mask)``
+    the per-frame state advance of a stateful cacher, the classical
+    cachers (``None`` for every other agent); ``diag_zero()`` the zero
+    diagnostics of an update built with ``diag=True`` (the telemetry
+    variant, ``None`` otherwise).
 
     B cells: ``batch_act(state, obs, generator, step)`` acts for B cells'
     batched obs in lockstep from one generator (``None``: ``act`` does);
@@ -93,6 +95,7 @@ class Agent(NamedTuple):
     update_stacked: Optional[Callable] = None
     stack: Optional[Callable] = None
     learner: Optional[Callable] = None
+    diag_zero: Optional[Callable] = None
 
 
 def no_update(state, batch, generator):

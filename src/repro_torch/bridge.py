@@ -1,8 +1,12 @@
-"""Carry weights and states across from the JAX package, through numpy.
+"""Carry weights and states across between the JAX package and the port,
+through numpy.
 
 The caller converts a JAX tree with ``jax.tree.map(np.asarray, tree)``;
-these functions take those numpy trees (or anything with the same
-attributes) and build the port's objects.  The bridge never imports JAX.
+the ``*_from_numpy`` functions take those numpy trees (or anything with
+the same attributes) and build the port's objects.  The way back,
+``train_state_to_numpy`` and ``policy_to_numpy``, gives the JAX package's
+layout as numpy arrays, which is what the port's checkpoints hold, so
+either package reads the other's.  The bridge never imports JAX.
 """
 from __future__ import annotations
 
@@ -53,16 +57,16 @@ def policy_from_numpy(tree, device=None) -> dict:
     """An ``export_policy`` tree -> the port's policy dict.
 
     ``{"actor": {"layers": [...]}}`` (D3PG denoiser) or ``{"actor":
-    [...]}`` (DDPG MLP), and ``{"ddqn": {"q": [...]}}``.  A classical
-    cacher's ``{"cache": ...}`` raises until that cacher is ported."""
-    if "cache" in tree:
-        raise NotImplementedError("classical cachers are not ported yet "
-                                  "(ROADMAP queue A, item 7)")
+    [...]}`` (DDPG MLP), ``{"ddqn": {"q": [...]}}``, and a classical
+    cacher's ``{"cache": {"rho": (M,)}}``."""
     pol = {}
     if "actor" in tree:
         pol["actor"] = actor_from_numpy(tree["actor"], device)
     if "ddqn" in tree:
         pol["ddqn"] = {"q": mlp_from_numpy(tree["ddqn"]["q"], device)}
+    if "cache" in tree:
+        pol["cache"] = {"rho": _f32(tree["cache"]["rho"],
+                                    resolve_device(device))}
     return pol
 
 
@@ -102,6 +106,13 @@ def _learners_from_numpy(d3, dq, dev) -> dict:
                  "opt": _adam_state_from_numpy(dq["opt"], mlp)}}
 
 
+def _cache_from_numpy(cache, dev) -> dict:
+    """The classical cachers' state: bool masks and int32 clocks as they
+    are, (M,) leaves or (B, M) for B cells."""
+    return {k: torch.tensor(np.asarray(v), device=dev)
+            for k, v in cache.items()}
+
+
 def _cell(tree, b: int):
     """Entry b of every leaf of a numpy tree (dicts, lists, NamedTuples)."""
     if isinstance(tree, dict):
@@ -125,15 +136,16 @@ def train_state_from_numpy(ts, cfg, device=None) -> dict:
     ``ptr``/``size`` lists) and, for ``cfg.policy == "independent"``,
     stacked learners (every leaf of the JAX agents carries the B axis);
     a shared state's agents are unbatched in both.  The classical cachers'
-    ``cache`` state is not carried (ROADMAP A.7)."""
+    ``cache`` state is carried as it is (per cell in either mode)."""
     dev = resolve_device(device)
+    cache = _cache_from_numpy(ts["cache"], dev)
     if np.asarray(ts["models"].a1).ndim == 1:
         return {"models": models_from_numpy(ts["models"], dev),
                 **_learners_from_numpy(ts["d3pg"], ts["ddqn"], dev),
                 "ebuf": _buffer_from_numpy(ts["ebuf"], dev),
-                "fbuf": _buffer_from_numpy(ts["fbuf"], dev), "cache": {}}
+                "fbuf": _buffer_from_numpy(ts["fbuf"], dev), "cache": cache}
     B = np.asarray(ts["models"].a1).shape[0]
-    out = {"models": models_from_numpy(ts["models"], dev), "cache": {}}
+    out = {"models": models_from_numpy(ts["models"], dev), "cache": cache}
     for k in ("ebuf", "fbuf"):
         out[k] = stack_buffers(_buffer_from_numpy(_cell(ts[k], b), dev)
                                for b in range(B))
@@ -146,6 +158,111 @@ def train_state_from_numpy(ts, cfg, device=None) -> dict:
         out["d3pg"] = stack_d3pg(c["d3pg"] for c in cells)
         out["ddqn"] = stack_ddqn(c["ddqn"] for c in cells)
     return out
+
+
+# -- the way back: the port's objects in the JAX package's layout ------------
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _sorted(tree):
+    """Dicts with their keys sorted, at every level, as ``jax.tree.map``
+    rebuilds them."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_sorted(v) for v in tree]
+    return tree
+
+
+def _layers(ws, bs) -> list:
+    return [{"b": _np(b), "w": _np(w)} for w, b in zip(ws, bs)]
+
+
+def _net_tree(module, leaves=None):
+    """An MLP or denoiser (single or stacked) as the JAX tree: ``[{"b",
+    "w"}, ...]``, or ``{"layers": [...]}`` for a denoiser.  ``leaves``
+    (Adam moments, in the module's parameter order: every ``w``, then
+    every ``b``) replace the parameters."""
+    net = getattr(module, "net", module)
+    n = len(net.w)
+    ps = list(net.w) + list(net.b) if leaves is None else list(leaves)
+    tree = _layers(ps[:n], ps[n:])
+    return {"layers": tree} if net is not module else tree
+
+
+def _adam_to_numpy(opt, module, lead: tuple) -> dict:
+    """An Adam state as the JAX ``adam_init`` tree: ``mu`` and ``nu`` in
+    the module's tree, ``step`` int32 (B learners: (B,), all equal)."""
+    return {"mu": _net_tree(module, opt["mu"]),
+            "nu": _net_tree(module, opt["nu"]),
+            "step": np.full(lead, opt["step"], np.int32)}
+
+
+def _learners_to_numpy(d3: dict, dq: dict, lead: tuple) -> dict:
+    return {
+        "d3pg": {k: _net_tree(d3[k])
+                 for k in ("actor", "actor_t", "critic", "critic_t")}
+        | {"opt_a": _adam_to_numpy(d3["opt_a"], d3["actor"], lead),
+           "opt_c": _adam_to_numpy(d3["opt_c"], d3["critic"], lead)},
+        "ddqn": {"q": _net_tree(dq["q"]),
+                 "q_target": _net_tree(dq["q_target"]),
+                 "opt": _adam_to_numpy(dq["opt"], dq["q"], lead)}}
+
+
+def _buffer_to_numpy(buf: dict) -> dict:
+    """A replay buffer in the JAX layout: integer leaves int32, ``ptr`` and
+    ``size`` int32 (lists of B cells' -> (B,))."""
+    def leaf(t):
+        a = _np(t)
+        return a.astype(np.int32) if a.dtype.kind in "iu" else a
+    return {"data": {k: leaf(v) for k, v in buf["data"].items()},
+            "ptr": np.asarray(buf["ptr"], np.int32),
+            "size": np.asarray(buf["size"], np.int32)}
+
+
+def models_to_numpy(mp: ModelParams) -> ModelParams:
+    return ModelParams(*(_np(getattr(mp, f)) for f in ModelParams._fields))
+
+
+def train_state_to_numpy(ts: dict, cfg=None) -> dict:
+    """The port's train state (``t2drl_init``'s or ``t2drl_init_batch``'s
+    layout) -> the JAX package's, numpy leaves: the keys, leaf order,
+    shapes and dtypes of ``jax.tree.map(np.asarray, t2drl_init(...))``
+    (or of its batched state), ``ModelParams`` a NamedTuple of arrays.
+    Integer buffer leaves become int32, Adam steps and the buffers'
+    ``ptr``/``size`` int32 arrays; stacked learners (a batched
+    independent state) lead every agent leaf with (B,), a shared state's
+    agents are unbatched.  The layout follows the state; ``cfg``, when
+    given, must agree with it (``cfg.policy``)."""
+    stacked = isinstance(ts["ddqn"]["q"], StackedMLP)
+    batched = ts["models"].a1.dim() == 2
+    if cfg is not None and batched and stacked != (cfg.policy != "shared"):
+        kind = "stacked" if stacked else "shared"
+        raise ValueError(f"a batched state with {kind} learners under "
+                         f"policy={cfg.policy!r}")
+    lead = (ts["models"].a1.shape[0],) if stacked else ()
+    out = {"models": models_to_numpy(ts["models"]),
+           **_learners_to_numpy(ts["d3pg"], ts["ddqn"], lead),
+           "ebuf": _buffer_to_numpy(ts["ebuf"]),
+           "fbuf": _buffer_to_numpy(ts["fbuf"]),
+           "cache": {k: _np(v) for k, v in ts["cache"].items()}}
+    return _sorted(out)
+
+
+def policy_to_numpy(policy: dict) -> dict:
+    """An ``export_policy`` dict -> the JAX package's policy tree (numpy
+    leaves): ``{"actor": ...}``, ``{"ddqn": {"q": ...}}``, ``{"cache":
+    {"rho": ...}}``."""
+    out = {}
+    if "actor" in policy:
+        out["actor"] = _net_tree(policy["actor"])
+    if "ddqn" in policy:
+        out["ddqn"] = {"q": _net_tree(policy["ddqn"]["q"])}
+    if "cache" in policy:
+        out["cache"] = {"rho": _np(policy["cache"]["rho"])}
+    return _sorted(out)
 
 
 def models_from_numpy(mp, device=None) -> ModelParams:

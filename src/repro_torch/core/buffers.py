@@ -196,7 +196,11 @@ def buffer_add_many_stacked(buf: dict, items: dict) -> dict:
 
 def buffer_occupancy(buf: dict, prefix: str, capacity: int = None) -> dict:
     """``{prefix_size, prefix_fill}``: stored items and fill fraction,
-    as host floats."""
+    as host floats, or lists of B of them for a B-cell buffer (pass its
+    ``capacity``: its leaves lead with the cells)."""
     cap = _capacity(buf) if capacity is None else capacity
+    if isinstance(buf["size"], list):
+        return {prefix + "_size": [float(s) for s in buf["size"]],
+                prefix + "_fill": [s / cap for s in buf["size"]]}
     size = float(buf["size"])
     return {prefix + "_size": size, prefix + "_fill": size / cap}

@@ -12,7 +12,10 @@ under ``torch.no_grad``; the actor's loss in ``d3pg_update`` goes through
 default) one ``ddpm_chain`` launch with its record and one
 ``ddpm_chain_bwd`` launch in the backward, with ``impl="step"`` the eager
 denoiser around L ``ddpm_step`` and L ``ddpm_step_bwd`` launches.  The
-telemetry variant (``diag=True``) waits for ROADMAP A.8.
+telemetry variant (``diag=True``, DESIGN.md §15) adds Q and TD statistics,
+gradient norms and, for the diffusion actor, the target chain's per-step
+denoising magnitudes, read from the record of that chain's one
+``ddpm_chain`` launch: the same launches as without it.
 
 B independent learners (the fused vector-env path, DESIGN.md §13) keep one
 stacked state (``d3pg_init_stacked``: every network a ``StackedMLP`` or
@@ -32,9 +35,12 @@ import torch
 from repro_torch.diffusion import (Denoiser, denoiser_init, make_schedule,
                                    reverse_sample_actions,
                                    reverse_sample_actions_stacked,
+                                   reverse_sample_actions_stacked_stats,
+                                   reverse_sample_actions_stats,
                                    stack_denoisers)
 from repro_torch.optim import (adam_init, adam_learner, adam_update,
-                               adam_update_stacked, learner_values,
+                               adam_update_stacked, global_norm,
+                               global_norm_stacked, learner_values,
                                stack_adam)
 from .networks import (mlp_apply, mlp_apply_stacked, mlp_init,
                        soft_update, stack_mlps)
@@ -149,6 +155,53 @@ def amend_actions(raw, req, rho, U: int, *, b_floor: float = 0.01,
     return b, xi
 
 
+def d3pg_diag_zero(cfg: D3PGCfg, device=None) -> dict:
+    """Zero diagnostics of ``d3pg_update(diag=True)`` (a skipped update's
+    tap), the keys of the reference's ``d3pg_diag_zero``: 0-dim f32, and
+    ``denoise_mag`` (L,) for the diffusion actor only."""
+    z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
+    out = {k: z() for k in ("critic_loss", "actor_loss", "q_mean",
+                            "td_abs_mean", "td_abs_max", "actor_grad_norm",
+                            "critic_grad_norm")}
+    if cfg.actor_kind == "diffusion":
+        out["denoise_mag"] = z(cfg.L)
+    return out
+
+
+def _target_action(actor_t, cfg: D3PGCfg, sched, s1, generator, x_L,
+                   noises, diag: bool, stacked: bool):
+    """The target actor's raw action for ``s1`` (no gradient) and, with
+    ``diag`` and the diffusion actor, ``{"denoise_mag"}`` from its chain's
+    record (the same one ``ddpm_chain`` launch)."""
+    if diag and cfg.actor_kind == "diffusion":
+        if stacked:
+            return reverse_sample_actions_stacked_stats(
+                actor_t, sched, s1, cfg.action_dim, generators=generator,
+                x_L=x_L, noises=noises)
+        return reverse_sample_actions_stats(
+            actor_t, sched, s1, cfg.action_dim, generator=generator,
+            x_L=x_L, noises=noises)
+    act = actor_act_stacked if stacked else actor_act
+    return act(actor_t, cfg, sched, s1, generator, x_L=x_L,
+               noises=noises), {}
+
+
+def _update_diag(y_hat, y, a_grads, c_grads, chain, stacked: bool) -> dict:
+    """The update's diagnostics beyond the losses (per learner, over the
+    minibatch axis, for ``stacked``): Q mean, |TD| mean and max, the
+    actor's and critic's gradient norms, and the target chain's
+    ``denoise_mag``."""
+    td = torch.abs(y_hat - y.detach())
+    axis = dict(dim=-1) if stacked else {}
+    norm = global_norm_stacked if stacked else global_norm
+    return {"q_mean": torch.mean(y.detach(), **axis),
+            "td_abs_mean": torch.mean(td, **axis),
+            "td_abs_max": torch.amax(td, **axis) if stacked
+            else torch.amax(td),
+            "actor_grad_norm": norm(a_grads),
+            "critic_grad_norm": norm(c_grads), **chain}
+
+
 def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
                 generator: torch.Generator = None, *, lr_a=None, lr_c=None,
                 mask=None, diag: bool = False, draws=None,
@@ -178,11 +231,12 @@ def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
     picks the policy chain's kernels, as the reference's ``impl`` does; the
     target chain runs through ``ddpm_chain`` either way.  Parameters,
     targets and Adam states are updated in place and returned in a new
-    dict, with ``{"critic_loss", "actor_loss"}`` (0-dim tensors)."""
-    if diag:
-        raise NotImplementedError(
-            "d3pg_update(diag=True): the update's telemetry is not ported "
-            "yet (ROADMAP queue A, item 8)")
+    dict, with ``{"critic_loss", "actor_loss"}`` (0-dim tensors).
+    ``diag=True`` adds the reference's diagnostics (``d3pg_diag_zero``'s
+    keys): ``q_mean``, ``td_abs_mean``, ``td_abs_max``, the actor's and
+    critic's gradient norms and, for the diffusion actor, ``denoise_mag``
+    (L,), the target chain's per-step mean |eps_hat| from the record of its
+    ``ddpm_chain`` launch; the launches are the same."""
     lr_a = cfg.lr_actor if lr_a is None else lr_a
     lr_c = cfg.lr_critic if lr_c is None else lr_c
     U = cfg.action_dim // 2
@@ -195,8 +249,9 @@ def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
 
     # --- critic (24) ---------------------------------------------------------
     with torch.no_grad():
-        raw1 = actor_act(params["actor_t"], cfg, sched, batch["s1"],
-                         generator, x_L=x_t, noises=n_t)
+        raw1, chain = _target_action(params["actor_t"], cfg, sched,
+                                     batch["s1"], generator, x_t, n_t, diag,
+                                     stacked=False)
         a1 = amend(raw1, batch["req1"], batch["rho1"])
         y_hat = batch["r"] + cfg.omega * critic_q(params["critic_t"],
                                                   batch["s1"], a1)
@@ -221,8 +276,11 @@ def d3pg_update(params: dict, cfg: D3PGCfg, sched, batch: dict,
            "critic_t": soft_update(params["critic_t"], critic,
                                    cfg.eps_target),
            "opt_a": opt_a, "opt_c": opt_c}
-    return new, {"critic_loss": c_loss.detach(),
-                 "actor_loss": a_loss.detach()}
+    metrics = {"critic_loss": c_loss.detach(), "actor_loss": a_loss.detach()}
+    if diag:
+        metrics.update(_update_diag(y_hat, y, a_grads, c_grads, chain,
+                                    stacked=False))
+    return new, metrics
 
 
 # -- B stacked learners (DESIGN.md §13) ---------------------------------------
@@ -308,11 +366,8 @@ def d3pg_update_stacked(params: dict, cfg: D3PGCfg, sched, batch: dict,
     one stacked ``ddpm_chain`` launch each (the policy chain with its
     record) and one stacked ``ddpm_chain_bwd``, whatever B.  Returns the
     state (updated in place) and ``{"critic_loss": (B,), "actor_loss":
-    (B,)}``."""
-    if diag:
-        raise NotImplementedError(
-            "d3pg_update_stacked(diag=True): the update's telemetry is not "
-            "ported yet (ROADMAP queue A, item 8)")
+    (B,)}``; ``diag=True`` adds ``d3pg_update``'s diagnostics per learner,
+    (B,) and ``denoise_mag`` (B, L), from the same launches."""
     B, dev = batch["s"].shape[0], batch["s"].device
     lr_a = learner_values(cfg.lr_actor if lr_a is None else lr_a, B, dev)
     lr_c = learner_values(cfg.lr_critic if lr_c is None else lr_c, B, dev)
@@ -326,8 +381,9 @@ def d3pg_update_stacked(params: dict, cfg: D3PGCfg, sched, batch: dict,
         return torch.cat(amend_actions(raw, req, rho, U, mask=m), dim=-1)
 
     with torch.no_grad():
-        raw1 = actor_act_stacked(params["actor_t"], cfg, sched, batch["s1"],
-                                 generators, x_L=x_t, noises=n_t)
+        raw1, chain = _target_action(params["actor_t"], cfg, sched,
+                                     batch["s1"], generators, x_t, n_t, diag,
+                                     stacked=True)
         a1 = amend(raw1, batch["req1"], batch["rho1"])
         y_hat = batch["r"] + cfg.omega * critic_q_stacked(
             params["critic_t"], batch["s1"], a1)
@@ -352,5 +408,8 @@ def d3pg_update_stacked(params: dict, cfg: D3PGCfg, sched, batch: dict,
            "critic_t": soft_update(params["critic_t"], critic,
                                    cfg.eps_target),
            "opt_a": opt_a, "opt_c": opt_c}
-    return new, {"critic_loss": c_loss.detach(),
-                 "actor_loss": a_loss.detach()}
+    metrics = {"critic_loss": c_loss.detach(), "actor_loss": a_loss.detach()}
+    if diag:
+        metrics.update(_update_diag(y_hat, y, a_grads, c_grads, chain,
+                                    stacked=True))
+    return new, metrics

@@ -4,8 +4,9 @@ port of ``repro.core.ddqn``.
 State: the popularity state gamma(t) (one-hot over J).  Action: an integer
 in [0, 2^M) decoded to the caching vector rho by the paper's floor/mod
 amender; ``feasible_amender`` additionally evicts the largest cached model
-until the storage constraint (11d) holds.  The telemetry variant of
-``ddqn_update`` (``diag=True``) waits for ROADMAP A.8.  B stacked learners
+until the storage constraint (11d) holds.  ``ddqn_update(diag=True)``
+(telemetry, DESIGN.md §15) returns the reference's per-update
+diagnostics in place of the loss.  B stacked learners
 (``ddqn_init_stacked``: the Q-nets as ``StackedMLP``) act and update in one
 pass (``ddqn_act_stacked``, ``ddqn_update_stacked``).
 """
@@ -17,7 +18,8 @@ import dataclasses
 import torch
 
 from repro_torch.optim import (adam_init, adam_learner, adam_update,
-                               adam_update_stacked, learner_values,
+                               adam_update_stacked, global_norm,
+                               global_norm_stacked, learner_values,
                                stack_adam)
 from .networks import (mlp_apply, mlp_apply_stacked, mlp_init, soft_update,
                        stack_mlps)
@@ -95,21 +97,56 @@ def amend_caching(a_int, cfg: DDQNCfg, c=None, C: float = 0.0):
     return rho
 
 
+def ddqn_diag_zero(cfg: DDQNCfg, device=None) -> dict:
+    """Zero diagnostics of ``ddqn_update(diag=True)`` (a skipped update's
+    tap), the keys of the reference's ``ddqn_diag_zero``."""
+    return {k: torch.zeros((), device=device)
+            for k in ("loss", "td_abs_mean", "td_abs_max", "q_mean",
+                      "q_max", "target_div", "grad_norm")}
+
+
+def _diff_norm(a, b, stacked: bool):
+    """||a - b|| over two modules' parameters (per learner if stacked)."""
+    diffs = [x.detach() - y.detach()
+             for x, y in zip(a.parameters(), b.parameters())]
+    return global_norm_stacked(diffs) if stacked else global_norm(diffs)
+
+
+def _ddqn_diag(loss, y_hat, y, qv, grads, params, stacked: bool) -> dict:
+    """The reference's DDQN diagnostics after the step (per learner for
+    ``stacked``): |TD| mean and max, Q mean and max over the minibatch's
+    Q values, the online/target divergence and the gradient norm."""
+    td = torch.abs(y_hat - y.detach())
+    qv = qv.detach()
+    if stacked:
+        flat = qv.reshape(qv.shape[0], -1)
+        q = {"td_abs_mean": torch.mean(td, dim=-1),
+             "td_abs_max": torch.amax(td, dim=-1),
+             "q_mean": torch.mean(flat, dim=-1),
+             "q_max": torch.amax(flat, dim=-1),
+             "grad_norm": global_norm_stacked(grads)}
+    else:
+        q = {"td_abs_mean": torch.mean(td), "td_abs_max": torch.amax(td),
+             "q_mean": torch.mean(qv), "q_max": torch.amax(qv),
+             "grad_norm": global_norm(grads)}
+    return {"loss": loss.detach(), **q,
+            "target_div": _diff_norm(params["q"], params["q_target"],
+                                     stacked)}
+
+
 def ddqn_update(params: dict, cfg: DDQNCfg, batch: dict, *, lr=None,
                 diag: bool = False):
     """One minibatch step of Eq. (33); batch: {s, a, r, s1}, with s/s1
     the gamma indices and a the integer actions.  The online net selects
     the next action and the target net evaluates it (33a); ``y_hat`` is
     detached; then Adam and the soft update of the target at ``kappa``,
-    in place.  Returns ``(params, loss)``."""
-    if diag:
-        raise NotImplementedError(
-            "ddqn_update(diag=True): the update's telemetry is not ported "
-            "yet (ROADMAP queue A, item 8)")
+    in place.  Returns ``(params, loss)``, or with ``diag=True``
+    ``(params, metrics)``, the keys of ``ddqn_diag_zero``."""
     lr = cfg.lr if lr is None else lr
     q = params["q"]
     s, s1 = _obs(batch["s"], cfg), _obs(batch["s1"], cfg)
-    y = torch.gather(mlp_apply(q, s), 1, batch["a"][:, None])[:, 0]
+    qv = mlp_apply(q, s)
+    y = torch.gather(qv, 1, batch["a"][:, None])[:, 0]
     with torch.no_grad():
         a1 = torch.argmax(mlp_apply(q, s1), dim=1)
         q1 = mlp_apply(params["q_target"], s1)
@@ -117,9 +154,11 @@ def ddqn_update(params: dict, cfg: DDQNCfg, batch: dict, *, lr=None,
     loss = torch.mean(0.5 * (y_hat - y) ** 2)
     grads = torch.autograd.grad(loss, list(q.parameters()))
     _, opt, _ = adam_update(grads, params["opt"], q, lr=lr)
-    return {"q": q, "q_target": soft_update(params["q_target"], q,
-                                            cfg.kappa),
-            "opt": opt}, loss.detach()
+    new = {"q": q, "q_target": soft_update(params["q_target"], q,
+                                           cfg.kappa), "opt": opt}
+    if diag:
+        return new, _ddqn_diag(loss, y_hat, y, qv, grads, new, False)
+    return new, loss.detach()
 
 
 
@@ -176,17 +215,14 @@ def ddqn_update_stacked(params: dict, cfg: DDQNCfg, batch: dict, *, lr=None,
                         diag: bool = False):
     """``ddqn_update`` for B stacked learners in one pass: batch leaves
     (B, n); ``lr`` a number or per-learner sequence/(B,) tensor.  Returns
-    the state (updated in place) and the per-learner losses (B,)."""
-    if diag:
-        raise NotImplementedError(
-            "ddqn_update_stacked(diag=True): the update's telemetry is not "
-            "ported yet (ROADMAP queue A, item 8)")
+    the state (updated in place) and the per-learner losses (B,); with
+    ``diag=True`` the per-learner (B,) diagnostics instead."""
     q = params["q"]
     B = batch["s"].shape[0]
     lr = learner_values(cfg.lr if lr is None else lr, B, batch["r"].device)
     s, s1 = _obs(batch["s"], cfg), _obs(batch["s1"], cfg)
-    y = torch.gather(mlp_apply_stacked(q, s), -1,
-                     batch["a"][..., None])[..., 0]
+    qv = mlp_apply_stacked(q, s)
+    y = torch.gather(qv, -1, batch["a"][..., None])[..., 0]
     with torch.no_grad():
         a1 = torch.argmax(mlp_apply_stacked(q, s1), dim=-1)
         q1 = mlp_apply_stacked(params["q_target"], s1)
@@ -195,6 +231,8 @@ def ddqn_update_stacked(params: dict, cfg: DDQNCfg, batch: dict, *, lr=None,
     loss = torch.mean(0.5 * (y_hat - y) ** 2, dim=-1)             # (B,)
     grads = torch.autograd.grad(loss.sum(), list(q.parameters()))
     _, opt, _ = adam_update_stacked(grads, params["opt"], q, lr=lr)
-    return {"q": q, "q_target": soft_update(params["q_target"], q,
-                                            cfg.kappa),
-            "opt": opt}, loss.detach()
+    new = {"q": q, "q_target": soft_update(params["q_target"], q,
+                                           cfg.kappa), "opt": opt}
+    if diag:
+        return new, _ddqn_diag(loss, y_hat, y, qv, grads, new, True)
+    return new, loss.detach()

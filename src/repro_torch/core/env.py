@@ -1,5 +1,5 @@
 """AIGC edge-service environment (paper Secs. 3-4), port of
-``repro.core.env`` on its unmodulated (``mod=None``) path.
+``repro.core.env``, with its scenario modulation (DESIGN.md §9).
 
 State evolves on two timescales: per frame, the popularity skewness gamma
 (a J-state Markov chain); per slot, the user-location distribution lambda
@@ -19,6 +19,18 @@ both: at each draw site cell b draws from its own generator exactly what
 a single cell draws there (so cell b's stream is that of a single-cell
 run on its generator), the draws are stacked, and the arithmetic runs
 once over all B cells.
+
+Scenario modulation: a ``ScenarioSchedule`` holds precomputed tensors
+indexed by frame t (``P_gamma``) or by the global slot g = t*K + k (the
+per-slot leaves), and the env takes one ``SlotMod`` slice per draw
+(``schedule_slot_mod``, ``schedule_frame_P``).  ``mod=None`` draws exactly
+what the unmodulated env draws, in the same order.  With a mod, the
+channel gains and input sizes are scaled after they are drawn and each
+user's request is redirected to the flash-crowd model with probability
+``burst_prob``: that redirect is one more uniform draw of (U,) per cell,
+the last of a refresh (after the input sizes in ``_refresh_slot``, after
+the requests in ``env_advance_frame``), drawn whether or not the slot is
+in a burst.  Leaves may carry a leading (B,) cell axis.
 """
 from __future__ import annotations
 
@@ -192,6 +204,70 @@ def _take(table, idx):
                         -1, idx)
 
 
+# -- scenario modulation (DESIGN.md §9) --------------------------------------
+
+class SlotMod(NamedTuple):
+    """One slot's modulation, consumed at draw time: 0-dim leaves, or (B,)
+    for B cells.  ``h_scale`` multiplies the drawn channel gains,
+    ``din_scale`` the drawn input sizes; each user's request is
+    redirected to ``burst_model`` with probability ``burst_prob``."""
+    h_scale: torch.Tensor
+    din_scale: torch.Tensor
+    burst_prob: torch.Tensor
+    burst_model: torch.Tensor
+
+
+class ScenarioSchedule(NamedTuple):
+    """One episode of modulation, precomputed; a leading (B,) axis on every
+    leaf gives per-cell schedules."""
+    P_gamma: torch.Tensor      # (T, J, J) frame-indexed popularity chains
+    h_scale: torch.Tensor      # (T*K,) per-slot channel-gain multiplier
+    din_scale: torch.Tensor    # (T*K,) per-slot input-size multiplier
+    burst_prob: torch.Tensor   # (T*K,) per-slot flash-crowd redirect prob
+    burst_model: torch.Tensor  # () int64 flash-crowd model id
+
+
+def schedule_slot_mod(sched, g: int):
+    """The ``SlotMod`` of global slot ``g`` (clamped to the horizon), from
+    an unbatched or a cell-batched schedule; ``None`` passes through."""
+    if sched is None:
+        return None
+    g = min(g, sched.h_scale.shape[-1] - 1)
+    return SlotMod(h_scale=sched.h_scale[..., g],
+                   din_scale=sched.din_scale[..., g],
+                   burst_prob=sched.burst_prob[..., g],
+                   burst_model=sched.burst_model)
+
+
+def schedule_frame_P(sched, t: int):
+    """Frame t's popularity transition matrix, (J, J) or (B, J, J); None
+    without a schedule (the configured ``P_gamma``)."""
+    if sched is None:
+        return None
+    return sched.P_gamma[..., t, :, :]
+
+
+def _per_cell(x):
+    """A 0-dim or per-cell (B,) value against a (..., U) axis."""
+    return x[..., None] if x.dim() else x
+
+
+def burst_redirect(req, u, mod: SlotMod):
+    """The flash-crowd redirect of the reference's ``_apply_burst`` with its
+    uniform draws ``u`` (the shape of ``req``) given: a user whose draw
+    is below ``burst_prob`` requests ``burst_model``."""
+    redirect = u < _per_cell(mod.burst_prob)
+    return torch.where(redirect, _per_cell(mod.burst_model).to(req.dtype),
+                       req)
+
+
+def _apply_burst(gen, req, mod: SlotMod):
+    """``burst_redirect`` with one uniform draw of (U,) per cell."""
+    u = _each(gen, lambda g: torch.rand(req.shape[-1], generator=g,
+                                        device=g.device))
+    return burst_redirect(req, u, mod)
+
+
 # -- sampling -----------------------------------------------------------------
 
 def _sample_positions(gen, lambda_idx, cfg: EnvCfg):
@@ -244,15 +320,22 @@ def _sample_requests(gen, gamma_idx, cfg: EnvCfg):
 
 
 def _sample_markov(gen, idx, log_P):
-    """Next state of the chain with log-transition matrix ``log_P`` from
-    each cell's state ``idx`` (one draw per cell)."""
-    return _categorical(gen, log_P[idx], idx.shape[len(_lead(gen)):])
+    """Next state of the chain with log-transition matrix ``log_P`` (one
+    (J, J) for every cell, or (B, J, J), cell b's own) from each cell's
+    state ``idx`` (one draw per cell)."""
+    if log_P.dim() == 3:
+        rows = log_P[torch.arange(idx.shape[0], device=idx.device), idx]
+    else:
+        rows = log_P[idx]
+    return _categorical(gen, rows, idx.shape[len(_lead(gen)):])
 
 
-def _refresh_slot(state: EnvState, cfg: EnvCfg,
-                  new_lambda: bool = True) -> EnvState:
+def _refresh_slot(state: EnvState, cfg: EnvCfg, new_lambda: bool = True,
+                  mod: SlotMod = None) -> EnvState:
     """Draw per-slot randomness: location state, positions, fading,
-    requests, input sizes."""
+    requests, input sizes; ``mod`` (the SlotMod of the slot being drawn)
+    then scales the gains and input sizes and redirects a burst fraction
+    of the requests, with one more draw."""
     g = state.generator
     lam = (_sample_markov(g, state.lambda_idx,
                           _consts(cfg, state.h.device)["log_P_lambda"])
@@ -261,13 +344,18 @@ def _refresh_slot(state: EnvState, cfg: EnvCfg,
     h = _channel_gain(g, pos, cfg)
     req = _sample_requests(g, state.gamma_idx, cfg)
     d_in = _uniform(g, (cfg.U,), cfg.d_in_mb[0], cfg.d_in_mb[1]) * MB_BITS
+    if mod is not None:
+        h = h * _per_cell(mod.h_scale)
+        d_in = d_in * _per_cell(mod.din_scale)
+        req = _apply_burst(g, req, mod)
     return state._replace(lambda_idx=lam, pos=pos, h=h, req=req, d_in=d_in)
 
 
-def env_reset(generator, cfg: EnvCfg) -> EnvState:
+def env_reset(generator, cfg: EnvCfg, mod: SlotMod = None) -> EnvState:
     """Initial env state (slot 0 randomness included), on the generator's
     device; the state keeps ``generator`` and advances it.  A tuple of B
-    generators resets B cells (``env_reset_batch``)."""
+    generators resets B cells (``env_reset_batch``).  ``mod``: the first
+    slot's modulation (``None``: unmodulated)."""
     gen = generator
     dev = (gen[0] if isinstance(gen, tuple) else gen).device
     lead = _lead(gen)
@@ -285,13 +373,14 @@ def env_reset(generator, cfg: EnvCfg) -> EnvState:
         d_in=torch.ones(lead + (cfg.U,), device=dev) * cfg.d_in_mb[0]
         * MB_BITS,
         rho=torch.zeros(lead + (cfg.M,), device=dev))
-    return _refresh_slot(st, cfg, new_lambda=False)
+    return _refresh_slot(st, cfg, new_lambda=False, mod=mod)
 
 
-def env_reset_batch(generators, cfg: EnvCfg) -> EnvState:
+def env_reset_batch(generators, cfg: EnvCfg, mod: SlotMod = None
+                    ) -> EnvState:
     """Reset B cells, cell b from ``generators[b]`` (cell b's state is what
-    ``env_reset`` gives from that generator)."""
-    return env_reset(tuple(generators), cfg)
+    ``env_reset`` gives from that generator); ``mod`` with (B,) leaves."""
+    return env_reset(tuple(generators), cfg, mod)
 
 
 def env_cell(state: EnvState, b: int) -> EnvState:
@@ -307,14 +396,21 @@ def make_user_masks(cfg: EnvCfg, counts) -> torch.Tensor:
             < counts[:, None]).to(torch.float32)
 
 
-def env_advance_frame(state: EnvState, cfg: EnvCfg) -> EnvState:
+def env_advance_frame(state: EnvState, cfg: EnvCfg, P_gamma=None,
+                      mod: SlotMod = None) -> EnvState:
     """Frame boundary: popularity Markov transition; the first slot's
     requests are re-drawn under the new skewness.  The frame's caching
-    decision is applied afterwards with ``env_set_cache``."""
+    decision is applied afterwards with ``env_set_cache``.  ``P_gamma``
+    ((J, J), or (B, J, J)) replaces the configured transition matrix for
+    this frame; ``mod`` redirects a burst fraction of the re-drawn
+    requests."""
     g = state.generator
-    gamma = _sample_markov(g, state.gamma_idx,
-                           _consts(cfg, state.h.device)["log_P_gamma"])
+    log_P = (_consts(cfg, state.h.device)["log_P_gamma"] if P_gamma is None
+             else torch.log(P_gamma + 1e-12))
+    gamma = _sample_markov(g, state.gamma_idx, log_P)
     req = _sample_requests(g, gamma, cfg)
+    if mod is not None:
+        req = _apply_burst(g, req, mod)
     return state._replace(gamma_idx=gamma, req=req)
 
 
@@ -322,10 +418,11 @@ def env_set_cache(state: EnvState, rho) -> EnvState:
     return state._replace(rho=rho)
 
 
-def env_new_frame(state: EnvState, cfg: EnvCfg, rho) -> EnvState:
+def env_new_frame(state: EnvState, cfg: EnvCfg, rho, P_gamma=None,
+                  mod: SlotMod = None) -> EnvState:
     """Frame boundary: popularity Markov transition + new caching
-    decision."""
-    return env_set_cache(env_advance_frame(state, cfg), rho)
+    decision, with ``env_advance_frame``'s schedule slices."""
+    return env_set_cache(env_advance_frame(state, cfg, P_gamma, mod), rho)
 
 
 # -- slot dynamics (Eqs. 2-10, 23) --------------------------------------------
@@ -389,12 +486,13 @@ def slot_reward(metrics, cfg: EnvCfg, mask=None):
 
 
 def env_step_slot(state: EnvState, cfg: EnvCfg, models: ModelParams, b, xi,
-                  mask=None):
+                  mask=None, mod: SlotMod = None):
     """Execute allocation (b, xi) on the current slot, then draw the next
-    slot's randomness.  Returns (next state, scalar reward, metrics)."""
+    slot's randomness, modulated by ``mod`` (the next slot's SlotMod).
+    Returns (next state, scalar reward, metrics)."""
     metrics = slot_metrics(state, cfg, models, b, xi)
     r = slot_reward(metrics, cfg, mask)
-    return _refresh_slot(state, cfg), r, metrics
+    return _refresh_slot(state, cfg, mod=mod), r, metrics
 
 
 # -- observation (Eq. 21) -----------------------------------------------------

@@ -11,8 +11,18 @@ DESIGN.md §12); ``_agents`` is the one place method names are dispatched:
   SCHRS             allocator="schrs", cacher="static"
   RCARS             allocator="rcars", cacher="random"
 
-The classical cachers (ROADMAP A.7), scenario schedules and telemetry
-(A.8) raise ``NotImplementedError``, naming their items.
+plus the classical cache-hierarchy baselines (DESIGN.md §14): cacher in
+{"lru", "lfu", "lru-ghost", "arc"}, stateful non-learned cachers whose
+state machine lives in the train state's ``"cache"`` slot and replays
+each frame's requests after the frame (``Agent.step_frame``; one batched
+replay serves all B cells of the vector-env cores), with any allocator.
+
+Scenario schedules (DESIGN.md §9, ``repro_torch.scenarios``) reach the
+env through ``mods=``: each draw takes its slot's ``SlotMod`` and each
+frame its ``P_gamma``.  Telemetry (DESIGN.md §15): ``cfg.obs`` adds the
+updates' diagnostics (``diag/...``) and the replay occupancy to the
+history, and a ``writer`` (``repro_torch.obs.MetricWriter``) receives the
+run's manifest, ``train_chunk`` and ``eval`` records.
 
 Vector-env training (DESIGN.md §6, §13) runs B cells, each with its own
 model zoo, replay buffers and Markov chains, and optional per-cell user
@@ -59,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -66,17 +77,23 @@ import torch
 
 from repro_torch.agents.base import FrameObs, SlotObs, cell_of, vmap_agent
 from repro_torch.device import make_generator, resolve_device
+from repro_torch.obs.taps import (ObsCfg, broadcast_diag, combine_updates,
+                                  reduce_update_diag)
+from repro_torch.obs.writer import progress_line
 from .baselines import GACfg
 from .buffers import (buffer_add, buffer_add_batch, buffer_add_many,
                       buffer_add_many_batch, buffer_add_many_stacked,
-                      buffer_cell, buffer_init, buffer_sample,
+                      buffer_cell, buffer_init, buffer_occupancy,
+                      buffer_sample,
                       buffer_sample_batch, buffer_sample_stacked,
                       set_buffer_cell, stack_buffers)
+from .cache_policies import cache_state_init
 from .d3pg import D3PGCfg, d3pg_init, d3pg_learner, stack_d3pg
 from .ddqn import DDQNCfg, ddqn_init, ddqn_learner, stack_ddqn
-from .env import (EnvCfg, EnvState, ModelParams, env_advance_frame,
-                  env_reset, env_reset_batch, env_set_cache, env_step_slot,
-                  make_models, make_user_masks, masked_mean, observe,
+from .env import (EnvCfg, EnvState, ModelParams, ScenarioSchedule,
+                  env_advance_frame, env_reset, env_reset_batch,
+                  env_set_cache, env_step_slot, make_models, make_user_masks,
+                  masked_mean, observe, schedule_frame_P, schedule_slot_mod,
                   stack_models)
 
 STAT_KEYS = ("episode_reward", "mean_reward", "hit_ratio", "utility",
@@ -84,24 +101,14 @@ STAT_KEYS = ("episode_reward", "mean_reward", "hit_ratio", "utility",
 
 
 @dataclasses.dataclass(frozen=True)
-class ObsCfg:
-    """Telemetry switches of the JAX ``T2DRLCfg.obs``.  The port's
-    telemetry waits for ROADMAP A.8: ``enabled=True`` raises in
-    ``train_t2drl``."""
-    enabled: bool = False
-    learner: bool = True
-    replay: bool = True
-
-
-@dataclasses.dataclass(frozen=True)
 class T2DRLCfg:
     """Static configuration of the two-timescale loop; the fields of the
     JAX ``T2DRLCfg``.  ``policy`` ("independent" | "shared") and
     ``independent_impl`` ("fused" | "vmap") select the vector-env mode;
-    ``ga`` configures SCHRS."""
+    ``ga`` configures SCHRS; ``obs`` the telemetry (``ObsCfg``)."""
     env: EnvCfg = EnvCfg()
     allocator: str = "d3pg"     # d3pg | ddpg | schrs | rcars
-    cacher: str = "ddqn"        # ddqn | static | random
+    cacher: str = "ddqn"        # ddqn | static | random | a classical one
     policy: str = "independent"  # vector-env mode: independent | shared
     independent_impl: str = "fused"  # B>1 independent learners: fused | vmap
     episodes: int = 500
@@ -142,17 +149,19 @@ def _agents(cfg: T2DRLCfg):
     from repro_torch.agents.cachers import make_cacher
     if cfg.updates_per_slot < 1:
         raise ValueError("updates_per_slot must be >= 1")
-    return (make_allocator(cfg.allocator, cfg.env, cfg.d3pg_cfg(), cfg.ga),
-            make_cacher(cfg.cacher, cfg.ddqn_cfg(), cfg.env))
+    diag = cfg.obs.learner_on
+    return (make_allocator(cfg.allocator, cfg.env, cfg.d3pg_cfg(), cfg.ga,
+                           diag=diag),
+            make_cacher(cfg.cacher, cfg.ddqn_cfg(), cfg.env, diag=diag))
 
 
 def t2drl_init(generator: torch.Generator, cfg: T2DRLCfg) -> dict:
     """Fresh train state on the generator's device, in the JAX layout:
     ``{"models", "d3pg", "ddqn", "ebuf", "fbuf", "cache"}`` whatever the
     method (non-learned methods never read their learner slots).
-    ``"cache"`` is the classical cachers' state machine, an empty
-    placeholder until they are ported (ROADMAP A.7).  Draws: the model
-    zoo, then the DDQN, then the D3PG networks."""
+    ``"cache"`` is the classical cachers' state machine
+    (``cache_state_init``), which draws nothing.  Draws: the model zoo,
+    then the DDQN, then the D3PG networks."""
     env = cfg.env
     d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
     dev = generator.device
@@ -168,7 +177,8 @@ def t2drl_init(generator: torch.Generator, cfg: T2DRLCfg) -> dict:
     frame_item = {"s": i64(()), "a": i64(()), "r": f32(()), "s1": i64(())}
     return {"models": models, "d3pg": d3pg, "ddqn": ddqn,
             "ebuf": buffer_init(d3.buffer, slot_item),
-            "fbuf": buffer_init(dq.buffer, frame_item), "cache": {}}
+            "fbuf": buffer_init(dq.buffer, frame_item),
+            "cache": cache_state_init(M, dev)}
 
 
 def cell_generators(seed: int, num_envs: int, device=None) -> list:
@@ -189,8 +199,9 @@ def cell_generators(seed: int, num_envs: int, device=None) -> list:
 def t2drl_init_batch(generators, cfg: T2DRLCfg, *,
                      share_models: bool = False) -> dict:
     """Train state for B = ``len(generators)`` cells: cell b's
-    ``t2drl_init`` from ``generators[b]``, stacked.  Models and replay
-    buffers always carry the cell axis; with ``cfg.policy ==
+    ``t2drl_init`` from ``generators[b]``, stacked.  Models, replay
+    buffers and the cache state always carry the cell axis (the cache is
+    per cell in shared mode too); with ``cfg.policy ==
     "independent"`` the agents are stacked too (B learners), while
     ``"shared"`` keeps cell 0's agents, one learner for all cells.
     ``share_models=True`` gives every cell cell 0's model zoo."""
@@ -205,7 +216,8 @@ def t2drl_init_batch(generators, cfg: T2DRLCfg, *,
         zoos = [zoos[0]] * len(cells)
     ts = {"models": stack_models(zoos),
           "ebuf": stack_buffers(c["ebuf"] for c in cells),
-          "fbuf": stack_buffers(c["fbuf"] for c in cells), "cache": {}}
+          "fbuf": stack_buffers(c["fbuf"] for c in cells),
+          "cache": _stack_cache([c["cache"] for c in cells])}
     if cfg.policy == "shared":
         ts.update(d3pg=cells[0]["d3pg"], ddqn=cells[0]["ddqn"])
     else:
@@ -214,18 +226,24 @@ def t2drl_init_batch(generators, cfg: T2DRLCfg, *,
     return ts
 
 
+def _stack_cache(cells: list) -> dict:
+    return {k: torch.stack([c[k] for c in cells]) for k in cells[0]}
+
+
 def cell_state(ts: dict, cfg: T2DRLCfg, b: int) -> dict:
     """Cell b of a batched train state as a single-cell state whose
     tensors are views of the batch's: what an episode on it writes in
     place lands in the batch (take the buffers' ``ptr``/``size`` and the
     Adam steps back with ``_take_back``).  Shared agents are the batch's
-    own."""
+    own.  The cache state's access functions return new tensors, so an
+    episode's final cache comes back in its returned state."""
     shared = cfg.policy == "shared"
     return {"models": cell_of(ts["models"], b),
             "d3pg": ts["d3pg"] if shared else d3pg_learner(ts["d3pg"], b),
             "ddqn": ts["ddqn"] if shared else ddqn_learner(ts["ddqn"], b),
             "ebuf": buffer_cell(ts["ebuf"], b),
-            "fbuf": buffer_cell(ts["fbuf"], b), "cache": {}}
+            "fbuf": buffer_cell(ts["fbuf"], b),
+            "cache": cell_of(ts["cache"], b)}
 
 
 def _take_back(ts: dict, b: int, cell: dict) -> None:
@@ -316,15 +334,21 @@ def _update_aux(step: dict, mask=None) -> dict:
 
 
 def _slot_updates(alloc, cfg: T2DRLCfg, state, generator, step: dict,
-                  sample, mask=None):
+                  sample, mask=None, tap: bool = False):
     """``updates_per_slot`` sample-and-update steps of the allocator, each
     on its own minibatch ``sample(generator)``.  ``generator`` is one
-    generator, or the B learners' (the stacked agent)."""
+    generator, or the B learners' (the stacked agent).  ``tap=True``
+    (telemetry) returns ``(state, metrics)``, the updates' diagnostics
+    combined over the slot's updates."""
+    ms = []
     for _ in range(cfg.updates_per_slot):
         batch = sample(generator)
-        state, _ = alloc.update(state, {**batch, **_update_aux(step, mask)},
+        state, m = alloc.update(state, {**batch, **_update_aux(step, mask)},
                                 generator)
-    return state
+        ms.append(m)
+    if not tap:
+        return state
+    return state, (ms[0] if len(ms) == 1 else combine_updates(ms))
 
 
 # -- the episode ------------------------------------------------------------------
@@ -368,45 +392,118 @@ def _stack_items(items: list, dim: int = 0) -> dict:
             for k in items[0]}
 
 
+class _Tap:
+    """One tapped update stream of an episode (telemetry): each gated
+    update site adds the update's metrics, or ``zero`` where the gate
+    stayed shut, with its 0/1 ``did`` flag (a host bool: the gates are
+    host counters); ``reduce`` gives the reference's ``diag/...``
+    entries."""
+
+    def __init__(self, zero: dict):
+        self.zero, self.ms, self.did = zero, [], []
+
+    def add(self, m, did: bool) -> None:
+        self.ms.append(m if did else self.zero)
+        self.did.append(float(did))
+
+    def reduce(self, prefix: str) -> dict:
+        dev = next(iter(self.zero.values())).device
+        if not self.ms:                  # no update site (one frame)
+            return {**{prefix + k: v for k, v in self.zero.items()},
+                    prefix + "updates": torch.zeros((), device=dev)}
+        stacked = {k: torch.stack([m[k] for m in self.ms])
+                   for k in self.zero}
+        did = torch.tensor(self.did, dtype=torch.float32, device=dev)
+        return reduce_update_diag(stacked, did, prefix=prefix)
+
+
+def _telemetry(stats: dict, cfg: T2DRLCfg, taps: dict, ebuf, fbuf,
+               train: bool, B: Optional[int] = None,
+               shared: bool = False) -> dict:
+    """The episode's telemetry added to its stats: the taps' ``diag/``
+    (allocator) and ``diag/ddqn_`` (cacher) reductions and, with
+    ``cfg.obs.replay``, the replay occupancy.  For B cells every diag
+    entry leads with the (B,) cell axis: the shared learner's are
+    broadcast, the stacked learners' already carry it but for the update
+    counts."""
+    diag = {}
+    for prefix, tap in taps.items():
+        if tap is not None:
+            diag.update(tap.reduce(prefix))
+    if B is not None:
+        diag = {k: (v.expand((B,) + tuple(v.shape))
+                    if shared or v.dim() == 0 else v)
+                for k, v in diag.items()}
+    stats.update(diag)
+    if train and cfg.obs.replay_on:
+        occ = {**buffer_occupancy(ebuf, "ebuf", cfg.d3pg_cfg().buffer),
+               **buffer_occupancy(fbuf, "fbuf", cfg.ddqn_cfg().buffer)}
+        stats.update({"diag/" + k: v for k, v in occ.items()})
+    return stats
+
+
+def _taps(alloc, cacher, train: bool, dev, B: Optional[int] = None) -> dict:
+    """The episode's update taps: the allocator's and the cacher's where
+    they were built with ``diag`` (``cfg.obs.learner``) and the episode
+    trains; zeros stacked to B learners for the fused core."""
+    def tap(agent):
+        if not train or agent.diag_zero is None:
+            return None
+        zero = agent.diag_zero(dev)
+        return _Tap(zero if B is None else broadcast_diag(zero, B))
+    return {"diag/": tap(alloc), "diag/ddqn_": tap(cacher)}
+
+
 def _episode_core(ts: dict, cfg: T2DRLCfg, generator: torch.Generator,
-                  step: dict, *, train: bool = True, mask=None):
+                  step: dict, *, train: bool = True, mask=None, mods=None):
     """One episode of Algorithm 1 for a single cell, with the reference's
     semantics (module docstring).  ``step`` holds the episode's schedule
     values (``eps``, ``sigma``, optional ``lr_*``) as host floats;
-    ``mask`` an optional (U,) active-user mask.  ``train=False`` acts
-    only: no replay write, no update.  Learned state, buffers included, is
-    updated in place.  Returns ``(ts, stats)``, the eight stats as 0-dim
-    device tensors (no host read inside the episode; the update gates read
-    host counters only)."""
+    ``mask`` an optional (U,) active-user mask; ``mods`` an optional
+    unbatched ``ScenarioSchedule`` whose slices reach the env at every
+    draw.  ``train=False`` acts only: no replay write, no update.  Learned
+    state, buffers included, is updated in place; a classical cacher's
+    state advances once a frame on the frame's requests
+    (``step_frame``) and comes back in the returned state.  Returns ``(ts,
+    stats)``, the eight stats as 0-dim device tensors, plus the telemetry
+    of ``cfg.obs`` (no host read inside the episode; the update gates
+    read host counters only)."""
     ec = cfg.env
     d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
     alloc, cacher = _agents(cfg)
+    stateful = cacher.step_frame is not None
     models: ModelParams = ts["models"]
     alloc_state, cacher_state = ts["d3pg"], ts["ddqn"]
+    cache = ts["cache"]
     ebuf, fbuf = ts["ebuf"], ts["fbuf"]
     cap_e = d3.buffer
-    env = env_reset(generator, ec)
+    taps = _taps(alloc, cacher, train, models.c.device)
+    env = env_reset(generator, ec, schedule_slot_mod(mods, 0))
     cols = {k: [] for k in _SLOT_COLS}
     gammas, a_ints, r_frames, storage_viols = [], [], [], []
 
     def sample(g):
         return buffer_sample(ebuf, g, d3.batch)
 
-    for _ in range(ec.T):
-        env = env_advance_frame(env, ec)
+    for t in range(ec.T):
+        env = env_advance_frame(env, ec, schedule_frame_P(mods, t),
+                                schedule_slot_mod(mods, t * ec.K))
         gamma_t = env.gamma_idx
-        a_int, rho = cacher.act(cacher_state, FrameObs(gamma_t, models),
-                                generator, step)
+        a_int, rho = cacher.act(cache if stateful else cacher_state,
+                                FrameObs(gamma_t, models), generator, step)
         env = env_set_cache(env, rho)
         size0 = ebuf["size"]
-        items, frame_r = [], []
+        items, frame_r, reqs = [], [], []
         s = observe(env, ec, models, mask) if alloc.learns else None
         for k in range(ec.K):
             b, xi = alloc.act(alloc_state, SlotObs(s, env, models, mask),
                               generator, step)
-            env1, r, m = env_step_slot(env, ec, models, b, xi, mask)
+            env1, r, m = env_step_slot(
+                env, ec, models, b, xi, mask,
+                schedule_slot_mod(mods, t * ec.K + k + 1))
             frame_r.append(r)
             _record_slot(cols, ec, r, m, mask)
+            reqs.append(env.req)
             if alloc.learns:
                 s1 = observe(env1, ec, models, mask)
                 items.append({"s": s, "a": torch.cat([b, xi]), "r": r,
@@ -414,15 +511,23 @@ def _episode_core(ts: dict, cfg: T2DRLCfg, generator: torch.Generator,
                               "req1": env1.req, "rho1": env1.rho})
                 # transitions stored so far = frame-start size + slot
                 # count (the write itself is batched at frame end)
-                if (train and min(size0 + k + 1, cap_e) > cfg.warmup
-                        and size0 > 0):
-                    alloc_state = _slot_updates(alloc, cfg, alloc_state,
-                                                generator, step, sample,
-                                                mask)
+                gate = (train and min(size0 + k + 1, cap_e) > cfg.warmup
+                        and size0 > 0)
+                metrics = None
+                if gate:
+                    out = _slot_updates(alloc, cfg, alloc_state, generator,
+                                        step, sample, mask,
+                                        tap=taps["diag/"] is not None)
+                    alloc_state, metrics = (out if taps["diag/"]
+                                            else (out, None))
+                if taps["diag/"] is not None:
+                    taps["diag/"].add(metrics, gate)
                 s = s1
             env = env1
         if alloc.learns and train:
             ebuf = buffer_add_many(ebuf, _stack_items(items))
+        if stateful:
+            cache = cacher.step_frame(cache, torch.stack(reqs), models, mask)
         # frame reward (32): mean slot reward minus the storage penalty
         # (erratum-corrected sign, DESIGN.md §8)
         storage_viol = _storage_viol(rho, models, ec)
@@ -437,14 +542,19 @@ def _episode_core(ts: dict, cfg: T2DRLCfg, generator: torch.Generator,
         for t in range(ec.T - 1):
             fbuf = buffer_add(fbuf, {"s": gammas[t], "a": a_ints[t],
                                      "r": r_frames[t], "s1": gammas[t + 1]})
-            if fbuf["size"] > dq.batch:
+            gate = fbuf["size"] > dq.batch
+            metrics = None
+            if gate:
                 batch = buffer_sample(fbuf, generator, dq.batch)
-                cacher_state, _ = cacher.update(cacher_state, batch,
-                                                generator)
+                cacher_state, metrics = cacher.update(cacher_state, batch,
+                                                      generator)
+            if taps["diag/ddqn_"] is not None:
+                taps["diag/ddqn_"].add(metrics, gate)
 
     ts = {"models": models, "d3pg": alloc_state, "ddqn": cacher_state,
-          "ebuf": ebuf, "fbuf": fbuf, "cache": ts["cache"]}
-    return ts, _episode_stats(cols, storage_viols)
+          "ebuf": ebuf, "fbuf": fbuf, "cache": cache}
+    return ts, _telemetry(_episode_stats(cols, storage_viols), cfg, taps,
+                          ebuf, fbuf, train)
 
 
 def _pool(batch: dict) -> dict:
@@ -453,7 +563,7 @@ def _pool(batch: dict) -> dict:
 
 
 def _episode_core_shared(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
-                         train: bool = True, masks=None):
+                         train: bool = True, masks=None, mods=None):
     """One episode of B cells in lockstep feeding their own replay buffers
     and ONE shared learner (the reference's ``_episode_core_shared``): the
     learner acts for all cells at once (``batch_act``, else the
@@ -462,19 +572,25 @@ def _episode_core_shared(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
     likewise, ``dq.batch // B`` per cell), so its cost per step does not
     grow with B.  Cell b's env draws from ``generators[b]``; the learner's
     actions, minibatches and chains from the driver generator, cell 0's.
-    ``masks``: optional (B, U).  Returns ``(ts, stats)`` with (B,)
-    stats."""
+    ``masks``: optional (B, U); ``mods``: a ``ScenarioSchedule`` with
+    (B,)-leading leaves.  A classical cacher's state is per cell, (B, M),
+    and one batched replay a frame advances all B.  Returns ``(ts,
+    stats)`` with (B,) stats; the shared learner's telemetry is broadcast
+    to (B,)."""
     ec = cfg.env
     d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
     alloc, cacher = _agents(cfg)
+    stateful = cacher.step_frame is not None
     act = alloc.batch_act or alloc.act
     cact = cacher.batch_act or cacher.act
     models: ModelParams = ts["models"]
     alloc_state, cacher_state = ts["d3pg"], ts["ddqn"]
+    cache = ts["cache"]
     ebuf, fbuf = ts["ebuf"], ts["fbuf"]
     cap_e, B = d3.buffer, len(generators)
+    taps = _taps(alloc, cacher, train, models.c.device)
     driver = generators[0]
-    env = env_reset_batch(generators, ec)
+    env = env_reset_batch(generators, ec, schedule_slot_mod(mods, 0))
     n_slot, n_frame = max(1, d3.batch // B), max(1, dq.batch // B)
     row_masks = (None if masks is None
                  else masks.repeat_interleave(n_slot, dim=0))
@@ -484,21 +600,25 @@ def _episode_core_shared(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
     def sample(g):
         return _pool(buffer_sample_batch(ebuf, g, n_slot))
 
-    for _ in range(ec.T):
-        env = env_advance_frame(env, ec)
+    for t in range(ec.T):
+        env = env_advance_frame(env, ec, schedule_frame_P(mods, t),
+                                schedule_slot_mod(mods, t * ec.K))
         gamma_t = env.gamma_idx
-        a_int, rho = cact(cacher_state, FrameObs(gamma_t, models), driver,
-                          step)
+        a_int, rho = cact(cache if stateful else cacher_state,
+                          FrameObs(gamma_t, models), driver, step)
         env = env_set_cache(env, rho)
         size0 = list(ebuf["size"])
-        items, frame_r = [], []
+        items, frame_r, reqs = [], [], []
         s = observe(env, ec, models, masks) if alloc.learns else None
         for k in range(ec.K):
             b, xi = act(alloc_state, SlotObs(s, env, models, masks), driver,
                         step)
-            env1, r, m = env_step_slot(env, ec, models, b, xi, masks)
+            env1, r, m = env_step_slot(
+                env, ec, models, b, xi, masks,
+                schedule_slot_mod(mods, t * ec.K + k + 1))
             frame_r.append(r)
             _record_slot(cols, ec, r, m, masks)
+            reqs.append(env.req)
             if alloc.learns:
                 s1 = observe(env1, ec, models, masks)
                 items.append({"s": s, "a": torch.cat([b, xi], dim=-1),
@@ -506,14 +626,23 @@ def _episode_core_shared(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
                               "rho": env.rho, "req1": env1.req,
                               "rho1": env1.rho})
                 stored = sum(min(sz + k + 1, cap_e) for sz in size0)
-                if train and stored > cfg.warmup and min(size0) > 0:
-                    alloc_state = _slot_updates(alloc, cfg, alloc_state,
-                                                driver, step, sample,
-                                                row_masks)
+                gate = train and stored > cfg.warmup and min(size0) > 0
+                metrics = None
+                if gate:
+                    out = _slot_updates(alloc, cfg, alloc_state, driver,
+                                        step, sample, row_masks,
+                                        tap=taps["diag/"] is not None)
+                    alloc_state, metrics = (out if taps["diag/"]
+                                            else (out, None))
+                if taps["diag/"] is not None:
+                    taps["diag/"].add(metrics, gate)
                 s = s1
             env = env1
         if alloc.learns and train:
             ebuf = buffer_add_many_batch(ebuf, _stack_items(items, dim=1))
+        if stateful:
+            cache = cacher.step_frame(cache, torch.stack(reqs, dim=1),
+                                      models, masks)
         storage_viol = _storage_viol(rho, models, ec)
         r_frames.append(torch.mean(torch.stack(frame_r), dim=0)
                         - storage_viol * ec.Xi)
@@ -526,13 +655,19 @@ def _episode_core_shared(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
             fbuf = buffer_add_batch(fbuf, {"s": gammas[t], "a": a_ints[t],
                                            "r": r_frames[t],
                                            "s1": gammas[t + 1]})
-            if sum(fbuf["size"]) > dq.batch:
+            gate = sum(fbuf["size"]) > dq.batch
+            metrics = None
+            if gate:
                 batch = _pool(buffer_sample_batch(fbuf, driver, n_frame))
-                cacher_state, _ = cacher.update(cacher_state, batch, driver)
+                cacher_state, metrics = cacher.update(cacher_state, batch,
+                                                      driver)
+            if taps["diag/ddqn_"] is not None:
+                taps["diag/ddqn_"].add(metrics, gate)
 
     ts = {"models": models, "d3pg": alloc_state, "ddqn": cacher_state,
-          "ebuf": ebuf, "fbuf": fbuf, "cache": ts["cache"]}
-    return ts, _episode_stats(cols, storage_viols)
+          "ebuf": ebuf, "fbuf": fbuf, "cache": cache}
+    return ts, _telemetry(_episode_stats(cols, storage_viols), cfg, taps,
+                          ebuf, fbuf, train, B=B, shared=True)
 
 
 def _device_step(step: dict, device) -> dict:
@@ -546,7 +681,7 @@ def _device_step(step: dict, device) -> dict:
 
 
 def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
-                        train: bool = True, masks=None):
+                        train: bool = True, masks=None, mods=None):
     """One episode of B INDEPENDENT learners as one fused program (the
     reference's ``_episode_core_fused``): every learner and buffer leaf
     carries the (B,) axis, each slot's B actions are one stacked chain
@@ -565,41 +700,50 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
     ``sigma``, ``lr_actor``, ``lr_critic``, plus ``lr_ddqn`` (the DDQN's
     rate) and ``shape_hit`` (adds ``shape_hit * mean(hit)`` to the stored
     slot rewards and the frame reward; the stats stay unshaped).
-    ``masks``: optional (B, U).  Returns ``(ts, stats)`` with (B,)
-    stats."""
+    ``masks``: optional (B, U); ``mods``: a ``ScenarioSchedule`` with
+    (B,)-leading leaves.  A classical cacher's (B, M) state advances in
+    one batched replay a frame.  Returns ``(ts, stats)`` with (B,) stats;
+    the stacked updates' telemetry per learner, (B,) and (B, L)."""
     ec = cfg.env
     d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
     alloc0, cacher0 = _agents(cfg)
     alloc = vmap_agent(alloc0, impl="fused")
     cacher = vmap_agent(cacher0, impl="fused")
+    stateful = cacher0.step_frame is not None
     models: ModelParams = ts["models"]
     alloc_state, cacher_state = ts["d3pg"], ts["ddqn"]
+    cache = ts["cache"]
     ebuf, fbuf = ts["ebuf"], ts["fbuf"]
-    cap_e = d3.buffer
+    cap_e, B = d3.buffer, len(generators)
+    taps = _taps(alloc0, cacher0, train, models.c.device, B)
     step = _device_step(step, models.c.device)
     shape_hit = step.get("shape_hit")
-    env = env_reset_batch(generators, ec)
+    env = env_reset_batch(generators, ec, schedule_slot_mod(mods, 0))
     cols = {k: [] for k in _SLOT_COLS}
     gammas, a_ints, r_frames, storage_viols = [], [], [], []
 
     def sample(gens):
         return buffer_sample_stacked(ebuf, gens, d3.batch)
 
-    for _ in range(ec.T):
-        env = env_advance_frame(env, ec)
+    for t in range(ec.T):
+        env = env_advance_frame(env, ec, schedule_frame_P(mods, t),
+                                schedule_slot_mod(mods, t * ec.K))
         gamma_t = env.gamma_idx
-        a_int, rho = cacher.act(cacher_state, FrameObs(gamma_t, models),
-                                generators, step)
+        a_int, rho = cacher.act(cache if stateful else cacher_state,
+                                FrameObs(gamma_t, models), generators, step)
         env = env_set_cache(env, rho)
         size0 = list(ebuf["size"])
-        items, frame_r = [], []
+        items, frame_r, reqs = [], [], []
         s = observe(env, ec, models, masks) if alloc0.learns else None
         for k in range(ec.K):
             b, xi = alloc.act(alloc_state, SlotObs(s, env, models, masks),
                               generators, step)
-            env1, r, m = env_step_slot(env, ec, models, b, xi, masks)
+            env1, r, m = env_step_slot(
+                env, ec, models, b, xi, masks,
+                schedule_slot_mod(mods, t * ec.K + k + 1))
             frame_r.append(r)
             _record_slot(cols, ec, r, m, masks)
+            reqs.append(env.req)
             if alloc0.learns:
                 s1 = observe(env1, ec, models, masks)
                 r_store = (r if shape_hit is None
@@ -608,15 +752,24 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
                               "r": r_store, "s1": s1, "req": env.req,
                               "rho": env.rho, "req1": env1.req,
                               "rho1": env1.rho})
-                if train and all(min(sz + k + 1, cap_e) > cfg.warmup
-                                 and sz > 0 for sz in size0):
-                    alloc_state = _slot_updates(alloc, cfg, alloc_state,
-                                                generators, step, sample,
-                                                masks)
+                gate = train and all(min(sz + k + 1, cap_e) > cfg.warmup
+                                     and sz > 0 for sz in size0)
+                metrics = None
+                if gate:
+                    out = _slot_updates(alloc, cfg, alloc_state, generators,
+                                        step, sample, masks,
+                                        tap=taps["diag/"] is not None)
+                    alloc_state, metrics = (out if taps["diag/"]
+                                            else (out, None))
+                if taps["diag/"] is not None:
+                    taps["diag/"].add(metrics, gate)
                 s = s1
             env = env1
         if alloc0.learns and train:
             ebuf = buffer_add_many_stacked(ebuf, _stack_items(items, dim=1))
+        if stateful:
+            cache = cacher0.step_frame(cache, torch.stack(reqs, dim=1),
+                                       models, masks)
         storage_viol = _storage_viol(rho, models, ec)
         r_frame = torch.mean(torch.stack(frame_r), dim=0) \
             - storage_viol * ec.Xi
@@ -633,33 +786,48 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
             fbuf = buffer_add_batch(fbuf, {"s": gammas[t], "a": a_ints[t],
                                            "r": r_frames[t],
                                            "s1": gammas[t + 1]})
-            if all(sz > dq.batch for sz in fbuf["size"]):
+            gate = all(sz > dq.batch for sz in fbuf["size"])
+            metrics = None
+            if gate:
                 batch = buffer_sample_stacked(fbuf, generators, dq.batch)
                 if "lr_ddqn" in step:
                     batch["lr"] = step["lr_ddqn"]
-                cacher_state, _ = cacher.update(cacher_state, batch,
-                                                generators)
+                cacher_state, metrics = cacher.update(cacher_state, batch,
+                                                      generators)
+            if taps["diag/ddqn_"] is not None:
+                taps["diag/ddqn_"].add(metrics, gate)
 
     ts = {"models": models, "d3pg": alloc_state, "ddqn": cacher_state,
-          "ebuf": ebuf, "fbuf": fbuf, "cache": ts["cache"]}
-    return ts, _episode_stats(cols, storage_viols)
+          "ebuf": ebuf, "fbuf": fbuf, "cache": cache}
+    return ts, _telemetry(_episode_stats(cols, storage_viols), cfg, taps,
+                          ebuf, fbuf, train, B=B)
 
 
 def _is_per_learner(v) -> bool:
     return isinstance(v, (list, tuple)) or (torch.is_tensor(v) and v.dim())
 
 
+def _stack_cells(values: list):
+    """Per-cell stats -> (B,)-leading: tensors stacked, host values listed."""
+    if torch.is_tensor(values[0]):
+        return torch.stack(values)
+    return list(values)
+
+
 def _episode_batch(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
-                   train: bool = True, masks=None):
+                   train: bool = True, masks=None, mods=None):
     """One episode across B = ``len(generators)`` cells.  ``"shared"``
     runs the shared-learner core; ``"independent"`` the fused core
     (``independent_impl="fused"``, for B > 1 or per-learner step values)
     or the single-cell core on each cell in turn, on views of the batch
-    (``"vmap"``, and B = 1), the fused core's reference.  Returns ``(ts,
-    stats)`` with (B,) device stats."""
+    (``"vmap"``, and B = 1), the fused core's reference.  ``mods``: a
+    ``ScenarioSchedule`` with (B,)-leading leaves.  Returns ``(ts,
+    stats)`` with (B,) device stats; ``ts`` is a new dict (its cache the
+    episode's final one), the argument's learned state and buffers
+    updated in place."""
     if cfg.policy == "shared":
         return _episode_core_shared(ts, cfg, generators, step, train=train,
-                                    masks=masks)
+                                    masks=masks, mods=mods)
     if cfg.independent_impl not in ("fused", "vmap"):
         raise ValueError(
             f"unknown independent_impl {cfg.independent_impl!r}; "
@@ -670,26 +838,38 @@ def _episode_batch(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
                          "independent_impl='fused'")
     if cfg.independent_impl == "fused" and (len(generators) > 1 or pop_step):
         return _episode_core_fused(ts, cfg, generators, step, train=train,
-                                   masks=masks)
+                                   masks=masks, mods=mods)
     cells = [cell_state(ts, cfg, b) for b in range(len(generators))]
-    stats = []
+    stats, caches = [], []
     for b, (cell, g) in enumerate(zip(cells, generators)):
         cell, st = _episode_core(cell, cfg, g, cell_of(step, b),
-                                 train=train, mask=cell_of(masks, b))
+                                 train=train, mask=cell_of(masks, b),
+                                 mods=cell_of(mods, b))
         _take_back(ts, b, cell)
         stats.append(st)
-    return ts, {k: torch.stack([st[k] for st in stats]) for k in stats[0]}
+        caches.append(cell["cache"])
+    return ({**ts, "cache": _stack_cache(caches)},
+            {k: _stack_cells([st[k] for st in stats]) for k in stats[0]})
 
 
-def _stats_to_host(stats: dict) -> Dict[str, float]:
-    """One host read for the eight stats: floats, or lists of B."""
-    return dict(zip(STAT_KEYS,
-                    torch.stack([stats[k] for k in STAT_KEYS]).tolist()))
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue "
-                               f"A, item {item})")
+def _stats_to_host(stats: dict) -> dict:
+    """One host read for an episode's stats: each tensor as a float or
+    (nested) lists (one per cell, and per chain step for
+    ``denoise_mag``); host values (the replay occupancy) as they are."""
+    tensors = [v for v in stats.values() if torch.is_tensor(v)]
+    flat = (torch.cat([v.detach().reshape(-1).to(torch.float32)
+                       for v in tensors]).tolist() if tensors else [])
+    out, i = {}, 0
+    for k, v in stats.items():
+        if torch.is_tensor(v):
+            n = v.numel()
+            out[k] = (flat[i] if v.dim() == 0
+                      else np.asarray(flat[i:i + n]).reshape(
+                          tuple(v.shape)).tolist())
+            i += n
+        else:
+            out[k] = v
+    return out
 
 
 _POP_KEYS = ("eps", "sigma", "lr_actor", "lr_critic", "lr_ddqn", "shape_hit")
@@ -729,51 +909,106 @@ def _validate_pop(pop, cfg: T2DRLCfg, B: int, E: int):
     return out
 
 
+def _broadcast_mods(mods: Optional[ScenarioSchedule], num_envs: int):
+    """An unbatched schedule with a leading (num_envs,) cell axis (views);
+    a per-cell one is checked and passed through, ``None`` too."""
+    if mods is None:
+        return None
+    if mods.h_scale.dim() == 2:
+        if mods.h_scale.shape[0] != num_envs:
+            raise ValueError(
+                f"per-cell schedule was built for {mods.h_scale.shape[0]} "
+                f"cells but num_envs={num_envs}; rebuild with "
+                f"build_scenario(..., num_envs={num_envs})")
+        return mods
+    return ScenarioSchedule(*(x.expand((num_envs,) + tuple(x.shape))
+                              for x in mods))
+
+
 def run_training(ts: dict, cfg: T2DRLCfg, generators, episodes: int,
-                 masks=None, *, train: bool = True, pop=None,
-                 log_every: int = 0, callback=None):
+                 masks=None, mods=None, *, train: bool = True, pop=None,
+                 log_every: int = 0, callback=None, writer=None):
     """``episodes`` batched episodes (``_episode_batch``) of the B cells of
     ``ts`` with their generators, on the episode schedules (and ``pop``'s
-    per-member ones, see ``_validate_pop``).  Returns ``(ts, history)``:
-    per key, a list of episodes of lists of B host floats (one host read
-    per episode).  ``log_every``/``callback`` see the means over cells."""
-    pop = _validate_pop(pop, cfg, len(generators), episodes)
+    per-member ones, see ``_validate_pop``); ``mods`` a scenario schedule
+    (unbatched leaves are broadcast to the B cells) replayed every
+    episode.  Returns ``(ts, history)``: per key, a list of episodes of
+    lists of B host floats (one host read per episode).
+    ``log_every``/``callback`` see the means over cells; ``writer``
+    receives a ``train_chunk`` record per chunk (``_run_episodes``)."""
+    B = len(generators)
+    pop = _validate_pop(pop, cfg, B, episodes)
+    mods = _broadcast_mods(mods, B)
     state = {"ts": ts}
 
     def episode(step):
         state["ts"], stats = _episode_batch(state["ts"], cfg, generators,
-                                            step, train=train, masks=masks)
+                                            step, train=train, masks=masks,
+                                            mods=mods)
         return stats
 
     history = _run_episodes(episode, _training_steps(cfg, episodes, pop),
-                            log_every, callback)
+                            log_every, callback, writer)
     return state["ts"], history
 
 
-def _run_episodes(episode, steps: List[dict], log_every: int, callback):
+def _mean(v) -> float:
+    """Mean of a host value: a float, or every number of nested lists."""
+    return float(np.mean(v)) if isinstance(v, list) else v
+
+
+def _chunk_summary(rows: Dict[str, list]) -> dict:
+    """A chunk of history for its ``train_chunk`` record, as the
+    reference's ``_chunk_summary``: per key the mean over episodes and
+    cells, but ``*denoise_mag`` keeps its chain axis (an L-vector)."""
+    out = {}
+    for k, v in rows.items():
+        a = np.asarray(v, np.float64)
+        if k.endswith("denoise_mag") and a.ndim >= 2:
+            out[k] = a.reshape(-1, a.shape[-1]).mean(axis=0).tolist()
+        else:
+            out[k] = float(a.mean())
+    return out
+
+
+def _run_episodes(episode, steps: List[dict], log_every: int, callback,
+                  writer=None):
     """``episode(step)`` for each episode's schedule values, its stats read
     to the host once; returns the history (per key, a list over
-    episodes).  ``log_every`` prints and ``callback(episode, stats)``
-    receives the stats, means over cells for B cells."""
-    history = {k: [] for k in STAT_KEYS}
+    episodes).  ``log_every`` prints the reference's progress line and
+    ``callback(episode, stats)`` receives the stats, means over cells
+    (and chain steps).  ``writer`` gets a ``train_chunk`` record (episode
+    cursor, wall s, ``_chunk_summary``) after every chunk: ``log_every``
+    episodes (1 with only a callback), else the whole run, as the
+    reference chunks its scan."""
+    history: Dict[str, list] = {}
+    chunk = (log_every or 1) if (log_every or callback) else len(steps)
+    ep0, t0 = 0, time.perf_counter()
     for ep, step in enumerate(steps):
         host = _stats_to_host(episode(step))
         for k, v in host.items():
-            history[k].append(v)
-        shown = {k: (sum(v) / len(v) if isinstance(v, list) else v)
-                 for k, v in host.items()}
+            history.setdefault(k, []).append(v)
+        shown = {k: _mean(v) for k, v in host.items()}
         if log_every and (ep + 1) % log_every == 0:
-            print(f"episode {ep + 1}/{len(steps)} " + " ".join(
-                f"{k}={v:.4g}" for k, v in shown.items()), flush=True)
+            print(progress_line(ep + 1, shown), flush=True)
         if callback is not None:
             callback(ep, shown)
+        if writer is not None and (ep + 1 - ep0 == chunk
+                                   or ep + 1 == len(steps)):
+            writer.write("train_chunk", episode=ep + 1,
+                         episodes=len(steps),
+                         wall_s=time.perf_counter() - t0,
+                         stats=_chunk_summary({k: v[ep0:] for k, v in
+                                               history.items()}))
+            ep0, t0 = ep + 1, time.perf_counter()
     return history
 
 
 def train_t2drl(cfg: T2DRLCfg, *, episodes: Optional[int] = None,
                 num_envs: int = 1, user_counts: Optional[Sequence[int]] = None,
                 share_models: bool = False, log_every: int = 0,
-                callback=None, mods=None, writer=None, device=None):
+                callback=None, mods: Optional[ScenarioSchedule] = None,
+                writer=None, device=None):
     """Train ``num_envs`` edge cells for ``episodes`` episodes (default
     ``cfg.episodes``) on ``resolve_device(device)``: the card unless
     ``device="cpu"`` is passed.
@@ -786,48 +1021,55 @@ def train_t2drl(cfg: T2DRLCfg, *, episodes: Optional[int] = None,
     independent learners (``independent_impl``: "fused" or "vmap") or one
     shared learner (cell 0's init).  ``user_counts`` gives each cell its
     active users (masks); ``share_models`` gives every cell cell 0's zoo.
-    ``log_every`` prints a progress line every N episodes;
-    ``callback(episode, stats)`` runs after each episode with its stats as
-    host floats (means over cells).  ``mods``, ``writer`` and
-    ``cfg.obs.enabled`` (ROADMAP A.8) raise ``NotImplementedError``.
+    ``mods``: a ``ScenarioSchedule`` (``repro_torch.scenarios.
+    build_scenario``) on the same device, unbatched leaves broadcast to
+    every cell, (num_envs,)-leading ones per cell.  ``log_every`` prints a
+    progress line every N episodes; ``callback(episode, stats)`` runs
+    after each episode with its stats as host floats (means over cells).
+    ``writer`` (a ``repro_torch.obs.MetricWriter``): the run's manifest,
+    then a ``train_chunk`` record per chunk.  ``cfg.obs`` adds the
+    telemetry keys (``diag/...``) to the history.
 
     Returns ``(ts, history)``: the final train state (the single-cell
     layout for ``num_envs=1``, B-leading otherwise) and the per-episode
     stats, lists of host floats for ``num_envs=1`` and lists of B-lists,
     (episodes, B), otherwise."""
-    if mods is not None:
-        raise _not_ported("mods (scenario schedules)", 8)
-    if writer is not None or cfg.obs.enabled:
-        raise _not_ported("telemetry (writer, obs.enabled)", 8)
     if num_envs < 1:
         raise ValueError("num_envs must be >= 1")
     if cfg.policy not in ("independent", "shared"):
         raise ValueError(f"unknown policy {cfg.policy!r}; "
                          "expected 'independent' or 'shared'")
     episodes = episodes or cfg.episodes
+    dev = resolve_device(device)
     masks = None
     if user_counts is not None:
         if len(user_counts) != num_envs:
             raise ValueError("user_counts must have one entry per env")
-        masks = make_user_masks(cfg.env, user_counts).to(
-            resolve_device(device))
+        masks = make_user_masks(cfg.env, user_counts).to(dev)
+    if writer is not None:
+        writer.ensure_manifest(cfg, extra={"episodes": int(episodes),
+                                           "num_envs": int(num_envs)},
+                               device=dev)
     if num_envs == 1 and cfg.policy == "independent":
-        generator = make_generator(cfg.seed, device)
+        generator = make_generator(cfg.seed, dev)
         state = {"ts": t2drl_init(generator, cfg)}
         mask = None if masks is None else masks[0]
+        mods1 = (None if mods is None else
+                 cell_of(_broadcast_mods(mods, 1), 0))
 
         def episode(step):
             state["ts"], stats = _episode_core(state["ts"], cfg, generator,
-                                               step, mask=mask)
+                                               step, mask=mask, mods=mods1)
             return stats
 
         history = _run_episodes(episode, _training_steps(cfg, episodes),
-                                log_every, callback)
+                                log_every, callback, writer)
         return state["ts"], history
-    gens = cell_generators(cfg.seed, num_envs, device)
+    gens = cell_generators(cfg.seed, num_envs, dev)
     ts = t2drl_init_batch(gens, cfg, share_models=share_models)
-    ts, history = run_training(ts, cfg, gens, episodes, masks,
-                               log_every=log_every, callback=callback)
+    ts, history = run_training(ts, cfg, gens, episodes, masks, mods,
+                               log_every=log_every, callback=callback,
+                               writer=writer)
     if num_envs == 1:               # the shared learner on one cell
         ts = cell_state(ts, cfg, 0)
         history = {k: [v[0] for v in vs] for k, vs in history.items()}
@@ -843,30 +1085,38 @@ def _is_batched(ts: dict) -> bool:
 def export_policy(ts: dict, cfg: T2DRLCfg, cell: int = 0) -> dict:
     """The inference-only policy of a train state, as each agent exports
     it: ``{"actor": Denoiser|MLP}`` and ``{"ddqn": {"q": MLP}}``, keys only
-    for learned components (empty for RCARS/SCHRS).  The modules are the
-    train state's own, not copies.  For a batched independent state,
-    ``cell`` picks the learner (its modules are views of the stack's); a
-    shared state has one learner and ``cell`` is ignored."""
+    for learned components (empty for RCARS/SCHRS); a classical cacher
+    exports ``{"cache": {"rho": (M,)}}``, the resident set that greedy
+    serving keeps.  The modules are the train state's own, not copies.
+    For a batched state, ``cell`` picks the learner (its modules are views
+    of the stack's; a shared state has one learner) and the cell's cache
+    (per cell in either mode)."""
     alloc, cacher = _agents(cfg)
-    if _is_batched(ts) and cfg.policy != "shared":
-        ts = {"d3pg": d3pg_learner(ts["d3pg"], cell),
-              "ddqn": ddqn_learner(ts["ddqn"], cell)}
+    cache = ts["cache"]
+    if _is_batched(ts):
+        cache = cell_of(cache, cell)
+        if cfg.policy != "shared":
+            ts = {"d3pg": d3pg_learner(ts["d3pg"], cell),
+                  "ddqn": ddqn_learner(ts["ddqn"], cell)}
     pol = {}
     if alloc.learns:
         pol.update(alloc.export(ts["d3pg"]))
     if cacher.learns:
         pol.update(cacher.export(ts["ddqn"]))
+    elif cacher.step_frame is not None:
+        pol.update(cacher.export(cache))
     return pol
 
 
 def policy_init(cfg: T2DRLCfg, seed: int, device=None) -> dict:
     """A fresh inference policy on ``resolve_device(device)``: the
-    ``export_policy`` of the agents' fresh states."""
+    ``export_policy`` of the agents' fresh states (a classical cacher's:
+    the empty cache)."""
     alloc, cacher = _agents(cfg)
     g = make_generator(seed, device)
     pol = {}
     for agent in (alloc, cacher):
-        if agent.learns:
+        if agent.learns or agent.step_frame is not None:
             pol.update(agent.export(agent.init(g)))
     return pol
 
@@ -888,32 +1138,36 @@ def greedy_slot_action(policy, cfg: T2DRLCfg, env: EnvState,
 def greedy_frame_cache(policy, cfg: T2DRLCfg, models: ModelParams,
                        gamma_idx, generator=None):
     """Greedy (eps = 0) per-frame caching vector rho, from the cacher's
-    ``greedy``."""
+    ``greedy`` (a classical cacher serves the exported resident set)."""
     _, cacher = _agents(cfg)
     return cacher.greedy(policy, FrameObs(gamma_idx, models), generator)
 
 
 def greedy_episode(policy, cfg: T2DRLCfg, models: ModelParams,
-                   generator: torch.Generator,
-                   mask=None) -> Dict[str, torch.Tensor]:
+                   generator: torch.Generator, mask=None,
+                   mods=None) -> Dict[str, torch.Tensor]:
     """One greedy episode of Algorithm 1 from an exported policy: T frames
     of K slots, each agent acting through its ``greedy`` (no exploration,
-    no replay, no updates); ``mask`` an optional (U,) active-user mask.
-    Returns the eight episode stats of ``_episode_core`` as 0-dim device
-    tensors (no host read inside the episode)."""
+    no replay, no updates); ``mask`` an optional (U,) active-user mask,
+    ``mods`` an optional unbatched scenario schedule.  Returns the eight
+    episode stats of ``_episode_core`` as 0-dim device tensors (no host
+    read inside the episode)."""
     ec = cfg.env
-    env = env_reset(generator, ec)
+    env = env_reset(generator, ec, schedule_slot_mod(mods, 0))
     cols = {k: [] for k in _SLOT_COLS}
     storage_viols = []
-    for _ in range(ec.T):
-        env = env_advance_frame(env, ec)
+    for t in range(ec.T):
+        env = env_advance_frame(env, ec, schedule_frame_P(mods, t),
+                                schedule_slot_mod(mods, t * ec.K))
         rho = greedy_frame_cache(policy, cfg, models, env.gamma_idx,
                                  generator)
         env = env_set_cache(env, rho)
-        for _ in range(ec.K):
+        for k in range(ec.K):
             b, xi = greedy_slot_action(policy, cfg, env, models, generator,
                                        mask)
-            env, r, m = env_step_slot(env, ec, models, b, xi, mask)
+            env, r, m = env_step_slot(
+                env, ec, models, b, xi, mask,
+                schedule_slot_mod(mods, t * ec.K + k + 1))
             _record_slot(cols, ec, r, m, mask)
         storage_viols.append(_storage_viol(rho, models, ec))
     return _episode_stats(cols, storage_viols)
@@ -921,49 +1175,64 @@ def greedy_episode(policy, cfg: T2DRLCfg, models: ModelParams,
 
 def run_eval(policy, models: ModelParams, cfg: T2DRLCfg, *,
              episodes: int = 10, seed: int = 10_000, device=None,
-             mask=None) -> Dict[str, List[float]]:
+             mask=None, mods=None) -> Dict[str, List[float]]:
     """Greedy evaluation: per-episode stats as lists of host floats (one
-    host read per episode).  ``policy``, ``models`` and the optional (U,)
-    ``mask`` must lie on ``resolve_device(device)``."""
+    host read per episode).  ``policy``, ``models``, the optional (U,)
+    ``mask`` and the optional unbatched schedule ``mods`` must lie on
+    ``resolve_device(device)``."""
     g = make_generator(seed, device)
-    hist = {k: [] for k in STAT_KEYS}
-    for _ in range(episodes):
-        for k, v in _stats_to_host(greedy_episode(policy, cfg, models, g,
-                                                  mask)).items():
-            hist[k].append(v)
-    return hist
+    return _run_episodes(
+        lambda step: greedy_episode(policy, cfg, models, g, mask, mods),
+        [{}] * episodes, 0, None)
 
 
 def run_eval_batch(ts: dict, cfg: T2DRLCfg, *, episodes: int = 10,
-                   seed: int = 10_000, masks=None,
+                   seed: int = 10_000, masks=None, mods=None,
                    device=None) -> Dict[str, list]:
     """Greedy evaluation of a batched train state's B cells in lockstep,
     as the reference's ``run_eval``: each episode is the batched episode
     (``_episode_batch``) at eps = sigma = 0 with no replay write and no
-    update, so ``ts`` is left as it is; cell b draws from
-    ``cell_generators(seed, B)[b]``.  ``masks``: optional (B, U).  Returns
-    per key a list of episodes of lists of B host floats."""
-    gens = cell_generators(seed, ts["models"].a1.shape[0], device)
+    update, so ``ts`` is left as it is (a classical cacher's state
+    advances within each episode from the trained one, as in the
+    reference); cell b draws from ``cell_generators(seed, B)[b]``.
+    ``masks``: optional (B, U); ``mods``: a schedule, broadcast to the B
+    cells if unbatched.  Returns per key a list of episodes of lists of B
+    host floats."""
+    B = ts["models"].a1.shape[0]
+    gens = cell_generators(seed, B, device)
+    mods = _broadcast_mods(mods, B)
     return _run_episodes(
         lambda step: _episode_batch(ts, cfg, gens, step, train=False,
-                                    masks=masks)[1],
+                                    masks=masks, mods=mods)[1],
         [{"eps": 0.0, "sigma": 0.0}] * episodes, 0, None)
 
 
 def eval_t2drl(policy, models: ModelParams, cfg: T2DRLCfg, *,
                episodes: int = 10, seed: int = 10_000, device=None,
-               user_counts: Optional[Sequence[int]] = None
+               user_counts: Optional[Sequence[int]] = None,
+               mods: Optional[ScenarioSchedule] = None, writer=None
                ) -> Dict[str, float]:
     """Greedy evaluation (no exploration, no updates) of one cell from an
     exported policy (``export_policy``) and its model zoo: the eight stats
     of the JAX ``eval_t2drl``, as means over episodes.  ``user_counts``
-    (one entry) masks the cell to its first users."""
+    (one entry) masks the cell to its first users; ``mods`` an unbatched
+    scenario schedule (evaluating under another schedule than training
+    measures out-of-scenario generalisation); ``writer`` receives an
+    ``eval`` record of the means (after the run's manifest)."""
     mask = None
     if user_counts is not None:
         if len(user_counts) != 1:
             raise ValueError("eval_t2drl evaluates one cell: user_counts "
                              "needs one entry")
         mask = make_user_masks(cfg.env, user_counts)[0].to(models.c.device)
+    if mods is not None and mods.h_scale.dim() == 2:
+        mods = cell_of(_broadcast_mods(mods, 1), 0)
     hist = run_eval(policy, models, cfg, episodes=episodes, seed=seed,
-                    device=device, mask=mask)
-    return {k: sum(v) / len(v) for k, v in hist.items()}
+                    device=device, mask=mask, mods=mods)
+    out = {k: sum(v) / len(v) for k, v in hist.items()}
+    if writer is not None:
+        writer.ensure_manifest(cfg, extra={"episodes": int(episodes)},
+                               device=models.c.device)
+        writer.write("eval", metrics=out, episodes=int(episodes),
+                     seed=int(seed))
+    return out

@@ -22,6 +22,12 @@ net's parameters require a gradient, ``impl="chain"`` goes through
 eager denoiser and the L ``ddpm_step`` updates (``ddpm_step_bwd`` in the
 backward), and to ``state`` too.  On the CPU both run their kernels'
 plain versions.
+
+The telemetry variants (``reverse_sample_actions_stats`` and its stacked
+form) run the chain in one ``ddpm_chain`` launch with its record and read
+each step's denoising magnitude mean |eps_hat| from it: eps_hat is the
+net's last layer applied to the last hidden output that the record holds
+for the step.
 """
 from __future__ import annotations
 
@@ -178,3 +184,78 @@ def reverse_sample_actions_stacked(p: StackedDenoiser,
                                 generators=generators, x_L=x_L,
                                 noises=noises, impl=impl)
     return 0.5 * (x0 + 1.0)
+
+
+def _draw(shape, L, generator, device, x_L, noises):
+    if x_L is None:
+        x_L = torch.randn(shape, generator=generator, device=device)
+    if noises is None:
+        noises = torch.randn((L,) + shape, generator=generator,
+                             device=device)
+    return x_L, noises
+
+
+def _denoise_mag(net, rec, lead: tuple):
+    """Per-step mean |eps_hat| from a chain's record ((B,) L, R, W): the
+    last layer on each step's last hidden output, then the mean over the
+    rows and the action axis -> ((B,) L)."""
+    w, b = net.w[-1], net.b[-1]
+    h = rec[..., -w.shape[-2]:]
+    if lead:
+        B = lead[0]
+        eps = torch.bmm(h.reshape(B, -1, h.shape[-1]), w).reshape(
+            h.shape[:-1] + (w.shape[-1],)) + b[:, None, None, :]
+    else:
+        eps = h @ w + b
+    return torch.mean(torch.abs(eps), dim=(-2, -1))
+
+
+@torch.no_grad()
+def reverse_sample_actions_stats(p: Denoiser, sched: DiffusionSchedule,
+                                 state, action_dim: int, *, generator=None,
+                                 x_L=None, noises=None):
+    """``reverse_sample_actions`` with the chain's telemetry, no gradient:
+    ``(actions, {"denoise_mag": (L,)})``, the mean |eps_hat| of each
+    reverse step in chain order (l = L .. 1, noisiest first), from one
+    ``ddpm_chain`` launch with its record.  The same draws as the plain
+    sampler."""
+    L = sched.L
+    shape = state.shape[:-1] + (action_dim,)
+    x_L, noises = _draw(shape, L, generator, state.device, x_L, noises)
+    R = math.prod(shape[:-1])
+    coef, te = chain_tables(sched, p.time_dim, state.device)
+    x0, rec = kops.ddpm_chain(
+        p.net, x_L.reshape(R, action_dim).contiguous(),
+        state.reshape(R, state.shape[-1]).contiguous(),
+        noises.reshape(L, R, action_dim).contiguous(), coef, te,
+        record=True)
+    acts = 0.5 * (torch.tanh(x0.reshape(shape)) + 1.0)
+    return acts, {"denoise_mag": _denoise_mag(p.net, rec, ())}
+
+
+@torch.no_grad()
+def reverse_sample_actions_stacked_stats(p: StackedDenoiser,
+                                         sched: DiffusionSchedule, state,
+                                         action_dim: int, *,
+                                         generators=None, x_L=None,
+                                         noises=None):
+    """The stacked telemetry variant: ``(actions (B, ..., A),
+    {"denoise_mag": (B, L)})`` from one stacked ``ddpm_chain`` launch with
+    its record; learner b's draws as ``reverse_sample_stacked`` makes
+    them."""
+    L, B = sched.L, state.shape[0]
+    shape = state.shape[1:-1] + (action_dim,)
+    dev = state.device
+    if (x_L is None) != (noises is None):
+        raise ValueError("inject both x_L and noises, or neither")
+    if x_L is None:
+        x_L, noises = _draw_stacked(generators, shape, L, dev)
+    R = math.prod(shape[:-1])
+    coef, te = chain_tables(sched, p.time_dim, dev)
+    x0, rec = kops.ddpm_chain(
+        p.net, x_L.reshape(B, R, action_dim).contiguous(),
+        state.reshape(B, R, state.shape[-1]).contiguous(),
+        noises.reshape(B, L, R, action_dim).contiguous(), coef, te,
+        record=True)
+    acts = 0.5 * (torch.tanh(x0.reshape((B,) + shape)) + 1.0)
+    return acts, {"denoise_mag": _denoise_mag(p.net, rec, (B,))}

@@ -9,9 +9,11 @@ into ``build/torch_kernels/lib<name>-<hash>.so`` under the repository root
 
 The hash covers the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded.  ``build_all`` starts one ``nvcc``
-per source at once and waits for all of them.  Libraries are loaded with
-``ctypes``; the wrappers in ``ops.py`` declare each function's argument
-types.  Nothing here runs at import time.
+per source at once and waits for all of them.  Each library built (not
+one found up to date) is one ``repro_torch.obs.profiling.record_compile``
+event, tag ``"nvcc:<name>"``.  Libraries are loaded with ``ctypes``; the
+wrappers in ``ops.py`` declare each function's argument types.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from repro_torch.obs.profiling import record_compile
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -90,6 +94,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, path)      # atomic: concurrent builds agree
+        record_compile(f"nvcc:{name}", path.name)
         out[name] = {"path": str(path), "seconds": seconds, "log": log,
                      "cached": False}
     if failed:

@@ -847,3 +847,122 @@ def test_train_t2drl_fused_two_episodes_on_card(cuda, cpu_streams,
                           user_counts=[4, 3, 2])
     assert np.asarray(h2["hit_ratio"]).shape == (1, 3)
     assert ts2["ebuf"]["data"]["s"].device.type == "cuda"
+
+
+# -- classical cachers, checkpoints and telemetry on the card ---------------------
+
+@pytest.mark.parametrize("kind", ["lru", "lfu", "lru-ghost", "arc"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_cache_replay_on_card_matches_cpu(cuda, kind, B):
+    """Three frames of a classical cacher's replay (one with a quarter of
+    the users masked) on the card against the CPU's, every state leaf
+    bit for bit."""
+    from repro_torch.agents.cachers import classical_cacher
+    from repro_torch.core.cache_policies import cache_state_init
+    from repro_torch.core.env import ModelParams, make_models_batch
+    ec = EnvCfg()
+    agent = classical_cacher(kind, ec)
+    lead = (B,) if B > 1 else ()
+    g = torch.Generator().manual_seed(B)
+    zoo = make_models_batch([g] * B, ec) if B > 1 else make_models(g, ec)
+    reqs = [torch.randint(0, ec.M, lead + (ec.K, ec.U), generator=g)
+            for _ in range(3)]
+    mask = (torch.rand(lead + (ec.U,), generator=g) > 0.25).float()
+    masks = (None, mask, None)
+    st = cache_state_init(ec.M, lead=lead)
+    st_d = {k: v.to(cuda) for k, v in st.items()}
+    zoo_d = ModelParams(*(t.to(cuda) for t in zoo))
+    for r, m in zip(reqs, masks):
+        st = agent.step_frame(st, r, zoo, m)
+        st_d = agent.step_frame(st_d, r.to(cuda), zoo_d,
+                                None if m is None else m.to(cuda))
+        for k in st:
+            assert torch.equal(st_d[k].cpu(), st[k]), k
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A trained state saved from the card and loaded back onto it: every
+    leaf equal and on the card, and the same greedy episode."""
+    from repro_torch.checkpoint import load_train_state, save_train_state
+    from repro_torch.core.t2drl import export_policy, train_t2drl
+    cfg = T2DRLCfg(env=EnvCfg(T=3, K=4), warmup=8, cacher="arc")
+    ts, _ = train_t2drl(cfg, episodes=2, device=cuda)
+    path = str(tmp_path / "ts.ckpt")
+    save_train_state(path, ts, cfg=cfg)
+    got, _ = load_train_state(path, cfg, device=cuda)
+
+    def leaves(t):
+        if isinstance(t, torch.nn.Module):
+            return [p.detach() for p in t.parameters()]
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+    for a, b in zip(leaves(ts), leaves(got), strict=True):
+        if torch.is_tensor(a):
+            assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a == b
+    runs = [run_eval(export_policy(s, cfg), s["models"], cfg, episodes=1,
+                     seed=4, device=cuda) for s in (ts, got)]
+    assert runs[0] == runs[1]
+
+
+def test_update_telemetry_reads_the_chain_record_on_card(cuda):
+    """d3pg_update(diag=True) on the card launches what diag=False does
+    (two ddpm_chain, one ddpm_chain_bwd), never the plain chain, and its
+    denoise_mag equals the per-step mean |eps_hat| of the plain step
+    loop on the same target draws: to 1e-4 relative, since each step's
+    eps_hat rides on the kernel's x of that step, which the chain checks
+    hold to 2e-5 of the plain chain's."""
+    from repro_torch.agents.allocators import actor_schedule
+    from repro_torch.core.buffers import buffer_sample
+    from repro_torch.core.d3pg import d3pg_update
+    from repro_torch.core.t2drl import t2drl_init
+    import copy
+    cfg = T2DRLCfg(env=EnvCfg(), L=5)
+    d3 = cfg.d3pg_cfg()
+    ts = t2drl_init(make_generator(0, cuda), cfg)
+    g = make_generator(1, cuda)
+    batch = {k: torch.randn(64, *v.shape[1:], device=cuda)
+             if v.is_floating_point() else
+             torch.randint(0, 2, (64,) + v.shape[1:], device=cuda)
+             for k, v in ts["ebuf"]["data"].items()}
+    for k in ("rho", "rho1"):
+        batch[k] = (batch[k] > 0).float()
+    A = d3.action_dim
+    x_t = torch.randn(64, A, device=cuda)
+    n_t = torch.randn(d3.L, 64, A, device=cuda)
+    draws = {"target": (x_t, n_t), "policy": (torch.randn_like(x_t),
+                                              torch.randn_like(n_t))}
+    sched = actor_schedule(d3)
+    counts = []
+    for diag in (False, True):
+        state = copy.deepcopy(ts["d3pg"])
+        saved = (ref.ddpm_chain_ref, ref.ddpm_chain_stacked_ref)
+        ref.ddpm_chain_ref = ref.ddpm_chain_stacked_ref = None
+        try:
+            ops.reset_launches()
+            _, m = d3pg_update(state, d3, sched, batch, draws=draws,
+                               diag=diag)
+            torch.cuda.synchronize()
+        finally:
+            ref.ddpm_chain_ref, ref.ddpm_chain_stacked_ref = saved
+        counts.append(dict(ops.LAUNCHES))
+    assert counts[0] == counts[1]
+    assert counts[1]["ddpm_chain"] == 2 and counts[1]["ddpm_chain_bwd"] == 1
+    # the plain step loop's |eps_hat| per step on the same draws
+    p = ts["d3pg"]["actor_t"]
+    from repro_torch.diffusion.sampler import chain_tables
+    coef, te = chain_tables(sched, p.time_dim, cuda)
+    x, mags = x_t, []
+    with torch.no_grad():
+        for i in range(d3.L):
+            l_rev = d3.L - 1 - i
+            eps = p(x, None, batch["s1"], te=te[l_rev])
+            mags.append(eps.abs().mean())
+            x = ref.ddpm_step_ref(x, eps, n_t[i], *coef[l_rev].tolist())
+    want = torch.stack(mags)
+    assert m["denoise_mag"].shape == (d3.L,)
+    assert torch.allclose(m["denoise_mag"], want, rtol=1e-4, atol=0)

@@ -507,3 +507,33 @@ def test_chip_smoke_stacked_checks_run_on_cpu(one_thread):
     assert paths <= {(c["B"], c["R"]) for c in out["cases"]}
     assert all(c["learner_slices_bit_equal"] for c in out["cases"])
     assert out["max_abs_err"] == 0.0 and out["bwd_rel_err"] == 0.0
+
+
+def test_chip_smoke_ops_phase_runs_small_on_cpu(one_thread):
+    """The ops phase (classical cachers, scenarios, checkpoints,
+    telemetry) end to end on the CPU at a tiny size: every check in it
+    holds, its runs' launches are counted by the shapes the kernels line
+    reads, and it names its card (none here)."""
+    from repro_torch.core.env import EnvCfg
+    cs = _chip_smoke()
+    out = cs.phase_ops("cpu", EnvCfg(U=3, M=4, T=4, K=3), B=2, scenario_B=2,
+                       warmup=3)
+    assert out["phase"] == "ops" and out["card"] is None
+    assert set(out["cachers"]) == {"lru", "lfu", "lru-ghost", "arc",
+                                   "arc_fused_B2"}
+    assert set(out["replay"]) == {f"{k}/B{b}" for k in
+                                  ("lru", "lfu", "lru-ghost", "arc")
+                                  for b in (1, 2)}
+    assert set(out["scenarios"]) >= {"paper-default", "diurnal",
+                                     "flash-crowd", "hetero-cells",
+                                     "degraded-channel"}
+    assert out["scenarios"]["hetero-cells"]["cells"] == 2
+    assert out["checkpoint"]["bytes"] > 0
+    assert out["telemetry"]["record_kinds"] == ["manifest", "train_chunk",
+                                                "eval"]
+    by = out["launches_by_shape"]
+    assert by["ddpm_chain"]["control"] > 0 and by["ddpm_chain"]["B2_R1"] > 0
+    assert by["ddpm_chain"]["control_R64+record"] \
+        > by["ddpm_chain"]["control_R64"] > 0
+    assert by["ddpm_chain_bwd"]["train"] == by["ddpm_chain"]["control_R64"] \
+        + out["telemetry"]["diag_updates"]

@@ -139,9 +139,19 @@ def test_eval_t2drl_runs_every_served_method(allocator, cacher):
 
 @pytest.mark.parametrize("allocator,cacher", [("d3pg", "arc"),
                                               ("rcars", "lru")])
-def test_unported_methods_raise_not_implemented(allocator, cacher):
-    cfg = tt2.T2DRLCfg(allocator=allocator, cacher=cacher)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt2.policy_init(cfg, seed=0, device="cpu")
+def test_classical_cacher_methods_train_and_serve(allocator, cacher):
+    """The pairs that raised until the classical cachers were ported train
+    (the cache state advanced on every valid access), export the resident
+    set, and serve it greedily; an unknown allocator still raises."""
+    cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(U=3, M=3, T=2, K=2),
+                       allocator=allocator, cacher=cacher, warmup=2, L=2)
+    ts, hist = tt2.train_t2drl(cfg, episodes=2, device="cpu")
+    assert ts["cache"]["time"].item() == 2 * 2 * 2 * 3
+    pol = tt2.export_policy(ts, cfg)
+    assert torch.equal(pol["cache"]["rho"],
+                       (ts["cache"]["in_t1"] | ts["cache"]["in_t2"]).float())
+    out = tt2.eval_t2drl(pol, ts["models"], cfg, episodes=1, device="cpu")
+    assert all(np.isfinite(v) for v in out.values())
+    assert set(tt2.policy_init(cfg, seed=0, device="cpu")) >= {"cache"}
     with pytest.raises(ValueError):
         tt2.policy_init(tt2.T2DRLCfg(allocator="nope"), 0, device="cpu")

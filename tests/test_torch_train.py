@@ -15,9 +15,11 @@ Tolerances, each with its reason:
   weight by about lr * sign(g), and where |g| sits at rounding noise the
   two frameworks may step in opposite directions, so there the new
   parameters are compared only where |g| > 1e-3 max|g| of their leaf;
-* episode semantics: the methods and the vector-env modes train end to
-  end and unported modes raise (the update gates and the frame reward's
-  sign are held against the JAX package in ``test_torch_train_gates.py``).
+* episode semantics: the methods, the vector-env modes, scenario
+  schedules and telemetry train end to end (the update gates and the
+  frame reward's sign are held against the JAX package in
+  ``test_torch_train_gates.py``; the telemetry's values in
+  ``test_torch_obs.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -246,19 +248,49 @@ def test_amender_is_rounding_noise_where_the_actor_saturates():
     np.testing.assert_allclose(txi.numpy(), np.asarray(jsame), rtol=1e-6)
 
 
-def test_telemetry_and_stacked_updates_are_not_ported_yet():
-    """The updates' telemetry (``diag=True``), single and stacked, waits
-    for ROADMAP A.8; the stacked updates themselves are ported
-    (``test_torch_stacked.py``)."""
-    cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(**SMALL))
-    with pytest.raises(NotImplementedError, match="A, item 8"):
-        td3.d3pg_update({}, cfg.d3pg_cfg(), None, {}, diag=True)
-    with pytest.raises(NotImplementedError, match="A, item 8"):
-        tdq.ddqn_update({}, cfg.ddqn_cfg(), {}, diag=True)
-    with pytest.raises(NotImplementedError, match="A, item 8"):
-        td3.d3pg_update_stacked({}, cfg.d3pg_cfg(), None, {}, diag=True)
-    with pytest.raises(NotImplementedError, match="A, item 8"):
-        tdq.ddqn_update_stacked({}, cfg.ddqn_cfg(), {}, diag=True)
+def test_update_telemetry_gives_the_reference_key_sets():
+    """``diag=True`` on the single and the stacked updates returns the key
+    sets of the reference's ``d3pg_diag_zero`` / ``ddqn_diag_zero`` (the
+    values are held against JAX in ``test_torch_obs.py``), per learner for
+    the stacked ones; the port's own ``*_diag_zero`` have the same keys
+    and shapes."""
+    cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(**SMALL), warmup=2, L=2)
+    d3, dq = cfg.d3pg_cfg(), cfg.ddqn_cfg()
+    g = torch.Generator().manual_seed(0)
+    ts = tt2.t2drl_init(g, cfg)
+    ts, _ = tt2._episode_core(ts, cfg, g, {"eps": 1.0, "sigma": 0.1})
+    sched = td3.make_actor_schedule(d3)
+    from repro_torch.core.buffers import buffer_sample, stack_buffers
+    _, m = td3.d3pg_update(ts["d3pg"], d3, sched,
+                           buffer_sample(ts["ebuf"], g, 8), g, diag=True)
+    jzero = jd3.d3pg_diag_zero(jd3.D3PGCfg(**{
+        k: getattr(d3, k) for k in ("state_dim", "action_dim", "L")}))
+    assert set(m) == set(jzero) == set(td3.d3pg_diag_zero(d3))
+    for k, v in m.items():
+        assert v.shape == tuple(np.shape(jzero[k])), k
+    _, m = tdq.ddqn_update(ts["ddqn"], dq, {
+        "s": torch.tensor([0, 1]), "a": torch.tensor([3, 5]),
+        "r": torch.tensor([0.5, -1.0]), "s1": torch.tensor([1, 2])},
+        diag=True)
+    assert set(m) == set(jdq.ddqn_diag_zero(jdq.DDQNCfg())) \
+        == set(tdq.ddqn_diag_zero(dq))
+    B = 2
+    stack = {"d3pg": td3.stack_d3pg([ts["d3pg"]] * B),
+             "ddqn": tdq.stack_ddqn([ts["ddqn"]] * B)}
+    gens = [torch.Generator().manual_seed(b) for b in range(B)]
+    ebuf = stack_buffers([ts["ebuf"]] * B)
+    from repro_torch.core.buffers import buffer_sample_stacked
+    _, m = td3.d3pg_update_stacked(stack["d3pg"], d3, sched,
+                                   buffer_sample_stacked(ebuf, gens, 8),
+                                   gens, diag=True)
+    assert set(m) == set(jzero)
+    assert m["denoise_mag"].shape == (B, d3.L) and m["q_mean"].shape == (B,)
+    _, m = tdq.ddqn_update_stacked(stack["ddqn"], dq, {
+        "s": torch.tensor([[0, 1]] * B), "a": torch.tensor([[3, 5]] * B),
+        "r": torch.tensor([[0.5, -1.0]] * B),
+        "s1": torch.tensor([[1, 2]] * B)}, diag=True)
+    assert set(m) == set(tdq.ddqn_diag_zero(dq))
+    assert all(v.shape == (B,) for v in m.values())
 
 
 def test_bridged_train_state_has_the_port_layout():
@@ -299,17 +331,30 @@ def test_train_t2drl_covers_the_ported_methods(allocator, cacher):
     assert all(np.isfinite(v) for vs in hist.values() for v in vs)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mods=object()), "item 8"), (dict(writer=object()), "item 8")])
-def test_unported_training_modes_raise(kw, item):
-    cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(U=2, M=3, T=2, K=2))
-    with pytest.raises(NotImplementedError, match=item):
-        tt2.train_t2drl(cfg, episodes=1, device="cpu", **kw)
-    for bad, item in ((dict(obs=tt2.ObsCfg(enabled=True)), "item 8"),
-                      (dict(cacher="lru"), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            tt2.train_t2drl(tt2.T2DRLCfg(env=cfg.env, **bad), episodes=1,
-                            device="cpu")
+@pytest.mark.parametrize("mode", ["mods", "writer"])
+def test_scenario_and_telemetry_training_modes_run(mode, tmp_path):
+    """The modes that raised until the scenario and telemetry slice: a
+    scenario schedule (``mods=``), a ``writer=`` and ``ObsCfg(enabled=
+    True)`` train; with a writer the log validates, with telemetry the
+    history has the ``diag/`` keys, with a classical cacher the cache
+    state advanced."""
+    from repro_torch.obs import MetricWriter, validate_jsonl
+    from repro_torch.scenarios import build_scenario
+    env = tenv.EnvCfg(U=2, M=3, T=2, K=2)
+    cfg = tt2.T2DRLCfg(env=env, L=2, warmup=2, cacher="lru",
+                       obs=tt2.ObsCfg(enabled=True))
+    kw = {}
+    if mode == "mods":
+        kw["mods"] = build_scenario("flash-crowd", env, device="cpu").mods
+    else:
+        kw["writer"] = MetricWriter(str(tmp_path / "run.jsonl"))
+    ts, hist = tt2.train_t2drl(cfg, episodes=2, device="cpu", **kw)
+    assert hist["diag/updates"][-1] > 0 and len(hist["diag/denoise_mag"][0]) \
+        == cfg.L
+    assert ts["cache"]["time"].item() == 2 * env.T * env.K * env.U
+    if mode == "writer":
+        kw["writer"].close()
+        assert validate_jsonl(str(tmp_path / "run.jsonl")) == 2
 
 
 @pytest.mark.parametrize("kw,cfg_kw", [

@@ -1,10 +1,14 @@
 """The training loop's episode semantics on the CPU against the JAX
 package: the D3PG and DDQN updates of each episode equal those of the
 JAX package's own ``train_t2drl`` run of the same config, read from its
-telemetry, exactly; the frame reward stored for the DDQN subtracts the
-storage penalty (to 1e-5).  Apart from ``test_torch_train.py`` because
-the reference runs take two of JAX's episode compiles."""
+telemetry, exactly; the port's own telemetry run of that config has the
+reference run's history keys and update counts; the frame reward stored
+for the DDQN subtracts the storage penalty (to 1e-5).  Apart from
+``test_torch_train.py`` because the reference runs take two of JAX's
+episode compiles."""
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,17 +40,23 @@ GATE_KW = dict(allocator="d3pg", cacher="ddqn", warmup=40, L=2,
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_updates(updates_per_slot, episodes=5):
-    """Per-episode (D3PG optimizer steps, DDQN updates) of the JAX
-    package's own ``train_t2drl`` on the gate config, from its telemetry
-    (``ObsCfg(enabled=True)``): ``diag/updates`` counts the slots whose
-    update gate opened, each of which takes ``updates_per_slot`` steps,
-    and ``diag/ddqn_updates`` the DDQN updates.  The totals are held
-    against the final optimizer states' step counts of that run."""
+def _reference_run(updates_per_slot, episodes=5):
+    """The JAX package's own ``train_t2drl`` on the gate config with its
+    telemetry (``ObsCfg(enabled=True, replay=False)``)."""
     cfg = jt2.T2DRLCfg(env=jenv.EnvCfg(**GATE_ENV),
                        updates_per_slot=updates_per_slot,
                        obs=jt2.ObsCfg(enabled=True, replay=False), **GATE_KW)
-    ts, hist = jt2.train_t2drl(cfg, episodes=episodes)
+    return jt2.train_t2drl(cfg, episodes=episodes)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_updates(updates_per_slot, episodes=5):
+    """Per-episode (D3PG optimizer steps, DDQN updates) of the reference
+    run, from its telemetry: ``diag/updates`` counts the slots whose
+    update gate opened, each of which takes ``updates_per_slot`` steps,
+    and ``diag/ddqn_updates`` the DDQN updates.  The totals are held
+    against the final optimizer states' step counts of that run."""
+    ts, hist = _reference_run(updates_per_slot, episodes)
     slots = np.asarray(hist["diag/updates"]).astype(int)
     dq = np.asarray(hist["diag/ddqn_updates"]).astype(int)
     assert int(ts["d3pg"]["opt_a"]["step"]) == slots.sum() * updates_per_slot
@@ -87,8 +97,8 @@ def test_train_t2drl_counts_and_frame_reward_sign(monkeypatch):
     seen = []
     step_slot = tt2.env_step_slot
 
-    def record(state, cfg_, models, b, xi, mask=None):
-        out = step_slot(state, cfg_, models, b, xi, mask)
+    def record(state, cfg_, models, b, xi, mask=None, mod=None):
+        out = step_slot(state, cfg_, models, b, xi, mask, mod)
         viol = float(torch.sum(state.rho * models.c) > cfg_.C)
         seen.append((out[1].item(), viol))
         return out
@@ -112,3 +122,30 @@ def test_train_t2drl_counts_and_frame_reward_sign(monkeypatch):
         ts["d3pg"]["actor"]
     out = tt2.eval_t2drl(pol, ts["models"], cfg, episodes=1, device="cpu")
     assert all(np.isfinite(v) for v in out.values())
+
+
+def test_telemetry_history_follows_the_reference_run():
+    """The port's ``train_t2drl`` with the same telemetry (3 episodes of
+    the gate config) has exactly the reference run's history keys, its
+    ``diag/updates`` and ``diag/ddqn_updates`` per episode, and a
+    ``denoise_mag`` of L steps; chip_smoke's copied ``DIAG_KEYS`` are the
+    reference's diag keys plus the four replay-occupancy keys that
+    ``replay=False`` leaves out."""
+    _, jhist = _reference_run(1)
+    cfg = tt2.T2DRLCfg(env=tenv.EnvCfg(**GATE_ENV),
+                       obs=tt2.ObsCfg(enabled=True, replay=False),
+                       **GATE_KW)
+    _, hist = tt2.train_t2drl(cfg, episodes=3, device="cpu")
+    assert set(hist) == set(jhist)
+    for k in ("diag/updates", "diag/ddqn_updates"):
+        assert hist[k] == np.asarray(jhist[k])[:3].tolist(), k
+    assert hist["diag/updates"][-1] > 0
+    assert np.asarray(hist["diag/denoise_mag"]).shape == (3, cfg.L)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    replay = {f"diag/{b}_{k}" for b in ("ebuf", "fbuf")
+              for k in ("size", "fill")}
+    assert cs.DIAG_KEYS == {k for k in jhist if k.startswith("diag/")} \
+        | replay
