@@ -96,6 +96,30 @@ Phases, each printing one JSON line:
                per qwen2 prefill, 24 ssd_scan launches per mamba2 prefill,
                one ddpm_chain per image, finite logits, and one prefill
                through the kernels against the plain versions.
+9. fleet         — the request-level fleet twin (repro_torch.fleet) at the
+               paper's EnvCfg() and FleetCfg() over 64 cells, one horizon
+               (100 slots of 20 ticks), on the 2-episode state that phase
+               ops checkpointed (restored with load_train_state) and an
+               rcars/random state: wall s a horizon, requests per wall
+               second, the reference's summary keys; conservation exact;
+               one ddpm_chain launch a slot whatever the fleet size; device
+               kernels a slot; cell 0's arrivals those of a one-cell fleet
+               from the same seed (run right after phase ops).
+10. lm_archs     — every architecture of the registry, one at a time and
+               freed before the next, f32 weights from seeds: the nine
+               decoder-only ones behind Engine(max_batch=4, max_seq=512),
+               4 prompts of 8-300 tokens, 16 new tokens each (internvl2-2b
+               also one prefill behind its 256 patch slots), whisper-small
+               through whisper_prefill/whisper_decode on (1, 1500, 768)
+               frame embeddings; full width and depth but deepseek-v2-236b
+               (2 layers: 1 dense, 1 MoE of 160 experts) and
+               deepseek-v3-671b (its smoke width), each cut listed under
+               ``reduced``; launches exact (one flash_attention per
+               attention layer, one ssd_scan per Mamba2 layer a prefill:
+               zamba2-7b 13 at d_head 112 and 68); one prefill against the
+               plain versions; prefill ms, decode tokens/s, weight bytes.
+11. arch_timing  — flash_attention (with SDPA) and ssd_scan timed at every
+               shape phase 10 launched that phase 4 did not time.
 
 Phases 3 and 4 cover every kernel: ddpm_step, ddpm_step_bwd, ddpm_chain
 (at the control and data planes' chains, R = 16 and 64, and odd widths),
@@ -117,6 +141,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -245,6 +270,24 @@ FLASH_CHECK_CASES = [
     (2, 4, 2, 200, 200, 32, None, torch.bfloat16, True),
     (1, 8, 2, 200, 200, 128, None, torch.bfloat16, True),
     (2, 4, 2, 40, 56, 64, None, torch.bfloat16, False),
+    # d_head 112 (zamba2-7b's shared attention) in both kernels: its heads
+    # at a long prompt, GQA, windows, ragged edges, non-causal; then the
+    # other architectures' heads in bf16: qwen3-4b (32, 8, 128), olmo-1b
+    # (16, 16, 128), codeqwen1.5-7b (32, 32, 128), internvl2-2b (16, 8, 128)
+    # at L = 320 behind its 256 patch slots, whisper-small's decoder
+    # (12, 12, 64) at its 16-token prompt and a ragged one
+    (1, 32, 32, 300, 300, 112, None, torch.bfloat16, True),
+    (2, 8, 2, 200, 200, 112, 64, torch.bfloat16, True),
+    (1, 4, 1, 77, 77, 112, None, torch.bfloat16, True),
+    (2, 4, 2, 130, 130, 112, None, torch.float32, True),
+    (1, 8, 2, 96, 96, 112, 40, torch.float32, True),
+    (2, 4, 2, 40, 56, 112, None, torch.float32, False),
+    (1, 32, 8, 300, 300, 128, None, torch.bfloat16, True),
+    (1, 16, 16, 300, 300, 128, None, torch.bfloat16, True),
+    (1, 32, 32, 300, 300, 128, None, torch.bfloat16, True),
+    (1, 16, 8, 320, 320, 128, None, torch.bfloat16, True),
+    (1, 12, 12, 16, 16, 64, None, torch.bfloat16, True),
+    (1, 12, 12, 77, 77, 64, None, torch.bfloat16, True),
 ] + [(1, 14, 2, Lb, Lb, 64, None, torch.bfloat16, True)
      for Lb in PATH_BUCKETS + (LONG_L,)]
 # (B, L, H, P, G, N, chunk): SSD_CASES of tests/test_kernels.py, mamba2-130m's
@@ -254,6 +297,7 @@ SSD_CHECK_CASES = [
     (2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 64, 32),
     (2, 40, 4, 8, 2, 16, 16), (1, 256, 2, 64, 1, 128, 128),
     (1, 300, 24, 64, 1, 128, 64), (2, 300, 8, 64, 2, 128, 128),
+    (1, 300, 112, 64, 2, 64, 128),     # zamba2-7b's Mamba2 layers
 ] + [(1, L, 24, 64, 1, 128, 128) for L in PATH_BUCKETS + (300, LONG_L)]
 
 
@@ -457,6 +501,21 @@ def _rel_err(out, expect) -> float:
     return ((out - expect).norm() / expect.norm().clamp_min(1e-300)).item()
 
 
+def _hold_flash(out, expect, what: str) -> dict:
+    """flash_attention's output (B, L, H, D) against its plain version:
+    allclose at TOL, and the relative error, over all of L and past L/2,
+    within FLASH_REL_TOL (of the output's dtype)."""
+    dtype = out.dtype
+    err = _allclose_err(out, expect, TOL[dtype], what)
+    rel = _rel_err(out, expect)
+    half = out.shape[1] // 2
+    rel_late = _rel_err(out[:, half:], expect[:, half:])
+    require(max(rel, rel_late) <= FLASH_REL_TOL[dtype],
+            f"{what}: relative error {rel}, {rel_late} past L/2 > "
+            f"{FLASH_REL_TOL[dtype]}")
+    return {"max_abs_err": err, "rel_err": rel, "rel_err_past_half": rel_late}
+
+
 def _check_flash(device) -> dict:
     cases = []
     for i, (B, H, Hkv, L, S, D, window, dtype, causal) in enumerate(
@@ -471,16 +530,9 @@ def _check_flash(device) -> dict:
         shape = [B, H, Hkv, L, S, D]
         what = (f"flash_attention {shape} window={window} {dtype} "
                 f"causal={causal}")
-        err = _allclose_err(out, expect, TOL[dtype], what)
-        rel = _rel_err(out, expect)
-        rel_late = _rel_err(out[:, L // 2:], expect[:, L // 2:])
-        require(max(rel, rel_late) <= FLASH_REL_TOL[dtype],
-                f"{what}: relative error {rel}, {rel_late} past L/2 > "
-                f"{FLASH_REL_TOL[dtype]}")
         cases.append({"B_H_Hkv_L_S_D": shape, "window": window,
                       "dtype": str(dtype), "causal": causal,
-                      "max_abs_err": err, "rel_err": rel,
-                      "rel_err_past_half": rel_late})
+                      **_hold_flash(out, expect, what)})
     # online softmax renormalises exactly: constant V comes back unchanged
     q, k, _ = _flash_inputs(1, 2, 2, 128, 128, 64, torch.float32, device, 7)
     out = ops.flash_attention(q, k, torch.ones_like(k), causal=True)
@@ -520,6 +572,13 @@ def _tol_ratio(out, exact, tol: float) -> float:
         .max().item()
 
 
+def _hold_ssd(got, want, what: str) -> float:
+    """ssd_scan's (y, final state) against its plain version's at SSD_TOL;
+    the max abs error."""
+    return max(_allclose_err(got[0], want[0], SSD_TOL, f"{what} y"),
+               _allclose_err(got[1], want[1], SSD_TOL, f"{what} state"))
+
+
 def _check_ssd(device) -> dict:
     """Kernel against plain version at SSD_TOL, and kernel against the
     exact f64 answer within the same tolerance (``kernel_vs_exact`` <= 1);
@@ -533,9 +592,7 @@ def _check_ssd(device) -> dict:
         require(y.shape == (B, L, H, P) and st.shape == (B, H, P, N),
                 f"ssd_scan output {y.shape} {st.shape}")
         shape = [B, L, H, P, G, N, chunk]
-        err = max(_allclose_err(y, y_ref, SSD_TOL, f"ssd_scan y {shape}"),
-                  _allclose_err(st, st_ref, SSD_TOL,
-                                f"ssd_scan state {shape}"))
+        err = _hold_ssd((y, st), (y_ref, st_ref), f"ssd_scan {shape}")
         y64, st64 = ssd_exact(*args)
         exact = max(_tol_ratio(y, y64, SSD_TOL), _tol_ratio(st, st64,
                                                             SSD_TOL))
@@ -2143,7 +2200,7 @@ def _telemetry_checks(dev, ec: EnvCfg, totals: dict, tmp: str,
 
 def phase_ops(device, env_cfg: EnvCfg = EnvCfg(), B: int = VECTOR_B,
               scenario_B: int = 4, warmup: int = OPS_WARMUP,
-              card=None) -> dict:
+              card=None, ckpt_dir=None) -> dict:
     """The operations slice at the paper's EnvCfg() with method_cfg's
     settings but ``warmup`` (so every one-episode run updates):
 
@@ -2161,7 +2218,8 @@ def phase_ops(device, env_cfg: EnvCfg = EnvCfg(), B: int = VECTOR_B,
 
     Every training run's launches are checked on the card and counted by
     shape for the ``kernels`` line; ``card`` is nvidia-smi's name and
-    power limit, printed beside the numbers."""
+    power limit, printed beside the numbers.  The checkpoints go to
+    ``ckpt_dir`` (kept for the fleet phase) or to a temporary directory."""
     from repro_torch.scenarios import build_scenario, list_scenarios
     dev = resolve_device(device)
     ec = env_cfg
@@ -2234,7 +2292,8 @@ def phase_ops(device, env_cfg: EnvCfg = EnvCfg(), B: int = VECTOR_B,
             _same_leaves(ts_ref, ts, "paper-default state")
         del ts
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = _checkpoint_checks(dev, ec, 2, totals, tmp, warmup)
+        ckpt = _checkpoint_checks(dev, ec, 2, totals, ckpt_dir or tmp,
+                                  warmup)
         tel = _telemetry_checks(dev, ec, totals, tmp, warmup)
     return {"phase": "ops", "card": card,
             "env": {"U": ec.U, "M": ec.M, "T": ec.T, "K": ec.K},
@@ -2706,6 +2765,499 @@ def phase_lm_plane(device, make: str = "make_full", n_requests: int = 8,
             "grids": path_grids, "n_layers": n_layers}
 
 
+# -- 9. fleet ------------------------------------------------------------------
+
+FLEET_CELLS = 64
+FLEET_SUMMARY = ("requests", "admitted", "dropped", "truncated", "drop_rate",
+                 "slo_viol_rate", "deadline_miss_rate", "mean_latency_s",
+                 "mean_wait_s", "p50_s", "p95_s", "p99_s", "end_backlog_s",
+                 "mean_backlog_s", "peak_backlog_s", "peak_queue_depth")
+# cell 0 of the fleet against a one-cell fleet: the same arrivals exactly;
+# the latencies through the chain at R = 64 and R = 1, whose plans (rows
+# per cluster) differ, so the actions agree to the chain's rounding only
+FLEET_CELL0_LAT_TOL = 1e-3
+
+
+def _sum_by_key(dicts) -> dict:
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _fleet_kernel_shapes(cfg: T2DRLCfg, C: int, slots: int) -> dict:
+    """The fleet's ddpm_chain launches by timing case: one chain a slot at
+    R = C for a diffusion allocator, none otherwise."""
+    if cfg.allocator != "d3pg":
+        return {}
+    return {"control" if C == 1 else f"control_R{C}": slots}
+
+
+def _fleet_run(dev, ts, cfg, fcfg, C: int, seed: int) -> tuple:
+    """One horizon of C cells, as simulate_fleet runs it (fleet_run on the
+    device, then summarize_fleet on the host) with the launches reset just
+    before and read just after; the summary keys, the exact conservation
+    checks and, on the card, one ddpm_chain launch a slot and no other
+    kernel.  Returns the row and the per-cell counters and per-frame
+    snapshots (numpy) for the cell-0 check."""
+    from repro_torch.fleet import fleet_run, summarize_fleet
+    from repro_torch.fleet.twin import _host
+    ec = cfg.env
+    slots = ec.T * ec.K
+    pol = export_policy(ts, cfg)
+    models = ModelParams(*(x.expand((C,) + tuple(x.shape))
+                           for x in ts["models"]))
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        run = fleet_run(pol, models, cfg, fcfg, cell_generators(seed, C, dev))
+    counts, hist, curves, snaps = (_host(x) for x in run)
+    wall = time.perf_counter() - t0
+    res = summarize_fleet(counts, hist, curves, cfg, fcfg, wall, snaps=snaps)
+    launches = dict(ops.LAUNCHES)
+    grids = dict(ops.GRIDS)
+    require(res["requests"] == res["admitted"] + res["dropped"],
+            f"fleet C={C}: {res['requests']} requests, {res['admitted']} "
+            f"admitted + {res['dropped']} dropped")
+    require(float(res["hist"].sum()) == res["admitted"] > 0,
+            f"fleet C={C}: histogram {res['hist'].sum()} entries, "
+            f"{res['admitted']} admitted")
+    require(all(math.isfinite(res[k]) for k in FLEET_SUMMARY),
+            f"fleet C={C}: {[(k, res[k]) for k in FLEET_SUMMARY]}")
+    want = sum(_fleet_kernel_shapes(cfg, C, slots).values())
+    if dev.type == "cuda":
+        require(launches["ddpm_chain"] == want
+                and sum(launches.values()) == want,
+                f"fleet C={C}: launched {launches}, expected {want} "
+                f"ddpm_chain (one a slot)")
+    return {"cells": C, "wall_s_per_horizon": wall,
+            "requests_per_wall_s": res["requests"] / wall,
+            "simulated_s": res["sim_seconds"],
+            "launches": launches, "grids": grids,
+            "launches_by_shape": _fleet_kernel_shapes(cfg, C, slots),
+            **{k: res[k] for k in FLEET_SUMMARY}}, (counts, snaps)
+
+
+def _fleet_cell0(fleet, alone, C: int) -> dict:
+    """Cell 0 of a C-cell fleet (``fleet``: its counters and snapshots)
+    against a one-cell fleet from the same seed (``alone``): its arrivals
+    and truncations, per frame, exactly the one-cell fleet's; its latency
+    and wait sums within FLEET_CELL0_LAT_TOL."""
+    (a, sa), (b, sb) = (({k: v[0].item() for k, v in counts.items()},
+                         {k: v[0].tolist()
+                          for k, v in snaps["counts"].items()})
+                        for counts, snaps in (fleet, alone))
+    for k in ("arrivals", "truncated"):
+        require(sa[k] == sb[k], f"fleet cell 0 {k} per frame: {sa[k]} at "
+                f"C={C}, {sb[k]} alone")
+    rel = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+           for k in ("lat_sum", "wait_sum")}
+    require(max(rel.values()) <= FLEET_CELL0_LAT_TOL,
+            f"fleet cell 0 latency sums differ by {rel}")
+    return {"arrivals": a["arrivals"], "arrivals_alone": b["arrivals"],
+            "admitted": a["admitted"], "admitted_alone": b["admitted"],
+            "lat_sum_rel_diff": rel["lat_sum"],
+            "wait_sum_rel_diff": rel["wait_sum"]}
+
+
+def phase_fleet(device, env_cfg: EnvCfg = EnvCfg(), fleet_cfg=None,
+                cells: int = FLEET_CELLS, ckpt=None,
+                warmup: int = OPS_WARMUP, seed: int = 0) -> dict:
+    """The request-level fleet twin at ``env_cfg`` and ``FleetCfg()``'s
+    defaults (one horizon: T*K slots of ticks_per_slot ticks) over
+    ``cells`` cells: the 2-episode d3pg/ddqn state that phase ``ops``
+    checkpointed (``ckpt``; trained here when None), restored through
+    load_train_state, and an rcars/random state.  Per state: wall s a
+    horizon, requests and requests per wall second, the summary keys,
+    conservation exactly, one ddpm_chain launch a slot whatever the fleet
+    size; the device kernels a slot (torch.profiler over one frame); and
+    cell 0 of the fleet against a one-cell fleet from the same seed."""
+    from repro_torch.fleet import FleetCfg, simulate_fleet
+    dev = resolve_device(device)
+    fcfg = FleetCfg() if fleet_cfg is None else fleet_cfg
+    ec = env_cfg
+    cfg = _ops_cfg("d3pg", "ddqn", ec, 2, warmup)
+    if ckpt is None:
+        ts, _ = train_t2drl(cfg, episodes=2, device=dev)
+        source = "trained here, 2 episodes"
+    else:
+        ts, _ = load_train_state(ckpt, cfg, device=dev)
+        source = "phase ops' checkpoint, load_train_state"
+    cfg_r = T2DRLCfg(env=ec, allocator="rcars", cacher="random")
+    ts_r = t2drl_init(make_generator(seed, dev), cfg_r)
+    runs, raw = {}, {}
+    for key, state, c, n in (("t2drl", ts, cfg, cells),
+                             ("t2drl_C1", ts, cfg, 1),
+                             ("rcars", ts_r, cfg_r, cells)):
+        runs[key], raw[key] = _fleet_run(dev, state, c, fcfg, n, seed)
+    frame = dataclasses.replace(cfg, env=dataclasses.replace(ec, T=1))
+    kernels = None
+    if dev.type == "cuda":
+        _, kernels, _ = device_ms_per_call(lambda: simulate_fleet(
+            ts, frame, fcfg, num_cells=cells, seed=seed, device=dev), 1)
+        kernels /= ec.K
+    return {"phase": "fleet", "env": {"U": ec.U, "M": ec.M, "T": ec.T,
+                                      "K": ec.K},
+            "fleet_cfg": dataclasses.asdict(fcfg), "state": source,
+            "runs": runs, "device_kernels_per_slot": kernels,
+            "cell0": _fleet_cell0(raw["t2drl"], raw["t2drl_C1"], cells),
+            "launches_by_shape": {"ddpm_chain": _sum_by_key(
+                [r["launches_by_shape"] for r in runs.values()])},
+            "grids": {"ddpm_chain": sum(r["grids"]["ddpm_chain"]
+                                        for r in runs.values())}}
+
+
+# -- 10. every LM architecture ---------------------------------------------------
+
+ARCH_ORDER = ("qwen2-0.5b", "mamba2-130m", "olmo-1b", "qwen3-4b",
+              "codeqwen1.5-7b", "internvl2-2b", "zamba2-7b", "whisper-small",
+              "deepseek-v2-236b", "deepseek-v3-671b")
+DEEPSEEK_V2_LAYERS = 2      # one dense layer, then one MoE layer
+VLM_TEXT = 64               # text tokens behind the 256 patch slots
+
+
+def _arch_cfg(name: str, make: str):
+    """The config an architecture runs at in phase lm_archs, and its cuts:
+    full width and depth where one card holds the f32 weights;
+    deepseek-v2-236b at full width with its depth cut to one dense and one
+    MoE layer; deepseek-v3-671b at its smoke width (one full-width MoE
+    layer is ~45 GB in f32, its MTP block another)."""
+    arch = get_arch(name)
+    if make == "make_smoke" or name == "deepseek-v3-671b":
+        cut = [] if make == "make_smoke" else [
+            "make_smoke width (one full-width MoE layer of 256 experts is "
+            "~45 GB in f32, its MTP block another); its MLA and MoE code is "
+            "deepseek-v2's"]
+        return arch.make_smoke(), cut
+    cfg = arch.make_full()
+    if name == "deepseek-v2-236b":
+        dense, moe_g = cfg.groups
+        cfg = dataclasses.replace(cfg, groups=(
+            dataclasses.replace(dense, repeats=1),
+            dataclasses.replace(moe_g, repeats=DEEPSEEK_V2_LAYERS - 1)))
+        return cfg, [f"depth 60 -> {DEEPSEEK_V2_LAYERS} layers (1 dense, "
+                     "then 1 MoE layer of 160 experts): the f32 weights of "
+                     "one card's 80 GB"]
+    return cfg, []
+
+
+def _mixer_blocks(cfg, mixer: str) -> list:
+    """The block configs of every layer with ``mixer``, repeats counted."""
+    if hasattr(cfg, "dec_group"):          # whisper: the decoder's
+        cfg = SimpleNamespace(groups=(cfg.dec_group(),))
+    return [b for g in cfg.groups for _ in range(g.repeats) for b in g.cycle
+            if b.mixer == mixer]
+
+
+def _prefill_shapes(cfg, L: int) -> dict:
+    """The kernel launches one prefill of L positions makes, by kernel and
+    shape: flash_attention (1, L, H, Hkv, D) per attention layer, ssd_scan
+    (1, L, H, P, G, N, chunk) per Mamba2 layer."""
+    out = {"flash_attention": {}, "ssd_scan": {}}
+    for b in _mixer_blocks(cfg, "attn"):
+        a = b.attn
+        key = _shape_key((1, L, a.n_heads, a.n_kv_heads, a.d_head))
+        out["flash_attention"][key] = out["flash_attention"].get(key, 0) + 1
+    for b in _mixer_blocks(cfg, "ssm"):
+        c = b.ssm
+        key = _shape_key((1, L, c.n_heads, c.head_dim, c.n_groups,
+                          c.d_state, c.chunk))
+        out["ssd_scan"][key] = out["ssd_scan"].get(key, 0) + 1
+    return out
+
+
+def _add_prefill(total: dict, cfg, L: int, n: int = 1) -> None:
+    for kern, by in _prefill_shapes(cfg, L).items():
+        for key, c in by.items():
+            total[kern][key] = total[kern].get(key, 0) + n * c
+
+
+def _logits_vs_plain(fn, what: str) -> dict:
+    """Last-token logits of ``fn(impl)`` through the kernels and through
+    the plain versions (LM_PREFILL_TOL of their largest magnitude)."""
+    with torch.no_grad():
+        out = {impl: fn(impl).float() for impl in ("kernel", "plain")}
+    scale = out["plain"].abs().max().item()
+    err = (out["kernel"] - out["plain"]).abs().max().item()
+    require(bool(torch.isfinite(out["kernel"]).all())
+            and bool(torch.isfinite(out["plain"]).all()),
+            f"{what}: non-finite prefill logits")
+    require(err <= LM_PREFILL_TOL * scale, f"{what}: prefill logits kernel "
+            f"vs plain differ by {err} > {LM_PREFILL_TOL} x {scale}")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "tolerance_rel": LM_PREFILL_TOL,
+            "same_argmax": bool(out["kernel"].argmax()
+                                == out["plain"].argmax())}
+
+
+def _weights_bytes(tree) -> int:
+    leaves = []
+    lm_mod.tree_map(lambda t: leaves.append(t.numel() * t.element_size()),
+                    tree)
+    return sum(leaves)
+
+
+def _check_launches(dev, got: dict, want: dict, totals: dict,
+                    what: str) -> None:
+    """On the card: each LM kernel launched exactly ``want`` times (per
+    kernel, summed over shapes) and no other kernel.  Adds ``want`` to the
+    phase's launches by shape and the grids the run started to its
+    grids."""
+    n = {k: sum(want.get(k, {}).values()) for k in ops.LAUNCHES}
+    if dev.type == "cuda":
+        require(got == n, f"{what}: launched {got}, expected {n}")
+    for kern, by in want.items():
+        _add_shapes(totals["by_shape"], {kern: by})
+        totals["grids"][kern] += ops.GRIDS[kern]
+
+
+def _serve_arch(dev, name, cfg, params, rng, n_requests, max_prompt,
+                max_seq, max_new, totals) -> dict:
+    """One Engine.run of ``n_requests`` prompts of 8..max_prompt tokens,
+    ``max_new`` new tokens each; launches exact; one prefill through the
+    kernels against the plain versions."""
+    eng = Engine(cfg, params, ServeCfg(max_batch=4, max_seq=max_seq),
+                 device=dev)
+    reqs = [(i, rng.integers(0, cfg.vocab, size=int(rng.integers(
+        8, max_prompt + 1))), max_new) for i in range(n_requests)]
+    with _FiniteLogits() as fin:
+        ops.reset_launches()
+        sync(dev)
+        done, stats = eng.run(reqs)
+        sync(dev)
+        got = dict(ops.LAUNCHES)
+        finite = fin.all_finite()
+    require(finite, f"{name}: non-finite logits in Engine.run")
+    require(sorted(done) == list(range(n_requests)) and all(
+        len(done[i]) == _generated(len(p), mnt, max_seq)
+        for i, p, mnt in reqs),
+        f"{name}: generated lengths {[len(v) for v in done.values()]}")
+    want = {"flash_attention": {}, "ssd_scan": {}}
+    buckets = [min(_bucket(len(p)), max_seq) for _, p, _ in reqs]
+    for Lb in buckets:
+        _add_prefill(want, cfg, Lb)
+    _check_launches(dev, got, want, totals, f"{name} Engine.run")
+    decoded = sum(len(v) - 1 for v in done.values())
+    out = {"requests": n_requests, "buckets": buckets,
+           "prompt_lengths": [len(p) for _, p, _ in reqs],
+           "tokens_generated": sum(len(v) for v in done.values()),
+           "decode_steps": stats["decode_steps"],
+           "prefill_ms_per_request": 1e3 * stats["prefill_s"]
+           / stats["prefills"],
+           "decode_tokens_per_s": decoded / stats["decode_s"],
+           "wall_s": stats["wall_s"], "launches": got,
+           "kernel_vs_plain_prefill": _prefill_kernel_vs_plain(
+               eng, reqs[0][1])}
+    del eng
+    return out
+
+
+def _serve_whisper(dev, cfg, params, seed, max_seq, max_new,
+                   totals) -> dict:
+    """whisper_prefill of a 16-token prompt behind (1, n_frames, d_model)
+    frame embeddings, then ``max_new`` greedy whisper_decode steps; the
+    decoder's self-attention through flash_attention, one launch a layer;
+    the prefill against the plain versions."""
+    from repro_torch.models.whisper import (whisper_decode,
+                                            whisper_init_cache,
+                                            whisper_prefill)
+    g = torch.Generator().manual_seed(seed)
+    fe = torch.randn((1, cfg.n_frames, cfg.d_model), generator=g).to(dev)
+    L = 16
+    toks = torch.randint(0, cfg.vocab, (1, L), generator=g).to(dev)
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = whisper_prefill(params, cfg, fe, toks,
+                                        whisper_init_cache(cfg, 1, max_seq,
+                                                           device=dev))
+        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        got = dict(ops.LAUNCHES)
+        finite = [torch.isfinite(logits).all()]
+        t0 = time.perf_counter()
+        for i in range(max_new):
+            logits, cache = whisper_decode(params, cfg, tok, cache, L + i)
+            finite.append(torch.isfinite(logits).all())
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        sync(dev)
+        decode_s = time.perf_counter() - t0
+    require(bool(torch.stack(finite).all()), "whisper: non-finite logits")
+    want = {"flash_attention": {}, "ssd_scan": {}}
+    _add_prefill(want, cfg, L)
+    _check_launches(dev, got, want, totals, "whisper prefill")
+    return {"frame_embeds": [1, cfg.n_frames, cfg.d_model],
+            "prompt": L, "new_tokens": max_new,
+            "prefill_ms": 1e3 * prefill_s,
+            "decode_tokens_per_s": max_new / decode_s, "launches": got,
+            "kernel_vs_plain_prefill": _logits_vs_plain(
+                lambda impl: whisper_prefill(
+                    params, cfg, fe, toks, whisper_init_cache(
+                        cfg, 1, max_seq, device=dev), impl=impl)[0],
+                "whisper")}
+
+
+def _vlm_prefix(dev, cfg, params, seed, max_seq, totals) -> dict:
+    """One direct lm_prefill with random prefix_embeds (1, n_prefix,
+    prefix_embed_dim) before VLM_TEXT text tokens (fewer if max_seq
+    holds fewer): one flash_attention launch a layer at L = n_prefix +
+    the text, against the plain versions."""
+    g = torch.Generator().manual_seed(seed)
+    pre = torch.randn((1, cfg.n_prefix, cfg.prefix_embed_dim),
+                      generator=g).to(dev)
+    n_text = min(VLM_TEXT, max_seq - cfg.n_prefix)
+    toks = torch.randint(0, cfg.vocab, (1, n_text), generator=g).to(dev)
+
+    def prefill(impl):
+        return lm_mod.lm_prefill(
+            params, cfg, toks, lm_mod.lm_init_cache(cfg, 1, max_seq,
+                                                    device=dev),
+            prefix_embeds=pre, impl=impl)[0]
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = prefill("kernel")
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = dict(ops.LAUNCHES)
+    require(bool(torch.isfinite(logits).all()), "VLM prefix: non-finite")
+    want = {"flash_attention": {}, "ssd_scan": {}}
+    _add_prefill(want, cfg, cfg.n_prefix + n_text)
+    _check_launches(dev, got, want, totals, "VLM prefix prefill")
+    return {"prefix_embeds": list(pre.shape), "text_tokens": n_text,
+            "prefill_ms": ms, "launches": got,
+            "kernel_vs_plain_prefill": _logits_vs_plain(prefill,
+                                                        "VLM prefix")}
+
+
+def phase_lm_archs(device, make: str = "make_full", n_requests: int = 4,
+                   max_prompt: int = 300, max_seq: int = 512,
+                   max_new: int = 16, archs=ARCH_ORDER,
+                   seed: int = 0) -> dict:
+    """Every architecture of the registry, one at a time (freed before the
+    next), with random f32 weights from ``seed``: each decoder-only LM
+    behind Engine(max_batch=4, max_seq) serving ``n_requests`` prompts of
+    8..max_prompt tokens, ``max_new`` new tokens each (internvl2-2b also
+    one direct prefill with its 256 patch slots), whisper-small through
+    whisper_prefill and whisper_decode.  Launches exact (one
+    flash_attention per attention layer and one ssd_scan per Mamba2 layer
+    a prefill); one prefill against the plain versions; prefill ms,
+    decode tokens/s, weight bytes, and the cuts (``reduced``)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    totals = {"by_shape": {"flash_attention": {}, "ssd_scan": {}},
+              "grids": {"flash_attention": 0, "ssd_scan": 0}}
+    out = {}
+    for i, name in enumerate(archs):
+        arch = get_arch(name)
+        cfg, reduced = _arch_cfg(name, make)
+        t0 = time.perf_counter()
+        if arch.kind == "whisper":
+            from repro_torch.models.whisper import whisper_init
+            params = whisper_init(make_generator(100 + i, dev), cfg)
+        else:
+            params = lm_mod.lm_init(make_generator(100 + i, dev), cfg)
+        sync(dev)
+        row = {"width": make if not reduced or "depth" in reduced[0]
+               else "make_smoke", "reduced": reduced,
+               "init_s": time.perf_counter() - t0,
+               "weights_bytes": _weights_bytes(params),
+               "params": count_params(params),
+               "attention_layers": len(_mixer_blocks(cfg, "attn")),
+               "mla_layers": len(_mixer_blocks(cfg, "mla")),
+               "ssm_layers": len(_mixer_blocks(cfg, "ssm"))}
+        if arch.kind == "whisper":
+            row.update(_serve_whisper(dev, cfg, params, seed + i, max_seq,
+                                      max_new, totals))
+        else:
+            row.update(_serve_arch(dev, name, cfg, params, rng, n_requests,
+                                   max_prompt, max_seq, max_new, totals))
+            if cfg.prefix_embed_dim:
+                row["prefix_prefill"] = _vlm_prefix(dev, cfg, params,
+                                                    seed + i, max_seq,
+                                                    totals)
+        out[name] = row
+        del params
+        gc.collect()
+        if dev.type == "cuda":
+            row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    return {"phase": "lm_archs", "make": make, "dtype": "float32 weights, "
+            "bfloat16 compute", "archs": out,
+            "launches_by_shape": totals["by_shape"],
+            "grids": totals["grids"],
+            "flash_attention_launches": sum(
+                totals["by_shape"]["flash_attention"].values()),
+            "ssd_scan_launches": sum(totals["by_shape"]["ssd_scan"]
+                                     .values())}
+
+
+def _flash_row(device, B, L, H, Hkv, D) -> dict:
+    """Timing row of flash_attention at one bf16 causal shape, with SDPA's
+    time at the same shape beside it; the kernel's output is held against
+    the plain version's on the same inputs first, as in the kernel check."""
+    q, k, v = _flash_inputs(B, H, Hkv, L, L, D, torch.bfloat16, device,
+                            seed=L + D)
+    held = _hold_flash(ops.flash_attention(q, k, v, causal=True),
+                       ref.flash_attention_ref(q, k, v, causal=True),
+                       f"flash_attention {[B, L, H, Hkv, D]} bfloat16")
+    library, call = _sdpa_call(q, k, v)
+
+    def kernel():
+        ops.flash_attention(q, k, v, causal=True)
+
+    t = _timed_turns(kernel,
+                     lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                     library)
+    bound, by, peak = flash_bound_ms(B, L, L, H, Hkv, D, 2)
+    return {"shape": [B, L, H, Hkv, D], "dtype": "bfloat16", **held, **t,
+            "bound_ms": bound, "bound_by": by, "peak": peak,
+            "library_call": call,
+            "grids_per_call": _grids_per_call(kernel, "flash_attention")}
+
+
+def _ssd_row(device, B, L, H, P, G, N, chunk) -> dict:
+    """Timing row of ssd_scan at one shape, its output held against the
+    plain version's on the same inputs first, as in the kernel check."""
+    args = _ssd_inputs(B, L, H, P, G, N, device, seed=L + H)
+    err = _hold_ssd(ops.ssd_scan(*args, chunk=chunk),
+                    ref.ssd_scan_ref(*args, chunk=chunk),
+                    f"ssd_scan {[B, L, H, P, G, N, chunk]}")
+
+    def kernel():
+        ops.ssd_scan(*args, chunk=chunk)
+
+    t = _timed_turns(kernel, lambda: ref.ssd_scan_ref(*args, chunk=chunk))
+    bound, by, peak = ssd_bound_ms(B, L, H, P, G, N, chunk)
+    return {"shape": [B, L, H, P, G, N, chunk], "dtype": "float32",
+            "max_abs_err": err, **t,
+            "bound_ms": bound, "bound_by": by, "peak": peak,
+            "grids_per_call": _grids_per_call(kernel, "ssd_scan")}
+
+
+def phase_arch_timing(device, timing: dict, archs: dict) -> dict:
+    """Timing rows of flash_attention and ssd_scan at every shape that
+    phase lm_archs launched and phase kernel_timing did not time (the
+    other architectures' heads: d_head 112, 128 with 8 kv heads, ...;
+    zamba2-7b's Mamba2 layers), each held against its plain version on
+    the same inputs; the shapes phase kernel_timing timed are the kernel
+    check's cases.  So every shape either LM phase launched is held."""
+    rows = {}
+    for kern, make in (("flash_attention", _flash_row),
+                       ("ssd_scan", _ssd_row)):
+        have = {_shape_key(r["shape"]) for r in timing[kern]}
+        rows[kern] = [make(device, *map(int, key.split("x")))
+                      for key in sorted(archs["launches_by_shape"][kern])
+                      if key not in have]
+    return {"phase": "arch_timing", **rows}
+
+
 def modal_bucket(counts: dict) -> int:
     """The most frequent prefill length (the larger on a tie)."""
     return max((c, int(b)) for b, c in counts.items())[1]
@@ -2734,6 +3286,8 @@ def kernel_summary(rows: list, launches_by_shape: dict, modal,
         r = by[str(shape)]
         path.append({"shape": r["shape"], "launches": n, "ms": r["ms"],
                      "graph_ms": r["graph_ms"], "bound_ms": r["bound_ms"],
+                     "plain_ms": r["plain_ms"],
+                     "library_ms": r.get("library_ms"),
                      "grids_per_call": r["grids_per_call"]})
     out["path"] = path
     timed = sum(p["launches"] * p["grids_per_call"] for p in path)
@@ -2785,7 +3339,7 @@ def _vector_paths(vector, kernel: str) -> tuple:
 
 
 def kernels_line(check, timing, train, control, data, lm, vector,
-                 ops_run) -> dict:
+                 ops_run, fleet, archs, arch_timing) -> dict:
     """The ``kernels`` line.  ddpm_step: the control plane's impl="step"
     episode (at (20,)) and the impl="step" updates of the train phase's
     update timing (their policy chains, at (64, 20)).  ddpm_step_bwd:
@@ -2804,7 +3358,12 @@ def kernels_line(check, timing, train, control, data, lm, vector,
     launches to ddpm_chain's and ddpm_chain_bwd's paths at their shapes
     (the stacked ones under ``at`` with their B single-learner
     yardstick, ``single_x_B_ms``); the ops phase (its cachers, scenarios,
-    checkpoint and telemetry runs) adds its launches alike."""
+    checkpoint and telemetry runs) adds its launches alike, and so does
+    the fleet phase (one chain a slot at R = 64, and at R = 1 for its
+    one-cell run).  flash_attention's and ssd_scan's paths add phase
+    lm_archs' launches by shape (every architecture's heads), timed in
+    phase arch_timing with SDPA beside flash; the modal shape is taken
+    over both LM phases."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
     upd = train["update_timing"]
@@ -2837,17 +3396,21 @@ def kernels_line(check, timing, train, control, data, lm, vector,
                 "data": data["launches"]["ddpm_chain"],
                 "lm_gateway": lm["gateway"]["launches"]["ddpm_chain"],
                 "vector": sum(vec_chain.values()),
-                "ops": sum(ops_chain.values())}
+                "ops": sum(ops_chain.values()),
+                "fleet": sum(fleet["launches_by_shape"]["ddpm_chain"]
+                             .values())}
     acting = train["env"]["T"] * train["env"]["K"] * train["episodes"]
     n_d3 = train["d3pg_updates"]
     chain_path = {"control": by_plane["control"] + acting,
                   "control_R64": n_d3, "control_R64+record": n_d3}
-    for case, n in list(vec_chain.items()) + list(ops_chain.items()):
+    for case, n in (list(vec_chain.items()) + list(ops_chain.items())
+                    + list(fleet["launches_by_shape"]["ddpm_chain"]
+                           .items())):
         chain_path[case] = chain_path.get(case, 0) + n
     chain = kernel_summary(
         chain_rows, chain_path, "control", [k for k, _ in chain_rows[1:]],
         control["grids"] + train["grids"]["ddpm_chain"] + vec_grids
-        + ops_grids["ddpm_chain"])
+        + ops_grids["ddpm_chain"] + fleet["grids"]["ddpm_chain"])
     chain["step_ms"] = timing["ddpm_chain"][0]["step_ms"]
     for k, row in chain_rows[1:]:
         if "step_ms" in row:
@@ -2856,7 +3419,8 @@ def kernels_line(check, timing, train, control, data, lm, vector,
     chain["grids_per_call"] = (control["grids"] + data["grids"]
                                + train["grids"]["ddpm_chain"]
                                + lm["gateway"]["grids"]["ddpm_chain"]
-                               + vec_grids + ops_grids["ddpm_chain"]) \
+                               + vec_grids + ops_grids["ddpm_chain"]
+                               + fleet["grids"]["ddpm_chain"]) \
         / sum(by_plane.values())
     chain["clusters_per_call"] = (control["clusters"] + data["clusters"]) \
         / (by_plane["control"] + by_plane["data"])
@@ -2885,25 +3449,40 @@ def kernels_line(check, timing, train, control, data, lm, vector,
                 "ddpm_chain_bwd": (tl["ddpm_chain_bwd"]
                                    + sum(vec_bwd.values())
                                    + sum(ops_bwd.values())),
-                "flash_attention": lm["flash_attention_launches"],
-                "ssd_scan": lm["ssd_scan_launches"]}
-    for kname, model in (("flash_attention", "qwen2-0.5b"),
-                         ("ssd_scan", "mamba2-130m")):
+                "flash_attention": (lm["flash_attention_launches"]
+                                    + archs["flash_attention_launches"]),
+                "ssd_scan": (lm["ssd_scan_launches"]
+                             + archs["ssd_scan_launches"])}
+    for kname, model, heads in (
+            ("flash_attention", "qwen2-0.5b", QWEN_HEADS),
+            ("ssd_scan", "mamba2-130m", MAMBA_SSD)):
         counts = lm["bucket_counts"][model]
-        per_bucket = {int(b): lm["n_layers"][model] * c
-                      for b, c in counts.items()}
-        require(sum(per_bucket.values()) == launches[kname],
-                f"{kname}: {launches[kname]} launches but the buckets "
-                f"account for {sum(per_bucket.values())}")
+        per_shape = _sum_by_key([
+            {_shape_key((1, int(b)) + heads): lm["n_layers"][model] * c
+             for b, c in counts.items()},
+            archs["launches_by_shape"][kname]])
+        require(sum(per_shape.values()) == launches[kname],
+                f"{kname}: {launches[kname]} launches but the shapes "
+                f"account for {sum(per_shape.values())}")
+        rows = [(_shape_key(r["shape"]), r)
+                for r in timing[kname] + arch_timing[kname]]
         summary[kname] = kernel_summary(
-            [(r["shape"][1], r) for r in timing[kname]], per_bucket,
-            modal_bucket(counts), (512, LONG_L), lm["grids"][kname])
+            rows, per_shape, max(per_shape, key=lambda k: (per_shape[k], k)),
+            [_shape_key((1, L) + heads) for L in (512, LONG_L)],
+            lm["grids"][kname] + archs["grids"][kname])
+        summary[kname]["launches_by_phase"] = {
+            "lm_plane": (lm["flash_attention_launches"]
+                         if kname == "flash_attention"
+                         else lm["ssd_scan_launches"]),
+            "lm_archs": sum(archs["launches_by_shape"][kname].values())}
     idle = [k for k, n in launches.items() if n <= 0]
     require(not idle, f"kernels never launched on their paths: {idle}")
+    err = {k: max([check[k]["max_abs_err"]] + [
+        r["max_abs_err"] for r in arch_timing.get(k, [])]) for k in launches}
     return {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k], "launches": launches[k],
-        "max_abs_err": check[k]["max_abs_err"], **summary[k]}
+        "max_abs_err": err[k], **summary[k]}
         for k in ("ddpm_step", "ddpm_step_bwd", "ddpm_chain",
                   "ddpm_chain_bwd", "flash_attention", "ssd_scan")]}
 
@@ -2923,16 +3502,24 @@ def main() -> int:
     emit(train)
     vector = phase_vector(device)
     emit(vector)
-    ops_run = phase_ops(device, card=dev_info["nvidia_smi"])
-    emit(ops_run)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ops_run = phase_ops(device, card=dev_info["nvidia_smi"],
+                            ckpt_dir=ckpt_dir)
+        emit(ops_run)
+        fleet = phase_fleet(device, ckpt=str(Path(ckpt_dir) / "t2drl.ckpt"))
+        emit(fleet)
     control = phase_control_plane(device)
     emit(control)
     data = phase_data_plane(device)
     emit(data)
     lm = phase_lm_plane(device)
     emit(lm)
+    archs = phase_lm_archs(device)
+    emit(archs)
+    arch_timing = phase_arch_timing(device, timing, archs)
+    emit(arch_timing)
     emit(kernels_line(check, timing, train, control, data, lm, vector,
-                      ops_run))
+                      ops_run, fleet, archs, arch_timing))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

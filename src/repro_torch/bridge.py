@@ -21,7 +21,7 @@ from repro_torch.core.networks import MLP, StackedMLP
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.denoiser import (TIME_DIM, Denoiser,
                                             StackedDenoiser)
-from repro_torch.models.lm import LMCfg, check_ported, tree_map
+from repro_torch.models.lm import LMCfg, tree_map
 
 
 def _f32(a, device):
@@ -287,26 +287,152 @@ def env_state_from_numpy(st, generator: torch.Generator) -> EnvState:
                     d_in=_f32(st.d_in, dev), rho=_f32(st.rho, dev))
 
 
+def _lin(bias: bool = False) -> dict:
+    return {"w": None, "b": None} if bias else {"w": None}
+
+
+def _norm_keys(kind: str) -> dict:
+    return {"rms": {"scale": None}, "ln": {"scale": None, "bias": None},
+            "ln_np": {}}[kind]
+
+
+def _attn_keys(a) -> dict:
+    k = {n: _lin(a.qkv_bias) for n in ("q", "k", "v")} | {"o": _lin()}
+    if a.qk_norm:
+        k.update(q_norm={"scale": None}, k_norm={"scale": None})
+    return k
+
+
+def _mixer_keys(b) -> dict:
+    if b.mixer == "attn":
+        return _attn_keys(b.attn)
+    if b.mixer == "mla":
+        q = ({"q_down": _lin(), "q_norm": {"scale": None}, "q_up": _lin()}
+             if b.mla.q_lora_rank else {"q_proj": _lin()})
+        return q | {"kv_down": _lin(), "kv_norm": {"scale": None},
+                    "kv_up": _lin(), "o": _lin()}
+    return {"in_proj": _lin(), "conv_w": None, "conv_b": None,
+            "A_log": None, "D": None, "dt_bias": None,
+            "norm": {"scale": None}, "out_proj": _lin()}
+
+
+def _mlp_keys(m) -> dict:
+    k = {"up": _lin(), "down": _lin()}
+    return k | {"gate": _lin()} if m.gated else k
+
+
+def _block_keys(b) -> dict:
+    """The parameter keys ``block_init`` gives a block of config ``b``
+    (``None`` marks a leaf)."""
+    k = {}
+    if b.mixer != "none":
+        k.update(norm1=_norm_keys(b.norm), mixer=_mixer_keys(b))
+    if b.cross is not None:
+        k.update(norm_cross=_norm_keys(b.norm), cross=_attn_keys(b.cross))
+    if b.ffn != "none":
+        k["norm2"] = _norm_keys(b.norm)
+    if b.ffn == "mlp":
+        k["ffn"] = _mlp_keys(b.mlp)
+    elif b.ffn == "moe":
+        k["ffn"] = {"router": {"w": None}, "up": None, "gate": None,
+                    "down": None}
+        if b.moe.n_shared:
+            k["ffn"]["shared"] = {"up": _lin(), "down": _lin(),
+                                  "gate": _lin()}
+    return k
+
+
+def _group_keys(g) -> dict:
+    return {kind: {str(i): _block_keys(b) for i, b in enumerate(g.cycle)
+                   if b.shared == (kind == "shared")}
+            for kind in ("shared", "stacked")}
+
+
+def _lm_keys(cfg: LMCfg) -> dict:
+    k = {"embed": {"table": None},
+         "groups": [_group_keys(g) for g in cfg.groups],
+         "final_norm": _norm_keys(cfg.final_norm)}
+    if cfg.pos_embed == "learned":
+        k["pos"] = None
+    if not cfg.tie_embeddings:
+        k["lm_head"] = _lin()
+    if cfg.prefix_embed_dim:
+        k["proj"] = _lin(bias=True)
+    if cfg.mtp:
+        k["mtp"] = {"norm_h": {"scale": None}, "norm_e": {"scale": None},
+                    "proj": _lin(), "block": _block_keys(
+                        cfg.groups[-1].cycle[-1])}
+    return k
+
+
+def _check_fits(tree, keys, name: str, path: str = "") -> None:
+    """Raise unless ``tree`` has exactly the dicts, lists and leaves of the
+    key skeleton ``keys``."""
+    if keys is None:
+        if isinstance(tree, (dict, list, tuple)):
+            raise ValueError(f"the tree does not fit {name}: {path} is a "
+                             "subtree, not a leaf")
+        return
+    if isinstance(keys, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(keys):
+            raise ValueError(f"the tree does not fit {name}: {path} holds "
+                             f"{len(tree) if isinstance(tree, list) else tree!r}"
+                             f" groups, not {len(keys)}")
+        for i, (t, k) in enumerate(zip(tree, keys)):
+            _check_fits(t, k, name, f"{path}[{i}]")
+        return
+    if not isinstance(tree, dict) or set(tree) != set(keys):
+        have = sorted(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"the tree does not fit {name}: {path or 'root'} "
+                         f"has {have}, expected {sorted(keys)}")
+    for k, sub in keys.items():
+        _check_fits(tree[k], sub, name, f"{path}.{k}")
+
+
+def _check_repeats(tree_groups, groups, name: str) -> None:
+    for gt, g in zip(tree_groups, groups):
+        for block in gt["stacked"].values():
+            lead = {np.asarray(a).shape[0] for a in _leaves(block)}
+            if lead != {g.repeats}:
+                raise ValueError(f"stacked leaves of {name} lead with "
+                                 f"{sorted(lead)}, not {g.repeats} repeats")
+
+
 def lm_params_from_numpy(tree, cfg: LMCfg, device=None) -> dict:
     """``jax.tree.map(np.asarray, repro.models.lm.lm_init(...))`` -> the
     port's parameter tree: the same nested dicts and lists
     (``embed.table``, ``groups[i].shared / .stacked`` with the leading
-    repeat axis, ``final_norm``, the per-block attention, SSM and MLP
-    leaves), each leaf a tensor of its numpy dtype on ``device``.  Raises
-    if ``cfg`` is not ported or the tree does not fit it."""
-    check_ported(cfg)
+    repeat axis, ``final_norm``, ``pos``, ``lm_head``, ``proj``, ``mtp``,
+    and every block's attention, MLA, SSM, MLP and MoE leaves), each leaf
+    a tensor of its numpy dtype on ``device``.  Raises if the tree does
+    not fit ``cfg``: other keys, another embedding shape, or stacked
+    leaves that do not lead with the group's repeats."""
     dev = resolve_device(device)
+    _check_fits(tree, _lm_keys(cfg), cfg.name)
     table = np.asarray(tree["embed"]["table"])
-    if table.shape != (cfg.vocab, cfg.d_model) \
-            or len(tree["groups"]) != len(cfg.groups):
+    if table.shape != (cfg.vocab, cfg.d_model):
         raise ValueError(f"the tree does not fit {cfg.name}: embed "
-                         f"{table.shape}, {len(tree['groups'])} groups")
-    for gt, g in zip(tree["groups"], cfg.groups):
-        for block in gt["stacked"].values():
-            lead = {np.asarray(a).shape[0] for a in _leaves(block)}
-            if lead != {g.repeats}:
-                raise ValueError(f"stacked leaves of {cfg.name} lead with "
-                                 f"{sorted(lead)}, not {g.repeats} repeats")
+                         f"{table.shape}")
+    _check_repeats(tree["groups"], cfg.groups, cfg.name)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+
+
+def whisper_params_from_numpy(tree, cfg, device=None) -> dict:
+    """``jax.tree.map(np.asarray, repro.models.whisper.whisper_init(...))``
+    -> the port's whisper tree (``embed``, ``pos``, ``enc``/``dec`` groups
+    with the layer axis, ``enc_norm``, ``dec_norm``; the decoder blocks'
+    cross-attention leaves), checked against ``cfg`` (a ``WhisperCfg``)
+    as ``lm_params_from_numpy`` checks an LM's."""
+    dev = resolve_device(device)
+    keys = {"embed": {"table": None}, "pos": None,
+            "enc": _group_keys(cfg.enc_group()), "enc_norm": _norm_keys("ln"),
+            "dec": _group_keys(cfg.dec_group()), "dec_norm": _norm_keys("ln")}
+    _check_fits(tree, keys, cfg.name)
+    if np.asarray(tree["pos"]).shape != (cfg.max_positions, cfg.d_model):
+        raise ValueError(f"the tree does not fit {cfg.name}: pos "
+                         f"{np.asarray(tree['pos']).shape}")
+    _check_repeats([tree["enc"], tree["dec"]],
+                   [cfg.enc_group(), cfg.dec_group()], cfg.name)
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
 
 

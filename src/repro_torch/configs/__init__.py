@@ -1,16 +1,17 @@
-"""Architecture registry (port of ``repro.configs``).
+"""Architecture registry (port of ``repro.configs``): the ten assigned
+architectures.
 
-Each ported ``configs/<id>.py`` exports ``ARCH: Arch`` with the assigned
+Each ``configs/<id>.py`` exports ``ARCH: Arch`` with the assigned
 full-width config (``make_full``) and a reduced same-family smoke variant
-(``make_smoke``), as in the JAX package.  ``get_arch`` on an architecture
-that is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item.
+(``make_smoke``), as in the JAX package; ``make_cfg`` applies a shape's
+variant (the sliding window of ``long_500k``).  The dry run's
+``input_specs`` belongs to the multi-device work (ROADMAP A.12).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +28,9 @@ SHAPES: Dict[str, ShapeCfg] = {
     "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
 }
+
+# window applied to attention archs for the sub-quadratic long_500k variant
+LONG_CONTEXT_WINDOW = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +52,6 @@ ARCH_IDS = [
     "zamba2_7b", "deepseek_v2_236b", "mamba2_130m", "whisper_small",
     "internvl2_2b", "qwen3_4b",
 ]
-PORTED = ("qwen2_0_5b", "mamba2_130m")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 _ALIASES.update({
@@ -69,8 +72,33 @@ def get_arch(name: str) -> Arch:
     mod_name = canonical_id(name)
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP queue A: the other eight "
-            f"architectures); ported: {', '.join(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").ARCH
+
+
+def list_archs():
+    return [get_arch(i) for i in ARCH_IDS]
+
+
+def supports(arch: Arch, shape: str) -> Tuple[bool, str]:
+    if shape == "long_500k" and not arch.supports_long:
+        return False, ("decoder uses learned absolute positions capped at "
+                       "448 in the source model; a 524k decoder context has "
+                       "no meaningful analogue (DESIGN.md §Shape skips)")
+    return True, ""
+
+
+def make_cfg(arch: Arch, shape: str, *, remat: Optional[bool] = None,
+             unroll: bool = False):
+    """Model config for (arch, shape): the sliding-window variant for
+    attention-family archs on long_500k, remat for training shapes (a
+    training flag the port's forward ignores), ``unroll`` as given."""
+    kw = {}
+    if shape == "long_500k" and arch.needs_window_for_long:
+        kw["window"] = LONG_CONTEXT_WINDOW
+    if remat is None:
+        remat = SHAPES[shape].step == "train"
+    kw["remat"] = remat
+    cfg = arch.make_full(**kw)
+    if unroll:
+        cfg = dataclasses.replace(cfg, unroll=True)
+    return cfg

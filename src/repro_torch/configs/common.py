@@ -1,5 +1,6 @@
-"""Shared builders for the ported architecture configs (port of
-``repro.configs.common``: the dense and the Mamba2 LM)."""
+"""Shared builders for the architecture configs (port of
+``repro.configs.common``): the dense, DeepSeek (MLA + MoE), Mamba2 and
+Zamba2 (hybrid) LMs."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +8,9 @@ from typing import Optional
 from repro_torch.models.blocks import BlockCfg
 from repro_torch.models.lm import GroupCfg, LMCfg
 from repro_torch.nn.attention import AttnCfg
+from repro_torch.nn.mla import MLACfg
 from repro_torch.nn.mlp import MLPCfg
+from repro_torch.nn.moe import MoECfg
 from repro_torch.nn.ssm import SSMCfg
 
 
@@ -31,6 +34,30 @@ def dense_lm(name: str, *, layers: int, d_model: int, n_heads: int,
                  prefix_embed_dim=prefix_embed_dim)
 
 
+def deepseek_lm(name: str, *, layers: int, dense_layers: int, d_model: int,
+                n_heads: int, vocab: int, moe_d_ff: int, dense_d_ff: int,
+                n_experts: int, top_k: int, n_shared: int,
+                kv_lora_rank: int = 512, q_lora_rank: int = 1536,
+                qk_nope_dim: int = 128, qk_rope_dim: int = 64,
+                v_head_dim: int = 128, mtp: bool = False,
+                window: Optional[int] = None, remat: bool = False,
+                capacity_factor: float = 1.25) -> LMCfg:
+    mla = MLACfg(d_model, n_heads, q_lora_rank=q_lora_rank,
+                 kv_lora_rank=kv_lora_rank, qk_nope_dim=qk_nope_dim,
+                 qk_rope_dim=qk_rope_dim, v_head_dim=v_head_dim,
+                 window=window)
+    dense_blk = BlockCfg(d_model=d_model, mixer="mla", ffn="mlp", mla=mla,
+                         mlp=MLPCfg(d_model, dense_d_ff))
+    moe_blk = BlockCfg(d_model=d_model, mixer="mla", ffn="moe", mla=mla,
+                       moe=MoECfg(d_model, moe_d_ff, n_experts=n_experts,
+                                  top_k=top_k, n_shared=n_shared,
+                                  capacity_factor=capacity_factor))
+    return LMCfg(name=name, vocab=vocab, d_model=d_model,
+                 groups=(GroupCfg((dense_blk,), dense_layers),
+                         GroupCfg((moe_blk,), layers - dense_layers)),
+                 tie_embeddings=False, mtp=mtp, remat=remat)
+
+
 def mamba_lm(name: str, *, layers: int, d_model: int, d_state: int,
              vocab: int, head_dim: int = 64, n_groups: int = 1,
              expand: int = 2, chunk: int = 128, remat: bool = False) -> LMCfg:
@@ -41,3 +68,26 @@ def mamba_lm(name: str, *, layers: int, d_model: int, d_state: int,
     return LMCfg(name=name, vocab=vocab, d_model=d_model,
                  groups=(GroupCfg((blk,), layers),), tie_embeddings=True,
                  remat=remat)
+
+
+def zamba_lm(name: str, *, mamba_per_cycle: int, cycles: int,
+             tail_mamba: int, d_model: int, d_state: int, n_heads: int,
+             n_kv_heads: int, d_ff: int, vocab: int, head_dim: int = 64,
+             n_groups: int = 2, chunk: int = 128,
+             remat: bool = False) -> LMCfg:
+    """Zamba2-style hybrid: cycles of (mamba_per_cycle × Mamba2 + 1 shared
+    attention block) followed by a tail of Mamba2 blocks.  The attention
+    block's parameters are shared across cycle repeats; its KV caches stay
+    per occurrence."""
+    ssm = SSMCfg(d_model, 2 * d_model, head_dim=head_dim, n_groups=n_groups,
+                 d_state=d_state, chunk=chunk)
+    m_blk = BlockCfg(d_model=d_model, mixer="ssm", ffn="none", ssm=ssm)
+    a_blk = BlockCfg(
+        d_model=d_model, mixer="attn", ffn="mlp", shared=True,
+        attn=AttnCfg(d_model, n_heads, n_kv_heads, d_model // n_heads),
+        mlp=MLPCfg(d_model, d_ff))
+    groups = [GroupCfg((m_blk,) * mamba_per_cycle + (a_blk,), cycles)]
+    if tail_mamba:
+        groups.append(GroupCfg((m_blk,), tail_mamba))
+    return LMCfg(name=name, vocab=vocab, d_model=d_model,
+                 groups=tuple(groups), tie_embeddings=True, remat=remat)

@@ -42,6 +42,14 @@
 //   query row.  Tensor cores would mean TF32, which cannot meet the f32
 //   tolerance of 2e-5.
 //
+// Head dims: 32, 64, 112 (zamba2-7b's shared attention, 3584 / 32) and
+// 128.  The bf16 layout needs D a multiple of 16 (k-steps of 16, pairs of
+// 8-column output tiles); at 112 a tile row is 7 k-steps and 14 output
+// tiles, the padded row 240 bytes (16-byte aligned for ldmatrix, and the 8
+// rows an ldmatrix reads fall in distinct banks: 60 words apart mod 32),
+// and a row loads in 14 cp.async chunks.  The f32 kernel needs D % 4 == 0
+// (28 output columns a thread at 112).
+//
 // Interface: plain C, loaded with ctypes (kernels/ops.py).  The wrapper
 // checks shapes/dtypes/contiguity (and 16-byte alignment for bf16),
 // allocates the output and passes PyTorch's current stream; the launch
@@ -517,7 +525,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
 
 // q: (B, L, H, D); k, v: (B, S, Hkv, D); out: (B, L, H, D); all contiguous,
 // one dtype: 0 = float32 (flash_simt_kernel), 1 = bfloat16
-// (flash_mma_kernel; pointers 16-byte aligned).  D in {32, 64, 128};
+// (flash_mma_kernel; pointers 16-byte aligned).  D in {32, 64, 112, 128};
 // H % Hkv == 0; window <= 0 means no window.  Sets *grids to the number of
 // grids launched (1, or 0 on an error or an empty call).  Returns the
 // cudaGetLastError() code of the launch (0 on success).
@@ -542,12 +550,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     switch (D) {
       FLASH_CASE(simt, 32)
       FLASH_CASE(simt, 64)
+      FLASH_CASE(simt, 112)
       FLASH_CASE(simt, 128)
     }
   } else if (dtype == 1) {
     switch (D) {
       FLASH_CASE(mma, 32)
       FLASH_CASE(mma, 64)
+      FLASH_CASE(mma, 112)
       FLASH_CASE(mma, 128)
     }
   }

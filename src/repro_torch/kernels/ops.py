@@ -87,7 +87,7 @@ _SIGNATURES = {
     "ssd_scan_smem_bytes": (_I64, [_I64, _I64]),
 }
 
-FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_HEAD_DIMS = (32, 64, 112, 128)   # flash_attention_launch's switch
 SMEM_LIMIT = 232448          # H100: 227 KB of shared memory per block
 
 
@@ -631,12 +631,10 @@ def _check_flash(q, k, v, window):
     if k.shape[2] < 1 or H % k.shape[2]:
         raise ValueError(f"flash_attention: {H} heads do not group over "
                          f"{k.shape[2]} kv heads")
-    if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention takes d_head in "
-                         f"{FLASH_HEAD_DIMS}, not {D}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
                         f"one dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
+    flash_plan(q.dtype, D)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if B < 1 or L < 1 or k.shape[1] < 1:
@@ -650,10 +648,14 @@ class FlashPlan(NamedTuple):
     dtype_code: int    # what flash_attention_launch dispatches on
 
 
-def flash_plan(dtype) -> FlashPlan:
+def flash_plan(dtype, d_head: Optional[int] = None) -> FlashPlan:
     """The kernel ``flash_attention`` takes for q/k/v of ``dtype``: bf16
     goes to the tensor-core kernel, f32 to the CUDA-core one (TF32 would
-    miss the f32 tolerance)."""
+    miss the f32 tolerance).  Both are built for the head dims of
+    ``FLASH_HEAD_DIMS`` (the C switch's); another ``d_head`` is refused."""
+    if d_head is not None and d_head not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention takes d_head in "
+                         f"{FLASH_HEAD_DIMS}, not {d_head}")
     if dtype == torch.bfloat16:
         return FlashPlan("mma_bf16", 1)
     if dtype == torch.float32:

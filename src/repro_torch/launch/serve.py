@@ -24,6 +24,9 @@ def serve_demo(arch_name: str, *, n_requests: int = 8, max_batch: int = 4,
     config of ``arch_name`` with random weights from ``seed``."""
     dev = resolve_device(device)
     arch = get_arch(arch_name)
+    if arch.kind == "whisper":
+        raise SystemExit("whisper serving demo: the engine serves decoder-"
+                         "only LMs; drive whisper_prefill/whisper_decode")
     cfg = arch.make_smoke()
     params = lm_init(make_generator(seed, dev), cfg)
     eng = Engine(cfg, params, ServeCfg(max_batch=max_batch, max_seq=max_seq),

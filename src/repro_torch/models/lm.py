@@ -1,17 +1,22 @@
 """CompositeLM: a decoder-only LM assembled from groups of block cycles
-(port of ``repro.models.lm``).
+(port of ``repro.models.lm``), covering dense, MoE, SSM, hybrid and VLM
+architectures.
 
 A group is ``repeats`` × ``cycle`` (a tuple of BlockCfg).  Parameters of a
 block that is not ``shared`` are stacked with a leading repeat axis, as in
 the JAX tree; the JAX ``lax.scan`` over repeats is a Python loop over that
 axis here.  A ``shared`` block keeps one parameter set for every repeat
-while its caches stay per repeat.  The cache is a list (one per group) of
-dicts (one per stateful block of the cycle) whose leaves carry the repeat
-axis first.
+(Zamba2's shared attention) while its caches stay per repeat.  The cache
+is a list (one per group) of dicts (one per stateful block of the cycle)
+whose leaves carry the repeat axis first.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the VLM prefix projector, multi-token prediction, learned
-positions and an untied LM head.
+Inputs: ``prefix_embeds`` (B, n_prefix, prefix_embed_dim), precomputed
+vision-patch embeddings, go through the projector ``proj`` into the
+leading sequence slots (VLM); learned absolute positions (``pos``) are
+added to the embeddings; an untied ``lm_head`` replaces the tied
+unembedding; a DeepSeek-V3 config carries its multi-token-prediction
+module's parameters (``mtp``), so its tree is the reference's.  The MTP
+loss and ``lm_loss`` are training (ROADMAP A.11, its training half).
 """
 from __future__ import annotations
 
@@ -22,9 +27,12 @@ import torch
 
 from repro_torch.nn import core
 
-from . import blocks
 from .blocks import (BlockCfg, block_decode, block_forward, block_init,
                      block_init_cache, block_prefill)
+
+TRAINING_TODO = ("the LM losses are not ported yet (ROADMAP A.11, its "
+                 "training half: softmax_xent, lm_loss with the MTP loss, "
+                 "whisper_loss)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,38 +49,17 @@ class LMCfg:
     groups: Tuple[GroupCfg, ...]
     final_norm: str = "rms"
     tie_embeddings: bool = True
-    pos_embed: str = "none"        # "none" (rope inside attention)
-    max_positions: int = 0
-    n_prefix: int = 0
-    prefix_embed_dim: int = 0      # VLM (not ported)
-    mtp: bool = False              # multi-token prediction (not ported)
+    pos_embed: str = "none"        # "none" (rope inside attn) | "learned"
+    max_positions: int = 0         # for learned positions
+    n_prefix: int = 0              # VLM: number of vision-patch slots
+    prefix_embed_dim: int = 0      # VLM: raw patch-embedding dim (0 = none)
+    mtp: bool = False              # DeepSeek-V3 multi-token prediction
     remat: bool = False            # training only; ignored here
     unroll: bool = False           # the port always loops in Python
 
     @property
     def n_layers(self) -> int:
         return sum(g.repeats * len(g.cycle) for g in self.groups)
-
-
-def check_ported(cfg: LMCfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet,
-    naming the ROADMAP item."""
-    todo = []
-    if cfg.prefix_embed_dim:
-        todo.append("the VLM prefix projector")
-    if cfg.mtp:
-        todo.append("multi-token prediction")
-    if cfg.pos_embed != "none":
-        todo.append("learned positions")
-    if not cfg.tie_embeddings:
-        todo.append("an untied LM head")
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(todo)} not ported yet (ROADMAP queue "
-            "A: the remaining architectures)")
-    for g in cfg.groups:
-        for b in g.cycle:
-            blocks.check_ported(b)
 
 
 def tree_map(fn, *trees):
@@ -94,38 +81,95 @@ def _stack(trees):
 
 # -- init --------------------------------------------------------------------------
 
+def _stack_init(make, n: int):
+    """``n`` calls of ``make()`` stacked on a leading axis, each written
+    into one preallocated tree as it comes, so the peak is the stack and
+    one block (a full-width group is most of a model's weights)."""
+    first = make()
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    for r in range(n):
+        block = first if r == 0 else make()
+        tree_map(lambda o, a: o[r].copy_(a), out, block)
+        first = block = None
+    return out
+
+
 def _group_init(generator, g: GroupCfg, *, dtype):
     shared, stacked = {}, {}
     for i, bcfg in enumerate(g.cycle):
         if bcfg.shared:
             shared[str(i)] = block_init(generator, bcfg, dtype=dtype)
         else:
-            stacked[str(i)] = _stack([block_init(generator, bcfg, dtype=dtype)
-                                      for _ in range(g.repeats)])
+            stacked[str(i)] = _stack_init(
+                lambda b=bcfg: block_init(generator, b, dtype=dtype),
+                g.repeats)
     return {"shared": shared, "stacked": stacked}
+
+
+def _final_norm_init(kind: str, d: int, dtype, device):
+    if kind == "rms":
+        return core.rmsnorm_init(d, dtype, device)
+    return core.layernorm_init(d, elementwise=kind == "ln", dtype=dtype,
+                               device=device)
 
 
 def lm_init(generator: torch.Generator, cfg: LMCfg, *,
             dtype=torch.float32) -> dict:
     """Random parameters from ``generator``, on its device, in the JAX
-    tree layout (``embed.table``, ``groups[i].shared / .stacked``,
-    ``final_norm``)."""
-    check_ported(cfg)
+    tree layout: ``embed.table``, ``groups[i].shared / .stacked``,
+    ``final_norm``, and where the config has them ``pos``, ``lm_head``,
+    ``proj`` and ``mtp``."""
     dev = generator.device
     p = {"embed": core.embedding_init(generator, cfg.vocab, cfg.d_model,
                                       dtype=dtype),
          "groups": [_group_init(generator, g, dtype=dtype)
-                    for g in cfg.groups]}
-    if cfg.final_norm == "rms":
-        p["final_norm"] = core.rmsnorm_init(cfg.d_model, dtype, dev)
-    else:
-        p["final_norm"] = core.layernorm_init(
-            cfg.d_model, elementwise=cfg.final_norm == "ln", dtype=dtype,
-            device=dev)
+                    for g in cfg.groups],
+         "final_norm": _final_norm_init(cfg.final_norm, cfg.d_model, dtype,
+                                        dev)}
+    if cfg.pos_embed == "learned":
+        p["pos"] = core.normal_init(generator, (cfg.max_positions,
+                                                cfg.d_model), 0.02, dtype)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = core.linear_init(generator, cfg.d_model, cfg.vocab,
+                                        dtype=dtype)
+    if cfg.prefix_embed_dim:
+        p["proj"] = core.linear_init(generator, cfg.prefix_embed_dim,
+                                     cfg.d_model, bias=True, dtype=dtype)
+    if cfg.mtp:
+        # depth-1 MTP module: both streams normed, 2d -> d, one block
+        p["mtp"] = {
+            "norm_h": core.rmsnorm_init(cfg.d_model, dtype, dev),
+            "norm_e": core.rmsnorm_init(cfg.d_model, dtype, dev),
+            "proj": core.linear_init(generator, 2 * cfg.d_model, cfg.d_model,
+                                     dtype=dtype),
+            "block": block_init(generator, cfg.groups[-1].cycle[-1],
+                                dtype=dtype)}
     return p
 
 
 # -- embedding / head ------------------------------------------------------------------
+
+def _positions(p, cfg: LMCfg, start, L: int):
+    """Rows [start, start + L) of the learned position table, with the
+    start clamped as ``dynamic_slice`` clamps it; ``start`` an int or a
+    (B,) tensor (L = 1, one position per row)."""
+    if torch.is_tensor(start) and start.dim():
+        idx = start.clamp(0, cfg.max_positions - 1)[:, None]
+        return p["pos"][idx]                                 # (B, 1, d)
+    s = min(max(int(start), 0), cfg.max_positions - L)
+    return p["pos"][s: s + L]
+
+
+def _embed_inputs(p, cfg: LMCfg, tokens, prefix_embeds, *, compute_dtype):
+    x = core.embed(p["embed"], tokens, compute_dtype=compute_dtype)
+    if cfg.prefix_embed_dim and prefix_embeds is not None:
+        vis = core.linear(p["proj"], prefix_embeds,
+                          compute_dtype=compute_dtype)
+        x = torch.cat([vis, x], dim=1)
+    if cfg.pos_embed == "learned":
+        x = x + _positions(p, cfg, 0, x.shape[1]).to(compute_dtype)
+    return x
+
 
 def _final_norm(p, cfg: LMCfg, x):
     if cfg.final_norm == "rms":
@@ -134,8 +178,13 @@ def _final_norm(p, cfg: LMCfg, x):
 
 
 def _logits(p, cfg: LMCfg, x, *, compute_dtype):
-    return core.unembed(p["embed"], _final_norm(p, cfg, x),
-                        compute_dtype=compute_dtype)
+    """f32 logits of the final-normed ``x``: the tied unembedding, or the
+    untied head (bf16 operands, f32 products and sums)."""
+    x = _final_norm(p, cfg, x)
+    if cfg.tie_embeddings:
+        return core.unembed(p["embed"], x, compute_dtype=compute_dtype)
+    w = p["lm_head"]["w"].to(compute_dtype).float()
+    return torch.matmul(x.to(compute_dtype).float(), w)
 
 
 def _block_params(gp, bcfg: BlockCfg, i: int, r: int):
@@ -145,11 +194,12 @@ def _block_params(gp, bcfg: BlockCfg, i: int, r: int):
 
 # -- forward -------------------------------------------------------------------------
 
-def lm_forward(p, cfg: LMCfg, tokens, *, positions=None,
+def lm_forward(p, cfg: LMCfg, tokens, *, prefix_embeds=None, positions=None,
                impl: str = "kernel", compute_dtype=torch.bfloat16):
-    """tokens: (B, L) int.  Returns (logits (B, L, vocab) f32, aux)."""
-    check_ported(cfg)
-    x = core.embed(p["embed"], tokens, compute_dtype=compute_dtype)
+    """tokens: (B, L_text) int [+ prefix_embeds (B, n_prefix, raw_dim)].
+    Returns (logits (B, L, vocab) f32, aux)."""
+    x = _embed_inputs(p, cfg, tokens, prefix_embeds,
+                      compute_dtype=compute_dtype)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
@@ -163,68 +213,100 @@ def lm_forward(p, cfg: LMCfg, tokens, *, positions=None,
     return _logits(p, cfg, x, compute_dtype=compute_dtype), aux
 
 
+def lm_loss(*args, **kwargs):
+    """Training; refused (``TRAINING_TODO``)."""
+    raise NotImplementedError(TRAINING_TODO)
+
+
 # -- cache / prefill / decode -----------------------------------------------------------
+
+def stacked_cache(g: GroupCfg, make) -> dict:
+    """Per-repeat cache of every stateful block of the cycle, ``make(bcfg)``
+    repeated along a leading repeat axis."""
+    gc = {}
+    for i, bcfg in enumerate(g.cycle):
+        c = make(bcfg)
+        if c:
+            gc[str(i)] = tree_map(
+                lambda a: a.unsqueeze(0).repeat((g.repeats,) + (1,) * a.dim()),
+                c)
+    return gc
+
 
 def lm_init_cache(cfg: LMCfg, B: int, S: int, *, dtype=torch.bfloat16,
                   device=None) -> list:
-    check_ported(cfg)
-    out = []
-    for g in cfg.groups:
-        gc = {}
+    return [stacked_cache(g, lambda b: block_init_cache(
+        b, B, S, dtype=dtype, device=device)) for g in cfg.groups]
+
+
+def group_prefill(gp, g: GroupCfg, x, gc, *, positions, enc=None,
+                  impl: str = "kernel", compute_dtype=torch.bfloat16):
+    """One group's repeats over ``x``, filling its cache ``gc``.  Returns
+    (x, the group's new cache)."""
+    per_repeat = []
+    for r in range(g.repeats):
+        nc_r = {}
         for i, bcfg in enumerate(g.cycle):
-            c = block_init_cache(bcfg, B, S, dtype=dtype, device=device)
-            if c:
-                gc[str(i)] = tree_map(
-                    lambda a: a.unsqueeze(0).repeat(
-                        (g.repeats,) + (1,) * a.dim()), c)
-        out.append(gc)
-    return out
+            bc = _index(gc[str(i)], r) if str(i) in gc else {}
+            x, nc, _ = block_prefill(_block_params(gp, bcfg, i, r), bcfg, x,
+                                     bc, positions=positions, enc=enc,
+                                     impl=impl, compute_dtype=compute_dtype)
+            if nc:
+                nc_r[str(i)] = nc
+        per_repeat.append(nc_r)
+    return x, _stack(per_repeat)
 
 
-def lm_prefill(p, cfg: LMCfg, tokens, cache, *, impl: str = "kernel",
-               compute_dtype=torch.bfloat16):
-    """Prefill positions [0, L) of ``tokens`` (B, L); returns (last-token
-    logits (B, 1, vocab) f32, the filled cache).  The cache passed in is
-    not changed."""
-    check_ported(cfg)
-    x = core.embed(p["embed"], tokens, compute_dtype=compute_dtype)
+def group_decode(gp, g: GroupCfg, x, gc, pos, *,
+                 compute_dtype=torch.bfloat16, route_rows: bool = False):
+    """One decode step through one group's repeats.  Returns (x, the
+    group's new cache)."""
+    per_repeat = []
+    for r in range(g.repeats):
+        nc_r = {}
+        for i, bcfg in enumerate(g.cycle):
+            bc = _index(gc[str(i)], r) if str(i) in gc else {}
+            x, nc = block_decode(_block_params(gp, bcfg, i, r), bcfg, x, bc,
+                                 pos, compute_dtype=compute_dtype,
+                                 route_rows=route_rows)
+            if nc:
+                nc_r[str(i)] = nc
+        per_repeat.append(nc_r)
+    return x, _stack(per_repeat)
+
+
+def lm_prefill(p, cfg: LMCfg, tokens, cache, *, prefix_embeds=None,
+               impl: str = "kernel", compute_dtype=torch.bfloat16):
+    """Prefill positions [0, L) of ``tokens`` (B, L_text), behind the
+    projected ``prefix_embeds`` if given; returns (last-token logits (B,
+    1, vocab) f32, the filled cache).  The cache passed in is not
+    changed."""
+    x = _embed_inputs(p, cfg, tokens, prefix_embeds,
+                      compute_dtype=compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     new_cache = []
     for gp, g, gc in zip(p["groups"], cfg.groups, cache):
-        per_repeat = []
-        for r in range(g.repeats):
-            nc_r = {}
-            for i, bcfg in enumerate(g.cycle):
-                bc = _index(gc[str(i)], r) if str(i) in gc else {}
-                x, nc, _ = block_prefill(_block_params(gp, bcfg, i, r), bcfg,
-                                         x, bc, positions=positions,
-                                         impl=impl,
-                                         compute_dtype=compute_dtype)
-                if nc:
-                    nc_r[str(i)] = nc
-            per_repeat.append(nc_r)
-        new_cache.append(_stack(per_repeat))
+        x, nc = group_prefill(gp, g, x, gc, positions=positions, impl=impl,
+                              compute_dtype=compute_dtype)
+        new_cache.append(nc)
     return _logits(p, cfg, x[:, -1:], compute_dtype=compute_dtype), new_cache
 
 
 def lm_decode(p, cfg: LMCfg, token, cache, pos, *,
-              compute_dtype=torch.bfloat16):
+              compute_dtype=torch.bfloat16, route_rows: bool = False):
     """One-token decode.  token: (B, 1) int; pos: scalar or (B,) int, the
-    absolute position of each row's token.  Returns (logits (B, 1, vocab)
+    absolute position of each row's token.  ``route_rows``: MoE layers
+    route each row on its own, as the reference's engine, which maps a
+    one-row decode over its slots, does.  Returns (logits (B, 1, vocab)
     f32, new cache); the cache passed in is not changed."""
-    check_ported(cfg)
     x = core.embed(p["embed"], token, compute_dtype=compute_dtype)
+    if cfg.pos_embed == "learned":
+        start = torch.as_tensor(pos, device=x.device)
+        start = start.expand(x.shape[0]) if start.dim() == 0 else start
+        x = x + _positions(p, cfg, start, 1).to(compute_dtype)
     new_cache = []
     for gp, g, gc in zip(p["groups"], cfg.groups, cache):
-        per_repeat = []
-        for r in range(g.repeats):
-            nc_r = {}
-            for i, bcfg in enumerate(g.cycle):
-                bc = _index(gc[str(i)], r) if str(i) in gc else {}
-                x, nc = block_decode(_block_params(gp, bcfg, i, r), bcfg, x,
-                                     bc, pos, compute_dtype=compute_dtype)
-                if nc:
-                    nc_r[str(i)] = nc
-            per_repeat.append(nc_r)
-        new_cache.append(_stack(per_repeat))
+        x, nc = group_decode(gp, g, x, gc, pos, compute_dtype=compute_dtype,
+                             route_rows=route_rows)
+        new_cache.append(nc)
     return _logits(p, cfg, x, compute_dtype=compute_dtype), new_cache

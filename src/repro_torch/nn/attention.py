@@ -1,12 +1,17 @@
-"""Grouped-query attention with optional QKV bias, qk-norm and sliding
-window, and KV-cache decode (port of ``repro.nn.attention``).
+"""Grouped-query attention with optional QKV bias, qk-norm, sliding
+window, cross-attention, and KV-cache decode (port of
+``repro.nn.attention``).
 
 ``attn_forward`` sends causal self-attention through the hand-written
 ``flash_attention`` kernel (``impl="kernel"``, the default) or through the
 plain score-matrix path (``impl="plain"``, the JAX ``impl="xla"``).
-Decode takes one position per batch row, so a continuous-batching engine
-decodes all its slots in one call.  Cross-attention and the training-only
-``chunked_attention`` are not ported yet (ROADMAP queue A).
+Non-causal attention (whisper's encoder) and cross-attention take the
+plain path whatever ``impl`` says, as the reference's do.  Cross-attention
+reads its K/V from encoder states (``kv_src``) and applies no RoPE; its
+decode cache holds those static K/V and is never written.  Decode takes
+one position per batch row, so a continuous-batching engine decodes all
+its slots in one call.  The training-only ``chunked_attention`` is not
+ported yet (ROADMAP A.11, its training half).
 """
 from __future__ import annotations
 
@@ -22,8 +27,6 @@ from .core import linear, linear_init, rmsnorm, rmsnorm_init
 from .rotary import apply_rope, rope_cos_sin
 
 NEG_INF = -1e30
-_CROSS_TODO = ("cross-attention is not ported yet (ROADMAP queue A: "
-               "whisper and the encoder-decoder blocks)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +41,7 @@ class AttnCfg:
     rope_theta: float = 10000.0
     causal: bool = True
     window: Optional[int] = None      # sliding-window size (tokens)
-    cross: bool = False               # cross-attention (not ported)
+    cross: bool = False               # cross-attention (kv from encoder)
     d_kv_in: Optional[int] = None     # input dim for kv projections (cross)
     ring: bool = False                # decode KV cache = ring buffer of size
     # `window` instead of the full sequence
@@ -104,43 +107,48 @@ def _masked_softmax(scores, valid):
     return torch.softmax(scores, dim=-1)
 
 
-def attn_forward(p: dict, cfg: AttnCfg, x: torch.Tensor, *, positions=None,
-                 impl: str = "kernel", compute_dtype=torch.bfloat16,
-                 return_kv: bool = False):
-    """Full-sequence self-attention (prefill).  x: (B, L, D); positions:
+def attn_forward(p: dict, cfg: AttnCfg, x: torch.Tensor, *, kv_src=None,
+                 positions=None, impl: str = "kernel",
+                 compute_dtype=torch.bfloat16, return_kv: bool = False):
+    """Full-sequence attention (prefill).  x: (B, L, D); ``kv_src`` (B, S,
+    Dkv) the encoder states of cross-attention (default x); positions:
     (L,) absolute positions for RoPE (default arange).  ``impl="kernel"``
-    runs causal attention through ``kernels.ops.flash_attention``;
-    ``impl="plain"`` (and non-causal attention) through the score matrix."""
-    if cfg.cross:
-        raise NotImplementedError(_CROSS_TODO)
+    runs causal self-attention through ``kernels.ops.flash_attention``;
+    ``impl="plain"``, non-causal and cross-attention through the score
+    matrix."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', not {impl!r}")
     B, L, _ = x.shape
+    kv_in = x if kv_src is None else kv_src
+    S = kv_in.shape[1]
     q = _split_heads(linear(p["q"], x, compute_dtype=compute_dtype),
                      cfg.n_heads, cfg.d_head)
-    k = _split_heads(linear(p["k"], x, compute_dtype=compute_dtype),
+    k = _split_heads(linear(p["k"], kv_in, compute_dtype=compute_dtype),
                      cfg.n_kv_heads, cfg.d_head)
-    v = _split_heads(linear(p["v"], x, compute_dtype=compute_dtype),
+    v = _split_heads(linear(p["v"], kv_in, compute_dtype=compute_dtype),
                      cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
-    if cfg.rope:
+    if cfg.rope and not cfg.cross:
         if positions is None:
             positions = torch.arange(L, device=x.device)
         cos, sin = rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if impl == "kernel" and cfg.causal:
+    if impl == "kernel" and cfg.causal and not cfg.cross:
         out = kops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True,
                                    window=cfg.window)
     else:
         scores = _gqa_scores(q, k, 1.0 / math.sqrt(cfg.d_head))
-        mask = causal_window_mask(L, L, causal=cfg.causal, window=cfg.window,
-                                  device=x.device)
-        out = _gqa_out(_masked_softmax(scores, mask), v).to(compute_dtype)
+        if cfg.cross:
+            probs = torch.softmax(scores, dim=-1)
+        else:
+            probs = _masked_softmax(scores, causal_window_mask(
+                L, S, causal=cfg.causal, window=cfg.window, device=x.device))
+        out = _gqa_out(probs, v).to(compute_dtype)
     y = linear(p["o"], _merge_heads(out), compute_dtype=compute_dtype)
     if return_kv:
         return y, (k, v)
@@ -169,14 +177,22 @@ def attn_decode(p: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict, pos, *,
     token.  Returns (y, new_cache); the cache passed in is not changed.
 
     A position at or past S writes the last slot (the clamp of the JAX
-    ``dynamic_update_slice``); a ring cache writes slot ``pos % S``."""
-    if cfg.cross:
-        raise NotImplementedError(_CROSS_TODO)
+    ``dynamic_update_slice``); a ring cache writes slot ``pos % S``.  For
+    cross-attention the cache holds the encoder's (static) K/V: it is read
+    whole, unmasked, and returned as it is (``pos`` is not used)."""
     B = x.shape[0]
     dev = x.device
-    pos = _row_positions(pos, B, dev)
     q = _split_heads(linear(p["q"], x, compute_dtype=compute_dtype),
                      cfg.n_heads, cfg.d_head)
+    if cfg.cross:
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q)
+        probs = torch.softmax(_gqa_scores(q, cache["k"], 1.0 / math.sqrt(
+            cfg.d_head)), dim=-1)
+        out = _gqa_out(probs, cache["v"]).to(compute_dtype)
+        return linear(p["o"], _merge_heads(out),
+                      compute_dtype=compute_dtype), cache
+    pos = _row_positions(pos, B, dev)
     k_new = _split_heads(linear(p["k"], x, compute_dtype=compute_dtype),
                          cfg.n_kv_heads, cfg.d_head)
     v_new = _split_heads(linear(p["v"], x, compute_dtype=compute_dtype),

@@ -11,6 +11,9 @@ engine.  Prefill runs per request at a bucketed length (powers of two from
 the slot's position is set to the bucket and its first token is the argmax
 at the last padded position — the reference's behaviour, kept as it is.
 Every prefill goes through the hand-written kernels (``impl="kernel"``).
+Any ``LMCfg`` is served (dense, MLA/MoE, SSM, hybrid; a VLM's text only,
+as in the reference); MoE layers route each slot's token on its own in
+decode (``route_rows``), as the reference's mapped one-slot decode does.
 """
 from __future__ import annotations
 
@@ -108,7 +111,7 @@ class Engine:
             logits, self.cache = lm_decode(
                 self.params, self.cfg,
                 torch.from_numpy(self.last_tok).to(self.device), self.cache,
-                torch.from_numpy(self.pos).to(self.device))
+                torch.from_numpy(self.pos).to(self.device), route_rows=True)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).tolist()
         finished = []
         for i, s in enumerate(self.slots):

@@ -502,7 +502,15 @@ def _randn(seed, *shape, device, dtype=torch.float32):
     (2, 4, 2, 200, 200, 32, None, torch.bfloat16, True),
     (1, 8, 2, 200, 200, 128, None, torch.bfloat16, True),
     (2, 4, 2, 40, 56, 64, None, torch.bfloat16, False),
-    (1, 14, 2, 4096, 4096, 64, None, torch.bfloat16, True)])
+    (1, 14, 2, 4096, 4096, 64, None, torch.bfloat16, True),
+    # d_head 112 (zamba2-7b's shared attention): its heads, GQA, windows,
+    # ragged edges, in both kernels
+    (1, 32, 32, 300, 300, 112, None, torch.bfloat16, True),
+    (2, 8, 2, 200, 200, 112, 64, torch.bfloat16, True),
+    (1, 4, 1, 77, 77, 112, None, torch.bfloat16, True),
+    (2, 4, 2, 130, 130, 112, None, torch.float32, True),
+    (1, 8, 2, 96, 96, 112, 40, torch.float32, True),
+    (2, 4, 2, 40, 56, 112, None, torch.float32, False)])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, L, S, D,
                                               window, dtype, causal):
     q = _randn(1, B, L, H, D, device=cuda, dtype=dtype)
@@ -599,6 +607,32 @@ def test_full_width_prefill_launches_one_kernel_per_layer(cuda, name,
     assert ops.LAUNCHES[kernel] == cfg.n_layers == 24
     assert sum(ops.LAUNCHES.values()) == 24
     assert bool(torch.isfinite(logits).all())
+
+
+def test_zamba_layout_prefill_runs_flash_at_d_head_112(cuda):
+    """A Zamba2-layout hybrid whose shared attention has zamba2-7b's d_head
+    of 112 (4 heads over d_model 448): one flash_attention launch per
+    attention occurrence and one ssd_scan per Mamba2 layer, and the kernel
+    prefill against the plain one."""
+    from repro_torch.configs.common import zamba_lm
+    cfg = zamba_lm("zamba-d112", mamba_per_cycle=2, cycles=2, tail_mamba=1,
+                   d_model=448, d_state=16, n_heads=4, n_kv_heads=4,
+                   d_ff=512, vocab=256, head_dim=64, n_groups=2, chunk=32)
+    params = lm_init(make_generator(0, cuda), cfg)
+    toks = torch.from_numpy(np.arange(100) % cfg.vocab).to(cuda)[None]
+    out = {}
+    for impl in ("kernel", "plain"):
+        ops.reset_launches()
+        with torch.no_grad():
+            out[impl], _ = lm_prefill(params, cfg, toks,
+                                      lm_init_cache(cfg, 1, 128, device=cuda),
+                                      impl=impl)
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            assert ops.LAUNCHES["flash_attention"] == 2
+            assert ops.LAUNCHES["ssd_scan"] == 5
+    scale = out["plain"].abs().max()
+    assert (out["kernel"] - out["plain"]).abs().max() <= 5e-2 * scale
 
 
 # -- the learner axis (the fused vector-env learners) -------------------------
