@@ -120,6 +120,25 @@ Phases, each printing one JSON line:
                plain versions; prefill ms, decode tokens/s, weight bytes.
 11. arch_timing  — flash_attention (with SDPA) and ssd_scan timed at every
                shape phase 10 launched that phase 4 did not time.
+12. lm_train     — LM training (f32 weights from seeds, bf16 compute, the
+               training CLI's batch 8, seq 128, lr 3e-4): qwen2-0.5b and
+               mamba2-130m at full width for 20 steps through train_loop
+               with a checkpoint (finite losses and gnorms, the schedule's
+               lr every step, every parameter changed; s/step, tokens/s,
+               peak memory; one step's host ms, device ms, idle share and
+               kernels, FlopCounterMode's FLOPs, useful_ratio and mfu);
+               qwen2-0.5b at batch 1, L = 2048 through the plain and the
+               chunked attention (s/step, peak memory, the same loss);
+               whisper-small at full width and deepseek-v3-671b at its
+               smoke width for 5 steps; every other architecture one
+               step at its smoke config; qwen2-0.5b's smoke config for 60
+               steps at lr 3e-3, batch 8, seq 64, its loss down by more
+               than 0.5.  No flash_attention or ssd_scan launch while
+               training.  Both checkpoints read back onto the card (bit
+               for bit) and served behind Engine(max_batch=4, max_seq=512)
+               with exact launches (24 flash_attention a qwen2 prefill, 24
+               ssd_scan a mamba2 prefill) and one prefill against the
+               plain versions.
 
 Phases 3 and 4 cover every kernel: ddpm_step, ddpm_step_bwd, ddpm_chain
 (at the control and data planes' chains, R = 16 and 64, and odd widths),
@@ -135,7 +154,7 @@ the shapes the paths ran; times at other shapes under ``at``) and, last,
 ``{"ok": true, "device": {...}}``.  Launch and grid counts are reset just
 before each path runs (training, serving) and read just after, so
 comparison and timing launches do not count.
-Phases 5-8 take a device, so the CPU tests run them small.
+Phases 5-10 and 12 take a device, so the CPU tests run them small.
 """
 from __future__ import annotations
 
@@ -191,6 +210,13 @@ from repro_torch.diffusion import (Denoiser, make_schedule,  # noqa: E402
                                    reverse_sample, time_embedding)
 from repro_torch.diffusion.sampler import chain_tables  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.bridge import lm_train_state_from_numpy  # noqa: E402
+from repro_torch.checkpoint import load_pytree  # noqa: E402
+from repro_torch.launch.roofline import (PEAK_FLOPS,  # noqa: E402
+                                         active_fraction, model_flops,
+                                         roofline, step_cost)
+from repro_torch.launch.steps import PerfOpts, param_shapes  # noqa: E402
+from repro_torch.launch.train import train_loop, train_setup  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.nn.core import count_params  # noqa: E402
 from repro_torch.serving import (CatalogEntry, EdgeGateway,  # noqa: E402
@@ -3258,6 +3284,333 @@ def phase_arch_timing(device, timing: dict, archs: dict) -> dict:
     return {"phase": "arch_timing", **rows}
 
 
+# -- 12. LM training -------------------------------------------------------------
+
+LM_TRAIN_FULL = ("qwen2-0.5b", "mamba2-130m")
+# the training CLI's defaults (repro_torch/launch/train.py): batch 8, seq
+# 128, lr 3e-4; 20 steps
+LM_TRAIN = dict(steps=20, batch=8, seq_len=128, lr=3e-4)
+LM_TRAIN_WIDE = ("whisper-small", "deepseek-v3-671b")   # 5 steps each
+LM_TRAIN_WIDE_STEPS = 5
+LONG_TRAIN_L = 2048          # qwen2-0.5b, batch 1: plain vs chunked
+# plain against chunked attention at LONG_TRAIN_L (two 1024-key blocks).
+# The bf16 train step's loss: both round the same bf16 q, k, v; the chunked
+# path sums the softmax in blocks and rounds its output once.  In f32
+# compute: the loss, and the q/k/v weights' gradients of every layer by
+# relative L2 (the chunked backward against autograd of the plain path).
+# Each limit is ten times the reading on the H100 (PERF.md §5).
+LONG_LOSS_TOL = 2e-4           # relative; read 1.76e-5
+LONG_F32_LOSS_TOL = 1e-6       # relative; read 0.0 (ten f32 ulps at 12.5)
+LONG_F32_GRAD_TOL = 5e-5       # relative L2; read 4.55e-6
+# tests/test_system.py:21's requirement of the JAX package: qwen2-0.5b at
+# its smoke width, 60 steps at lr 3e-3, batch 8, seq 64, loss down > 0.5
+LM_CONVERGE = dict(steps=60, batch=8, seq_len=64, lr=3e-3)
+LM_CONVERGE_DROP = 0.5
+
+
+def _no_lm_kernels(what: str) -> dict:
+    """The launches since the last reset; none may be an LM kernel (the
+    kernels have no backward: training runs the plain and chunked
+    paths)."""
+    got = dict(ops.LAUNCHES)
+    require(got["flash_attention"] == 0 and got["ssd_scan"] == 0,
+            f"{what}: LM kernels launched while training: {got}")
+    return got
+
+
+def _check_history(hist, sched, what: str) -> None:
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"])
+                for h in hist), f"{what}: non-finite loss or gnorm")
+    lrs = [float(sched(i)) for i in range(len(hist))]
+    require([h["lr"] for h in hist] == lrs,
+            f"{what}: lrs {[h['lr'] for h in hist]}, schedule {lrs}")
+
+
+def _unchanged_leaves(init, params) -> list:
+    """Indices (``tree_leaves`` order) of the leaves training left equal
+    to their initial values."""
+    return [i for i, (a, b) in enumerate(zip(lm_mod.tree_leaves(init),
+                                             lm_mod.tree_leaves(params)))
+            if torch.equal(a, b.detach())]
+
+
+def _peak_reset(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev):
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def _train_run(dev, name: str, *, smoke: bool, steps: int, batch: int,
+               seq_len: int, lr: float, seed: int, ckpt: str = "") -> tuple:
+    """``train_loop`` from random f32 weights (``seed``): finite losses
+    and gnorms, the schedule's lr at every step, no LM kernel launched;
+    with ``changed``, every parameter leaf moved.  Returns (row, params,
+    opt, the setup)."""
+    setup = train_setup(name, smoke=smoke, steps=steps, batch=batch,
+                        seq_len=seq_len, lr=lr, device=dev)
+    _peak_reset(dev)
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    params, opt, hist = train_loop(name, smoke=smoke, steps=steps,
+                                   batch=batch, seq_len=seq_len, lr=lr,
+                                   log_every=0, seed=seed, ckpt=ckpt,
+                                   device=dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _no_lm_kernels(f"{name} train_loop")
+    _check_history(hist, setup[2], name)
+    later = [h["s"] for h in hist[1:]] or [hist[0]["s"]]
+    s_step = float(np.median(later))
+    row = {"width": "make_smoke" if smoke else "make_full", "steps": steps,
+           "batch": batch, "seq_len": seq_len, "lr": lr, "wall_s": wall,
+           "s_per_step": s_step, "first_step_s": hist[0]["s"],
+           "tokens_per_s": batch * seq_len / s_step,
+           "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+           "gnorm_last": hist[-1]["gnorm"], "lrs": [h["lr"] for h in hist],
+           "params": count_params(params), "peak_memory_bytes": _peak(dev),
+           "launches": {k: v for k, v in launches.items() if v}}
+    return row, params, opt, setup
+
+
+def _step_profile(dev, params, opt, setup, seed: int) -> dict:
+    """One more step of a trained state, measured three ways on a fixed
+    batch: host ms (3 steps, each ending in a synchronise); on the card,
+    device ms and kernels a step from torch.profiler and the idle share
+    of the host time; FLOPs (FlopCounterMode) and bytes of one step
+    (``roofline.step_cost``), their roofline terms against the H100's
+    peaks, ``mfu`` (6·N·tokens over the step's host time, against 989
+    TFLOP/s) and ``useful_ratio`` (6·N·tokens over the counted FLOPs)."""
+    arch, cfg, _, _, train_step, batch_fn = setup
+    b = batch_fn(torch.Generator().manual_seed(seed + 1))
+    state = {"params": params, "opt": opt}
+
+    def one():
+        state["params"], state["opt"], m = train_step(
+            state["params"], state["opt"], b)
+        return m
+
+    one()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one()
+    sync(dev)
+    host_ms = 1e3 * (time.perf_counter() - t0) / 3
+    tokens = b["labels"].numel()
+    n_active = count_params(params) * active_fraction(cfg)
+    mf = model_flops(n_active, tokens)
+    _, cost = step_cost(one)
+    rf = roofline(cost, {}, chips=1, model_flops_total=mf)
+    out = {"host_ms_per_step": host_ms, "tokens": tokens,
+           "active_params": n_active, "model_flops": mf,
+           "counted_flops": cost["flops"], "counted_bytes":
+           cost["bytes accessed"], "useful_ratio": rf.useful_ratio,
+           "roofline": {k: getattr(rf, k) for k in (
+               "compute_s", "memory_s", "bottleneck")},
+           "mfu": None}
+    if dev.type == "cuda":
+        out["mfu"] = mf / (host_ms / 1e3) / PEAK_FLOPS
+        events, kernels, _ = device_ms_per_call(one, 3)
+        busy = sum(events.values())
+        out.update(device_ms_per_step=busy,
+                   device_idle_share=1.0 - busy / host_ms,
+                   device_kernels_per_step=kernels,
+                   device_ms_top=dict(sorted(events.items(),
+                                             key=lambda kv: -kv[1])[:6]))
+    return out
+
+
+def _qkv_grads(params, cfg, batch, impl: str) -> tuple:
+    """The f32-compute loss through ``impl`` and the gradients of the q,
+    k and v projection weights (each stacked over the layers), on the
+    host."""
+    mixer = params["groups"][0]["stacked"]["0"]["mixer"]
+    leaves = [mixer[k]["w"] for k in ("q", "k", "v")]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = lm_mod.lm_loss(params, cfg, batch, impl=impl,
+                             compute_dtype=torch.float32)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.cpu() for g in grads]
+
+
+def _max_layer_rel_l2(want: list, got: list) -> float:
+    """max over the leaves and their layers (axis 0) of ||got - want|| /
+    ||want||."""
+    return max(float(((g - w).flatten(1).norm(dim=1)
+                      / w.flatten(1).norm(dim=1)).max())
+               for w, g in zip(want, got))
+
+
+def _plain_vs_chunked(dev, name: str, smoke: bool, L: int,
+                      seed: int) -> dict:
+    """``name`` at batch 1 and length L through each attention impl from
+    the same weights and batch.  In f32 compute: the loss and the q, k, v
+    weights' gradients of every layer (so the chunked backward), held to
+    LONG_F32_LOSS_TOL and LONG_F32_GRAD_TOL.  Then one bf16 train step
+    (after a warm-up step): s/step, peak memory, and its loss, held to
+    LONG_LOSS_TOL."""
+    out, f32 = {}, {}
+    for impl in ("plain", "chunked"):
+        _, cfg, _, init_fn, train_step, batch_fn = train_setup(
+            name, smoke=smoke, steps=2, batch=1, seq_len=L,
+            opts=PerfOpts(impl=impl), device=dev)
+        params, opt = init_fn(make_generator(seed, dev))
+        b = batch_fn(torch.Generator().manual_seed(seed))
+        ops.reset_launches()
+        f32[impl] = _qkv_grads(params, cfg, b, impl)
+        _peak_reset(dev)
+        params, opt, m = train_step(params, opt, b)       # lr 0: no move
+        loss = float(m["loss"])
+        sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = train_step(params, opt, b)
+        float(m["loss"])
+        sync(dev)
+        _no_lm_kernels(f"{name} L={L} {impl}")
+        out[impl] = {"s_per_step": time.perf_counter() - t0, "loss": loss,
+                     "peak_memory_bytes": _peak(dev)}
+        del params, opt, m
+    rel = {"loss_rel_diff": abs(out["plain"]["loss"] - out["chunked"]["loss"])
+           / abs(out["plain"]["loss"]),
+           "f32_loss_rel_diff": abs(f32["plain"][0] - f32["chunked"][0])
+           / abs(f32["plain"][0]),
+           "f32_qkv_grad_rel_l2": _max_layer_rel_l2(f32["plain"][1],
+                                                     f32["chunked"][1])}
+    tol = {"loss_rel_diff": LONG_LOSS_TOL,
+           "f32_loss_rel_diff": LONG_F32_LOSS_TOL,
+           "f32_qkv_grad_rel_l2": LONG_F32_GRAD_TOL}
+    for k, v in rel.items():
+        require(v <= tol[k], f"{name} L={L}: plain vs chunked {k} {v} > "
+                f"{tol[k]}")
+    return {"arch": name, "batch": 1, "seq_len": L, **out, **rel,
+            "tolerance": tol}
+
+
+def _serve_trained(dev, name: str, cfg, ckpt: str, params, rng,
+                   n_requests, max_prompt, max_seq, max_new,
+                   totals) -> dict:
+    """The checkpoint of a trained state, read back onto the device
+    (every parameter bit for bit the trained one), served behind
+    Engine(max_batch=4, max_seq) with exact kernel launches and one
+    prefill against the plain versions."""
+    state = lm_train_state_from_numpy(load_pytree(ckpt), cfg, device=dev)
+    same = all(torch.equal(a, b.detach()) for a, b in zip(
+        lm_mod.tree_leaves(state["params"]), lm_mod.tree_leaves(params)))
+    require(same, f"{name}: the checkpoint read back differs from the "
+            "trained weights")
+    row = _serve_arch(dev, name, cfg, state["params"], rng, n_requests,
+                      max_prompt, max_seq, max_new, totals)
+    row["checkpoint_bytes"] = Path(ckpt).stat().st_size
+    row["opt_step"] = state["opt"]["step"]
+    return row
+
+
+def phase_lm_train(device, make: str = "make_full", train=LM_TRAIN,
+                   wide_steps: int = LM_TRAIN_WIDE_STEPS,
+                   long_L: int = LONG_TRAIN_L, converge=LM_CONVERGE,
+                   n_requests: int = 4, max_prompt: int = 300,
+                   max_seq: int = 512, max_new: int = 16, seed: int = 0,
+                   ckpt_dir: str = "", card: str = "") -> dict:
+    """LM training on the device (``card``: nvidia-smi's name and power
+    limit, reported beside the numbers): qwen2-0.5b and mamba2-130m (``make``
+    width, f32 weights from seeds, bf16 compute) for ``train`` steps
+    through ``train_loop`` with ``--ckpt``, each profiled one step more;
+    qwen2-0.5b at batch 1 and ``long_L`` through the plain and the
+    chunked attention; whisper-small (``make`` width) and deepseek-v3-671b
+    (its smoke width) for ``wide_steps`` steps; every other architecture
+    one step at its smoke config; qwen2-0.5b's smoke config for
+    ``converge``'s steps, its loss down by more than 0.5.  No LM kernel
+    launches while training.  Then both trained checkpoints, read back
+    onto the device, are served behind Engine(max_batch=4, max_seq) with
+    exact flash_attention/ssd_scan launches (their counts by shape and
+    grids are the phase's ``launches_by_shape`` and ``grids``)."""
+    dev = resolve_device(device)
+    smoke = make == "make_smoke"
+    rng = np.random.default_rng(seed)
+    totals = {"by_shape": {"flash_attention": {}, "ssd_scan": {}},
+              "grids": {"flash_attention": 0, "ssd_scan": 0}}
+    tmp = tempfile.TemporaryDirectory() if not ckpt_dir else None
+    root = Path(ckpt_dir or tmp.name)
+    full, serve, reduced = {}, {}, []
+    try:
+        for i, name in enumerate(LM_TRAIN_FULL):
+            ckpt = str(root / f"{name}.ckpt")
+            row, params, opt, setup = _train_run(
+                dev, name, smoke=smoke, seed=seed + i, ckpt=ckpt, **train)
+            init = setup[3](make_generator(seed + i, dev))[0]
+            unchanged = _unchanged_leaves(init, params)
+            require(not unchanged, f"{name}: leaves {unchanged} never "
+                    "changed")
+            del init
+            row["leaves_changed"] = len(lm_mod.tree_leaves(params))
+            serve[name] = _serve_trained(dev, name, setup[1], ckpt, params,
+                                         rng, n_requests, max_prompt,
+                                         max_seq, max_new, totals)
+            row["step"] = _step_profile(dev, params, opt, setup, seed + i)
+            full[name] = row
+            del params, opt, setup
+            _peak_reset(dev)
+        long = _plain_vs_chunked(dev, "qwen2-0.5b", smoke, long_L, seed)
+        _peak_reset(dev)
+        wide = {}
+        for i, name in enumerate(LM_TRAIN_WIDE):
+            cut_smoke = smoke or name == "deepseek-v3-671b"
+            if not smoke and cut_smoke:
+                arch = get_arch(name)
+                n = count_params(param_shapes(arch, arch.make_full()))
+                reduced.append(f"{name}: make_smoke width (make_full has "
+                               f"{n} parameters, {4 * n / 1e9:.0f} GB in "
+                               "f32, Adam's moments twice that)")
+            row, params, opt, _ = _train_run(
+                dev, name, smoke=cut_smoke, steps=wide_steps,
+                batch=train["batch"], seq_len=train["seq_len"],
+                lr=train["lr"], seed=seed + 10 + i)
+            wide[name] = row
+            del params, opt
+            _peak_reset(dev)
+        others = {}
+        rest = [a for a in ARCH_ORDER if a not in LM_TRAIN_FULL
+                + LM_TRAIN_WIDE]
+        if not smoke:
+            reduced.append(f"{', '.join(rest)}: make_smoke width, one step")
+        for i, name in enumerate(rest):
+            row, params, opt, _ = _train_run(
+                dev, name, smoke=True, steps=1, batch=train["batch"],
+                seq_len=train["seq_len"], lr=train["lr"], seed=seed + 20 + i)
+            others[name] = {k: row[k] for k in ("loss_first", "gnorm_last",
+                                                "s_per_step")}
+            del params, opt
+        conv, params, opt, _ = _train_run(dev, "qwen2-0.5b", smoke=True,
+                                          seed=seed, **converge)
+        del params, opt
+        drop = conv["loss_first"] - conv["loss_last"]
+        require(drop > LM_CONVERGE_DROP, f"qwen2-0.5b smoke: loss "
+                f"{conv['loss_first']} -> {conv['loss_last']}")
+        conv["loss_drop"] = drop
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+    _peak_reset(dev)
+    return {"phase": "lm_train", "make": make, "card": card,
+            "dtype": "float32 weights, bfloat16 compute",
+            "impl": "plain (chunked where named)", "reduced": reduced,
+            "full": full, "long_context": long, "wide": wide,
+            "others_smoke": others, "converge": conv, "serve": serve,
+            "launches_by_shape": totals["by_shape"],
+            "grids": totals["grids"],
+            "flash_attention_launches": sum(
+                totals["by_shape"]["flash_attention"].values()),
+            "ssd_scan_launches": sum(totals["by_shape"]["ssd_scan"]
+                                     .values())}
+
+
 def modal_bucket(counts: dict) -> int:
     """The most frequent prefill length (the larger on a tie)."""
     return max((c, int(b)) for b, c in counts.items())[1]
@@ -3339,7 +3692,7 @@ def _vector_paths(vector, kernel: str) -> tuple:
 
 
 def kernels_line(check, timing, train, control, data, lm, vector,
-                 ops_run, fleet, archs, arch_timing) -> dict:
+                 ops_run, fleet, archs, arch_timing, lm_train) -> dict:
     """The ``kernels`` line.  ddpm_step: the control plane's impl="step"
     episode (at (20,)) and the impl="step" updates of the train phase's
     update timing (their policy chains, at (64, 20)).  ddpm_step_bwd:
@@ -3363,7 +3716,9 @@ def kernels_line(check, timing, train, control, data, lm, vector,
     one-cell run).  flash_attention's and ssd_scan's paths add phase
     lm_archs' launches by shape (every architecture's heads), timed in
     phase arch_timing with SDPA beside flash; the modal shape is taken
-    over both LM phases."""
+    over both LM phases.  Phase lm_train adds the launches of serving its
+    two trained checkpoints (qwen2-0.5b's and mamba2-130m's heads, at
+    shapes phase kernel_timing times); its training launches none."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
     upd = train["update_timing"]
@@ -3450,9 +3805,11 @@ def kernels_line(check, timing, train, control, data, lm, vector,
                                    + sum(vec_bwd.values())
                                    + sum(ops_bwd.values())),
                 "flash_attention": (lm["flash_attention_launches"]
-                                    + archs["flash_attention_launches"]),
+                                    + archs["flash_attention_launches"]
+                                    + lm_train["flash_attention_launches"]),
                 "ssd_scan": (lm["ssd_scan_launches"]
-                             + archs["ssd_scan_launches"])}
+                             + archs["ssd_scan_launches"]
+                             + lm_train["ssd_scan_launches"])}
     for kname, model, heads in (
             ("flash_attention", "qwen2-0.5b", QWEN_HEADS),
             ("ssd_scan", "mamba2-130m", MAMBA_SSD)):
@@ -3460,7 +3817,8 @@ def kernels_line(check, timing, train, control, data, lm, vector,
         per_shape = _sum_by_key([
             {_shape_key((1, int(b)) + heads): lm["n_layers"][model] * c
              for b, c in counts.items()},
-            archs["launches_by_shape"][kname]])
+            archs["launches_by_shape"][kname],
+            lm_train["launches_by_shape"][kname]])
         require(sum(per_shape.values()) == launches[kname],
                 f"{kname}: {launches[kname]} launches but the shapes "
                 f"account for {sum(per_shape.values())}")
@@ -3469,12 +3827,14 @@ def kernels_line(check, timing, train, control, data, lm, vector,
         summary[kname] = kernel_summary(
             rows, per_shape, max(per_shape, key=lambda k: (per_shape[k], k)),
             [_shape_key((1, L) + heads) for L in (512, LONG_L)],
-            lm["grids"][kname] + archs["grids"][kname])
+            lm["grids"][kname] + archs["grids"][kname]
+            + lm_train["grids"][kname])
         summary[kname]["launches_by_phase"] = {
             "lm_plane": (lm["flash_attention_launches"]
                          if kname == "flash_attention"
                          else lm["ssd_scan_launches"]),
-            "lm_archs": sum(archs["launches_by_shape"][kname].values())}
+            "lm_archs": sum(archs["launches_by_shape"][kname].values()),
+            "lm_train": sum(lm_train["launches_by_shape"][kname].values())}
     idle = [k for k, n in launches.items() if n <= 0]
     require(not idle, f"kernels never launched on their paths: {idle}")
     err = {k: max([check[k]["max_abs_err"]] + [
@@ -3518,8 +3878,10 @@ def main() -> int:
     emit(archs)
     arch_timing = phase_arch_timing(device, timing, archs)
     emit(arch_timing)
+    lm_train = phase_lm_train(device, card=dev_info["nvidia_smi"])
+    emit(lm_train)
     emit(kernels_line(check, timing, train, control, data, lm, vector,
-                      ops_run, fleet, archs, arch_timing))
+                      ops_run, fleet, archs, arch_timing, lm_train))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,9 +4,11 @@ through numpy.
 The caller converts a JAX tree with ``jax.tree.map(np.asarray, tree)``;
 the ``*_from_numpy`` functions take those numpy trees (or anything with
 the same attributes) and build the port's objects.  The way back,
-``train_state_to_numpy`` and ``policy_to_numpy``, gives the JAX package's
-layout as numpy arrays, which is what the port's checkpoints hold, so
-either package reads the other's.  The bridge never imports JAX.
+``train_state_to_numpy``, ``policy_to_numpy`` and
+``lm_train_state_to_numpy``, gives the JAX package's layout as numpy
+arrays, which is what the port's checkpoints hold, so either package
+reads the other's (an LM training checkpoint resumes in either).  The
+bridge never imports JAX.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.networks import MLP, StackedMLP
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.denoiser import (TIME_DIM, Denoiser,
                                             StackedDenoiser)
-from repro_torch.models.lm import LMCfg, tree_map
+from repro_torch.models.lm import LMCfg, tree_leaves, tree_map, tree_unflatten
 
 
 def _f32(a, device):
@@ -392,7 +394,7 @@ def _check_fits(tree, keys, name: str, path: str = "") -> None:
 def _check_repeats(tree_groups, groups, name: str) -> None:
     for gt, g in zip(tree_groups, groups):
         for block in gt["stacked"].values():
-            lead = {np.asarray(a).shape[0] for a in _leaves(block)}
+            lead = {np.asarray(a).shape[0] for a in tree_leaves(block)}
             if lead != {g.repeats}:
                 raise ValueError(f"stacked leaves of {name} lead with "
                                  f"{sorted(lead)}, not {g.repeats} repeats")
@@ -436,7 +438,49 @@ def whisper_params_from_numpy(tree, cfg, device=None) -> dict:
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
+def _lm_or_whisper_params(tree, cfg, device) -> dict:
+    if hasattr(cfg, "dec_group"):
+        return whisper_params_from_numpy(tree, cfg, device)
+    return lm_params_from_numpy(tree, cfg, device)
+
+
+def lm_train_state_from_numpy(tree, cfg, device=None) -> dict:
+    """A JAX LM (or whisper) train state ``{"params", "opt": {"mu", "nu",
+    "step"}}`` (numpy leaves, ``adam_init``'s layout: the moments in the
+    parameters' tree) -> the port's: the parameter tree as
+    ``lm_params_from_numpy`` builds it (``whisper_params_from_numpy`` for
+    a ``WhisperCfg``), the moments as f32 lists in ``tree_leaves`` order
+    (``make_train_fns``'s Adam state) and ``step`` a host int."""
+    dev = resolve_device(device)
+    params = _lm_or_whisper_params(tree["params"], cfg, dev)
+    shapes = [tuple(t.shape) for t in tree_leaves(params)]
+    opt = {}
+    for k in ("mu", "nu"):
+        ms = [torch.tensor(np.asarray(a, np.float32), device=dev)
+              for a in tree_leaves(tree["opt"][k])]
+        if [tuple(m.shape) for m in ms] != shapes:
+            raise ValueError(f"opt.{k} does not fit the parameters of "
+                             f"{cfg.name}")
+        opt[k] = ms
+    opt["step"] = int(np.asarray(tree["opt"]["step"]))
+    return {"params": params, "opt": opt}
+
+
+def _np32(t) -> np.ndarray:
+    """A tensor as numpy, bf16 as f32 (numpy has no bfloat16; the
+    reference's ``bf16_safe_cast``)."""
+    t = t.detach()
+    return _np(t.float() if t.dtype == torch.bfloat16 else t)
+
+
+def lm_train_state_to_numpy(state: dict) -> dict:
+    """The port's LM train state ``{"params", "opt"}`` -> the JAX
+    package's layout, numpy leaves: the parameter tree, ``opt.mu`` and
+    ``opt.nu`` in that tree, ``opt.step`` int32; bf16 leaves as f32."""
+    params = state["params"]
+    opt = state["opt"]
+    return _sorted({
+        "params": tree_map(_np32, params),
+        "opt": {"mu": tree_unflatten(params, [_np32(m) for m in opt["mu"]]),
+                "nu": tree_unflatten(params, [_np32(v) for v in opt["nu"]]),
+                "step": np.asarray(opt["step"], np.int32)}})

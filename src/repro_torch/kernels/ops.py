@@ -124,12 +124,13 @@ def _check_cuda(name: str, *tensors) -> None:
 
 
 def _check_no_grad(name: str, *tensors) -> None:
-    """The LM kernels are forward-only: their backward would come with the
-    LM training path (ROADMAP A.11)."""
+    """The LM kernels are forward-only, as the reference's Pallas kernels
+    are: training runs through ``impl="plain"`` or ``"chunked"``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward yet (the LM training path, ROADMAP "
-            "A.11); call it under torch.no_grad()")
+            f"{name} has no backward (nor has the reference's kernel): "
+            "train through impl='plain' or 'chunked', or call it under "
+            "torch.no_grad()")
 
 
 def _check_device(name: str, *tensors) -> torch.device:

@@ -15,8 +15,13 @@ vision-patch embeddings, go through the projector ``proj`` into the
 leading sequence slots (VLM); learned absolute positions (``pos``) are
 added to the embeddings; an untied ``lm_head`` replaces the tied
 unembedding; a DeepSeek-V3 config carries its multi-token-prediction
-module's parameters (``mtp``), so its tree is the reference's.  The MTP
-loss and ``lm_loss`` are training (ROADMAP A.11, its training half).
+module's parameters (``mtp``), so its tree is the reference's.
+
+Training: ``lm_loss`` (next-token cross-entropy, the MoE aux loss and
+DeepSeek-V3's depth-1 MTP loss) runs through ``impl="plain"`` (the
+reference's ``"xla"``) or ``"chunked"``; ``cfg.remat`` recomputes each
+repeat of a cycle in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` of its scan body does.
 """
 from __future__ import annotations
 
@@ -24,15 +29,12 @@ import dataclasses
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import core
 
 from .blocks import (BlockCfg, block_decode, block_forward, block_init,
                      block_init_cache, block_prefill)
-
-TRAINING_TODO = ("the LM losses are not ported yet (ROADMAP A.11, its "
-                 "training half: softmax_xent, lm_loss with the MTP loss, "
-                 "whisper_loss)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +56,7 @@ class LMCfg:
     n_prefix: int = 0              # VLM: number of vision-patch slots
     prefix_embed_dim: int = 0      # VLM: raw patch-embedding dim (0 = none)
     mtp: bool = False              # DeepSeek-V3 multi-token prediction
-    remat: bool = False            # training only; ignored here
+    remat: bool = False            # recompute each repeat in the backward
     unroll: bool = False           # the port always loops in Python
 
     @property
@@ -71,8 +73,40 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
-def _index(tree, r: int):
-    return tree_map(lambda a: a[r], tree)
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, dict keys sorted: the leaf
+    order of ``jax.tree.leaves``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [build(x) for x in t]
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` per-repeat trees of a tree whose leaves lead with a
+    repeat axis, from one ``unbind`` a leaf: under autograd each leaf then
+    gets one backward that stacks its repeats' gradients, where a select
+    a repeat would write a zero-filled copy of the whole stack each."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[r], parts) for r in range(n)]
 
 
 def _stack(trees):
@@ -187,9 +221,25 @@ def _logits(p, cfg: LMCfg, x, *, compute_dtype):
     return torch.matmul(x.to(compute_dtype).float(), w)
 
 
-def _block_params(gp, bcfg: BlockCfg, i: int, r: int):
-    return gp["shared"][str(i)] if bcfg.shared \
-        else _index(gp["stacked"][str(i)], r)
+def repeat_params(gp, g: GroupCfg) -> list:
+    """Per repeat of group ``g``, each cycle block's parameters (a shared
+    block's one set, a stacked block's slice of the repeat)."""
+    stacked = unstack(gp["stacked"], g.repeats)
+    return [[gp["shared"][str(i)] if b.shared else stacked[r][str(i)]
+             for i, b in enumerate(g.cycle)] for r in range(g.repeats)]
+
+
+def run_repeats(body, reps: list, x, aux, remat: bool):
+    """``x, aux = body(bp, x, aux)`` for each repeat's parameters ``bp``;
+    with ``remat`` each repeat runs under ``checkpoint`` and is recomputed
+    in the backward (the reference's ``jax.checkpoint`` of its scan
+    body)."""
+    for bp in reps:
+        if remat and torch.is_grad_enabled():
+            x, aux = checkpoint(body, bp, x, aux, use_reentrant=False)
+        else:
+            x, aux = body(bp, x, aux)
+    return x, aux
 
 
 # -- forward -------------------------------------------------------------------------
@@ -204,18 +254,70 @@ def lm_forward(p, cfg: LMCfg, tokens, *, prefix_embeds=None, positions=None,
         positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
     for gp, g in zip(p["groups"], cfg.groups):
-        for r in range(g.repeats):
-            for i, bcfg in enumerate(g.cycle):
-                x, a = block_forward(_block_params(gp, bcfg, i, r), bcfg, x,
-                                     positions=positions, impl=impl,
-                                     compute_dtype=compute_dtype)
+        def body(bps, x, aux, g=g):
+            for bp, bcfg in zip(bps, g.cycle):
+                x, a = block_forward(bp, bcfg, x, positions=positions,
+                                     impl=impl, compute_dtype=compute_dtype)
                 aux = aux + a
+            return x, aux
+        x, aux = run_repeats(body, repeat_params(gp, g), x, aux, cfg.remat)
     return _logits(p, cfg, x, compute_dtype=compute_dtype), aux
 
 
-def lm_loss(*args, **kwargs):
-    """Training; refused (``TRAINING_TODO``)."""
-    raise NotImplementedError(TRAINING_TODO)
+# -- training losses --------------------------------------------------------------------
+
+MTP_WEIGHT = 0.3   # DeepSeek-V3's depth-1 MTP loss weight
+
+
+def softmax_xent(logits, labels, *, ignore: int = -100):
+    """Mean next-token cross-entropy.  logits (B, L, V) f32; labels (B, L)
+    int, entries equal to ``ignore`` masked out (the mean is over the
+    others, at least one)."""
+    mask = labels != ignore
+    safe = torch.where(mask, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+def lm_loss(p, cfg: LMCfg, batch: dict, *, impl: str = "plain",
+            compute_dtype=torch.bfloat16):
+    """batch: {"tokens", "labels"[, "prefix_embeds"]}.  Returns (loss,
+    metrics): the cross-entropy plus the MoE aux loss and, with
+    ``cfg.mtp``, 0.3 x the depth-1 MTP loss (the hidden states of
+    positions 1..L-1 joined with the next embeddings, one extra block, the
+    shared head, scored on the labels shifted by one).
+
+    ``impl`` is ``"plain"`` (the reference's ``"xla"``) or ``"chunked"``;
+    ``"kernel"`` is refused under grad by the kernels, which have no
+    backward.  The MTP block runs the plain path, as the reference's call,
+    which passes no ``impl``, runs ``"xla"``."""
+    logits, aux = lm_forward(p, cfg, batch["tokens"],
+                             prefix_embeds=batch.get("prefix_embeds"),
+                             impl=impl, compute_dtype=compute_dtype)
+    loss = softmax_xent(logits, batch["labels"])
+    metrics = {"xent": loss, "aux": aux}
+    if cfg.mtp:
+        x = _embed_inputs(p, cfg, batch["tokens"], batch.get("prefix_embeds"),
+                          compute_dtype=compute_dtype)
+        h = core.rmsnorm(p["mtp"]["norm_h"], x[:, :-1])
+        e = core.rmsnorm(p["mtp"]["norm_e"], x[:, 1:])
+        hm = core.linear(p["mtp"]["proj"], torch.cat([h, e], dim=-1),
+                         compute_dtype=compute_dtype)
+        hm, a2 = block_forward(
+            p["mtp"]["block"], cfg.groups[-1].cycle[-1], hm,
+            positions=torch.arange(hm.shape[1], device=hm.device),
+            impl="plain", compute_dtype=compute_dtype)
+        mtp_loss = softmax_xent(_logits(p, cfg, hm,
+                                        compute_dtype=compute_dtype),
+                                batch["labels"][:, 1:])
+        loss = loss + MTP_WEIGHT * mtp_loss
+        aux = aux + a2
+        metrics["mtp_xent"] = mtp_loss
+    loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # -- cache / prefill / decode -----------------------------------------------------------
@@ -244,12 +346,12 @@ def group_prefill(gp, g: GroupCfg, x, gc, *, positions, enc=None,
     """One group's repeats over ``x``, filling its cache ``gc``.  Returns
     (x, the group's new cache)."""
     per_repeat = []
-    for r in range(g.repeats):
+    caches = unstack(gc, g.repeats)
+    for bps, c_r in zip(repeat_params(gp, g), caches):
         nc_r = {}
-        for i, bcfg in enumerate(g.cycle):
-            bc = _index(gc[str(i)], r) if str(i) in gc else {}
-            x, nc, _ = block_prefill(_block_params(gp, bcfg, i, r), bcfg, x,
-                                     bc, positions=positions, enc=enc,
+        for i, (bp, bcfg) in enumerate(zip(bps, g.cycle)):
+            x, nc, _ = block_prefill(bp, bcfg, x, c_r.get(str(i), {}),
+                                     positions=positions, enc=enc,
                                      impl=impl, compute_dtype=compute_dtype)
             if nc:
                 nc_r[str(i)] = nc
@@ -262,12 +364,12 @@ def group_decode(gp, g: GroupCfg, x, gc, pos, *,
     """One decode step through one group's repeats.  Returns (x, the
     group's new cache)."""
     per_repeat = []
-    for r in range(g.repeats):
+    caches = unstack(gc, g.repeats)
+    for bps, c_r in zip(repeat_params(gp, g), caches):
         nc_r = {}
-        for i, bcfg in enumerate(g.cycle):
-            bc = _index(gc[str(i)], r) if str(i) in gc else {}
-            x, nc = block_decode(_block_params(gp, bcfg, i, r), bcfg, x, bc,
-                                 pos, compute_dtype=compute_dtype,
+        for i, (bp, bcfg) in enumerate(zip(bps, g.cycle)):
+            x, nc = block_decode(bp, bcfg, x, c_r.get(str(i), {}), pos,
+                                 compute_dtype=compute_dtype,
                                  route_rows=route_rows)
             if nc:
                 nc_r[str(i)] = nc

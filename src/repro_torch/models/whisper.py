@@ -8,8 +8,9 @@ self-attention (through the ``flash_attention`` kernel in prefill),
 cross-attention over the encoder output and a GELU MLP, and the tied
 unembedding.  The decoder's cache holds its self-attention K/V per
 position and, per layer, the encoder's cross K/V, which prefill computes
-once and decode only reads.  ``whisper_loss`` is training (ROADMAP A.11,
-its training half).
+once and decode only reads.  ``whisper_loss`` trains teacher-forced
+through the plain path, as the reference's does; ``cfg.remat`` recomputes
+each encoder and decoder layer in the backward.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from repro_torch.nn.attention import AttnCfg
 from repro_torch.nn.mlp import MLPCfg
 
 from .blocks import BlockCfg, block_forward, block_init_cache
-from .lm import (TRAINING_TODO, GroupCfg, _group_init, _index, group_decode,
-                 group_prefill, stacked_cache)
+from .lm import (GroupCfg, _group_init, group_decode, group_prefill,
+                 repeat_params, run_repeats, softmax_xent, stacked_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +38,7 @@ class WhisperCfg:
     d_ff: int
     n_frames: int = 1500   # encoder positions (stubbed conv output length)
     max_positions: int = 4096  # decoder learned positions
-    remat: bool = False        # training only; ignored here
+    remat: bool = False        # recompute each layer in the backward
     unroll: bool = False       # the port always loops in Python
 
     @property
@@ -102,9 +103,11 @@ def whisper_encode(p, cfg: WhisperCfg, frame_embeds, *,
     x = frame_embeds.to(compute_dtype)
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(compute_dtype)
     g = cfg.enc_group()
-    for r in range(g.repeats):
-        x, _ = block_forward(_index(p["enc"]["stacked"]["0"], r), g.cycle[0],
-                             x, impl="plain", compute_dtype=compute_dtype)
+
+    def body(bps, x, aux):
+        return block_forward(bps[0], g.cycle[0], x, impl="plain",
+                             compute_dtype=compute_dtype)
+    x, _ = run_repeats(body, repeat_params(p["enc"], g), x, None, cfg.remat)
     return core.layernorm(p["enc_norm"], x)
 
 
@@ -134,17 +137,26 @@ def whisper_forward(p, cfg: WhisperCfg, frame_embeds, tokens, *,
     x = _decode_embed(p, cfg, tokens, 0, compute_dtype)
     g = cfg.dec_group()
     positions = torch.arange(x.shape[1], device=x.device)
-    for r in range(g.repeats):
-        x, _ = block_forward(_index(p["dec"]["stacked"]["0"], r), g.cycle[0],
-                             x, positions=positions, enc=enc, impl=impl,
-                             compute_dtype=compute_dtype)
+
+    def body(bps, x, aux):
+        x, _ = block_forward(bps[0], g.cycle[0], x, positions=positions,
+                             enc=enc, impl=impl, compute_dtype=compute_dtype)
+        return x, aux
+    x, _ = run_repeats(body, repeat_params(p["dec"], g), x, None, cfg.remat)
     return (_unembed(p, x, compute_dtype),
             torch.zeros((), device=x.device))
 
 
-def whisper_loss(*args, **kwargs):
-    """Training; refused (``repro_torch.models.lm.TRAINING_TODO``)."""
-    raise NotImplementedError(TRAINING_TODO)
+def whisper_loss(p, cfg: WhisperCfg, batch: dict, *,
+                 compute_dtype=torch.bfloat16):
+    """batch: {"frame_embeds", "tokens", "labels"}.  Teacher-forced
+    cross-entropy through the plain path (the reference's decoder runs
+    ``"xla"``).  Returns (loss, {"loss", "xent"})."""
+    logits, _ = whisper_forward(p, cfg, batch["frame_embeds"],
+                                batch["tokens"], impl="plain",
+                                compute_dtype=compute_dtype)
+    loss = softmax_xent(logits, batch["labels"])
+    return loss, {"loss": loss, "xent": loss}
 
 
 # -- serving ------------------------------------------------------------------

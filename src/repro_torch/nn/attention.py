@@ -3,15 +3,21 @@ window, cross-attention, and KV-cache decode (port of
 ``repro.nn.attention``).
 
 ``attn_forward`` sends causal self-attention through the hand-written
-``flash_attention`` kernel (``impl="kernel"``, the default) or through the
-plain score-matrix path (``impl="plain"``, the JAX ``impl="xla"``).
-Non-causal attention (whisper's encoder) and cross-attention take the
-plain path whatever ``impl`` says, as the reference's do.  Cross-attention
+``flash_attention`` kernel (``impl="kernel"``, the default), through the
+plain score-matrix path (``impl="plain"``, the JAX ``impl="xla"``), or
+through ``chunked_attention`` (``impl="chunked"``, any self-attention).
+Under ``"kernel"``, non-causal attention (whisper's encoder) takes the
+plain path, and cross-attention always does, as the reference's do.  Cross-attention
 reads its K/V from encoder states (``kv_src``) and applies no RoPE; its
 decode cache holds those static K/V and is never written.  Decode takes
 one position per batch row, so a continuous-batching engine decodes all
-its slots in one call.  The training-only ``chunked_attention`` is not
-ported yet (ROADMAP A.11, its training half).
+its slots in one call.
+
+``chunked_attention`` is the training path: an online softmax over
+q-blocks and k-blocks whose backward recomputes the probabilities from
+the saved log-sum-exp (a ``torch.autograd.Function``, the reference's
+``custom_vjp``), so neither direction holds an (L, S) score matrix and
+the backward keeps only q, k, v, the output and the log-sum-exp.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from .core import linear, linear_init, rmsnorm, rmsnorm_init
 from .rotary import apply_rope, rope_cos_sin
 
 NEG_INF = -1e30
+IMPLS = ("kernel", "plain", "chunked")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +114,163 @@ def _masked_softmax(scores, valid):
     return torch.softmax(scores, dim=-1)
 
 
+def _block_mask(iq: int, ik: int, bq: int, bk: int, causal: bool,
+                window: Optional[int], device) -> torch.Tensor:
+    """(bq, bk) bool: which keys of k-block ``ik`` each query of q-block
+    ``iq`` may see."""
+    qpos = iq * bq + torch.arange(bq, device=device)[:, None]
+    kpos = ik * bk + torch.arange(bk, device=device)[None, :]
+    mask = torch.ones((bq, bk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _live_blocks(iq: int, nk: int, bq: int, bk: int, causal: bool,
+                 window: Optional[int]) -> list:
+    """The k-blocks of which some key is visible to some query of q-block
+    ``iq``.  A block wholly masked adds exactly nothing in either
+    direction (its probabilities are 0 after the masking ``where``s), so
+    skipping it changes no bit."""
+    q_lo, q_hi = iq * bq, iq * bq + bq - 1
+    out = []
+    for ik in range(nk):
+        k_lo, k_hi = ik * bk, ik * bk + bk - 1
+        if causal and k_lo > q_hi:
+            continue
+        if window is not None and k_hi <= q_lo - window:
+            continue
+        out.append(ik)
+    return out
+
+
+def _chunk_views(q, k, v, bq: int, bk: int):
+    B, L, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    return (q.reshape(B, L // bq, bq, Hkv, G, D),
+            k.reshape(B, S // bk, bk, Hkv, D),
+            v.reshape(B, S // bk, bk, Hkv, D))
+
+
+def _chunked_fwd(q, k, v, causal: bool, window: Optional[int], scale: float,
+                 bq: int, bk: int):
+    """Online softmax over q-blocks (outer) and k-blocks (inner), scores
+    in f32 from q and k upcast.  Returns (out (B, L, H, D) in q's dtype,
+    lse (B, Hkv, G, L) f32)."""
+    B, L, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    nq, nk = L // bq, k.shape[1] // bk
+    qc, kc, vc = _chunk_views(q, k, v, bq, bk)
+    outs, lses = [], []
+    for iq in range(nq):
+        qb = qc[:, iq].float()                          # (B,bq,Hkv,G,D)
+        m = torch.full((B, Hkv, G, bq), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, G, bq), device=q.device)
+        acc = torch.zeros((B, Hkv, G, bq, D), device=q.device)
+        for ik in _live_blocks(iq, nk, bq, bk, causal, window):
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb,
+                             kc[:, ik].float()) * scale
+            mask = _block_mask(iq, ik, bq, bk, causal, window, q.device)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p_ = torch.exp(s - m_new[..., None])
+            p_ = torch.where(m_new[..., None] > NEG_INF / 2, p_, 0.0)
+            corr = torch.where(m > NEG_INF / 2, torch.exp(m - m_new), 0.0)
+            l = corr * l + p_.sum(dim=-1)
+            acc = corr[..., None] * acc + torch.einsum(
+                "bkgqs,bskd->bkgqd", p_, vc[:, ik].float())
+            m = m_new
+        lc = torch.clamp(l, min=1e-30)
+        outs.append((acc / lc[..., None]).permute(0, 3, 1, 2, 4))
+        lses.append(m + torch.log(lc))
+    out = torch.stack(outs, dim=1).reshape(B, L, H, D).to(q.dtype)
+    return out, torch.cat(lses, dim=-1)
+
+
+def _chunked_bwd(q, k, v, out, lse, do, causal: bool,
+                 window: Optional[int], scale: float, bq: int, bk: int):
+    """The recomputing backward: per block pair the probabilities come
+    back from q, k and ``lse``; ``delta = rowsum(do·out)``; dk and dv are
+    summed over each KV head's G query heads.  Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    B, L, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    nq, nk = L // bq, S // bk
+    qc, kc, vc = _chunk_views(q, k, v, bq, bk)
+    oc = out.reshape(qc.shape)
+    doc = do.reshape(qc.shape)
+    lsec = lse.reshape(B, Hkv, G, nq, bq)
+    dk = torch.zeros((B, nk, bk, Hkv, D), device=q.device)
+    dv = torch.zeros((B, nk, bk, Hkv, D), device=q.device)
+    dqs = []
+    for iq in range(nq):
+        qbf = qc[:, iq].float()
+        dobf = doc[:, iq].float()
+        delta = (dobf * oc[:, iq].float()).sum(dim=-1)       # (B,bq,Hkv,G)
+        delta = delta.permute(0, 2, 3, 1)                    # (B,Hkv,G,bq)
+        dob_r = dobf.permute(0, 2, 3, 1, 4)                  # (B,Hkv,G,bq,D)
+        q_r = qbf.permute(0, 2, 3, 1, 4)
+        lseb = lsec[:, :, :, iq]
+        dq_b = torch.zeros((B, Hkv, G, bq, D), device=q.device)
+        for ik in _live_blocks(iq, nk, bq, bk, causal, window):
+            kb, vb = kc[:, ik].float(), vc[:, ik].float()
+            s = torch.einsum("bqkgd,bskd->bkgqs", qbf, kb) * scale
+            mask = _block_mask(iq, ik, bq, bk, causal, window, q.device)
+            s = torch.where(mask, s, NEG_INF)
+            p_ = torch.where(mask, torch.exp(s - lseb[..., None]), 0.0)
+            dv[:, ik] += torch.einsum("bkgqs,bkgqd->bskd", p_, dob_r)
+            dp = torch.einsum("bkgqd,bskd->bkgqs", dob_r, vb)
+            ds = p_ * (dp - delta[..., None]) * scale
+            dq_b += torch.einsum("bkgqs,bskd->bkgqd", ds, kb)
+            dk[:, ik] += torch.einsum("bkgqs,bkgqd->bskd", ds, q_r)
+        dqs.append(dq_b.permute(0, 3, 1, 2, 4))
+    dq = torch.stack(dqs, dim=1).reshape(B, L, H, D)
+    return (dq.to(q.dtype), dk.reshape(B, S, Hkv, D).to(k.dtype),
+            dv.reshape(B, S, Hkv, D).to(v.dtype))
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """``_chunked_fwd`` forward; the backward recomputes from the saved
+    q, k, v, out and lse (``_chunked_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, bq, bk):
+        out, lse = _chunked_fwd(q, k, v, causal, window, scale, bq, bk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, bq, bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _chunked_bwd(q, k, v, out, lse, do.contiguous(),
+                                  *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      scale: float, bq: int = 1024, bk: int = 1024):
+    """Flash-style double-chunked attention in plain PyTorch with a
+    recomputing backward: an O(bq·bk) working set in both directions,
+    where autograd through the block loops would keep every block's
+    carries.  q: (B, L, H, D); k, v: (B, S, Hkv, D); the blocks are
+    ``min(bq, L)`` and ``min(bk, S)``, which must divide L and S.
+    Returns (B, L, H, D) in q's dtype."""
+    bq, bk = min(bq, q.shape[1]), min(bk, k.shape[1])
+    if q.shape[1] % bq or k.shape[1] % bk:
+        raise ValueError(f"chunked_attention: L = {q.shape[1]} and S = "
+                         f"{k.shape[1]} must be multiples of the blocks "
+                         f"({bq}, {bk})")
+    return ChunkedAttention.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal, window, scale,
+                                  bq, bk)
+
+
 def attn_forward(p: dict, cfg: AttnCfg, x: torch.Tensor, *, kv_src=None,
                  positions=None, impl: str = "kernel",
                  compute_dtype=torch.bfloat16, return_kv: bool = False):
@@ -114,10 +278,11 @@ def attn_forward(p: dict, cfg: AttnCfg, x: torch.Tensor, *, kv_src=None,
     Dkv) the encoder states of cross-attention (default x); positions:
     (L,) absolute positions for RoPE (default arange).  ``impl="kernel"``
     runs causal self-attention through ``kernels.ops.flash_attention``;
-    ``impl="plain"``, non-causal and cross-attention through the score
+    ``impl="chunked"`` any self-attention through ``chunked_attention``;
+    ``impl="plain"``, and cross-attention always, through the score
     matrix."""
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', not {impl!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     B, L, _ = x.shape
     kv_in = x if kv_src is None else kv_src
     S = kv_in.shape[1]
@@ -137,12 +302,16 @@ def attn_forward(p: dict, cfg: AttnCfg, x: torch.Tensor, *, kv_src=None,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
+    scale = 1.0 / math.sqrt(cfg.d_head)
     if impl == "kernel" and cfg.causal and not cfg.cross:
         out = kops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True,
                                    window=cfg.window)
+    elif impl == "chunked" and not cfg.cross:
+        out = chunked_attention(q, k, v, causal=cfg.causal,
+                                window=cfg.window, scale=scale)
     else:
-        scores = _gqa_scores(q, k, 1.0 / math.sqrt(cfg.d_head))
+        scores = _gqa_scores(q, k, scale)
         if cfg.cross:
             probs = torch.softmax(scores, dim=-1)
         else:

@@ -5,7 +5,9 @@ dt (H)]``; x/B/C pass through a short causal depthwise conv; the SSD mixes
 the sequence; a gated RMSNorm and the output projection close the block.
 ``ssm_forward`` runs the SSD through the hand-written ``ssd_scan`` kernel
 (``impl="kernel"``, the default) or through ``ssd_reference``
-(``impl="plain"``, the JAX ``impl="xla"``).  Decode keeps a constant-size
+(``impl="plain"``, the JAX ``impl="xla"``; ``"chunked"``, the attention
+layers' training path, also runs ``ssd_reference`` here, as the
+reference's does).  Decode keeps a constant-size
 state: the conv tail (width-1 tokens) and the SSM state (H, P, N).
 """
 from __future__ import annotations
@@ -154,8 +156,9 @@ def ssm_forward(p: dict, cfg: SSMCfg, xin: torch.Tensor, *,
                 impl: str = "kernel", compute_dtype=torch.bfloat16,
                 return_state: bool = False):
     """Full-sequence Mamba2 block.  xin: (B, L, d_model)."""
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', not {impl!r}")
+    if impl not in ("kernel", "plain", "chunked"):
+        raise ValueError(f"impl must be 'kernel', 'plain' or 'chunked', not "
+                         f"{impl!r}")
     Bsz, L, _ = xin.shape
     H, G, N = cfg.n_heads, cfg.n_groups, cfg.d_state
     zxbcdt = linear(p["in_proj"], xin, compute_dtype=compute_dtype)

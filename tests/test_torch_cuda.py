@@ -10,7 +10,8 @@ train_t2drl; the chain kernels' learner axis against the plain stacked
 versions and, slice by slice, the single-learner launches; one fused
 D3PG update on the card against the CPU; a fused vector-env run whose
 first update is held against the same run on the CPU, and a shared
-one.
+one; LM training's ``chunked_attention`` and one train step on the card
+against the CPU.
 
 Run on a machine with an NVIDIA GPU (it has no JAX, so skip the suite's
 conftest, which imports it):
@@ -1000,3 +1001,65 @@ def test_update_telemetry_reads_the_chain_record_on_card(cuda):
     want = torch.stack(mags)
     assert m["denoise_mag"].shape == (d3.L,)
     assert torch.allclose(m["denoise_mag"], want, rtol=1e-4, atol=0)
+
+
+# -- LM training: chunked attention and a train step on the card ---------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_attention_on_card_matches_cpu(cuda, dtype):
+    """``chunked_attention``'s output and q/k/v gradients on the card
+    against the same call on the CPU (f32 to 2e-5 of each leaf's max,
+    bf16 to 2e-2): GQA 7, causal, two q- and k-blocks."""
+    from repro_torch.nn.attention import chunked_attention
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=g) for shape in (
+        (2, 256, 14, 64), (2, 256, 2, 64), (2, 256, 2, 64),
+        (2, 256, 14, 64)))
+    res = {}
+    for dev in ("cpu", cuda):
+        ts = [t.to(dev, dtype).requires_grad_(True) for t in (q, k, v)]
+        out = chunked_attention(*ts, causal=True, window=None, scale=0.125,
+                                bq=128, bk=128)
+        grads = torch.autograd.grad(out, ts, do.to(dev, dtype))
+        res[str(dev)] = [t.detach().float().cpu() for t in (out, *grads)]
+    for a, b in zip(res["cpu"], res[str(cuda)]):
+        assert (a - b).abs().max().item() <= TOL[dtype] * a.abs().max().item()
+
+
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """One ``make_train_fns`` step of qwen2-0.5b's smoke config in f32
+    compute on the card against the CPU from the same weights and batch:
+    the gradients to 1e-4 of each leaf's max, loss and gnorm to 1e-5
+    relative, and the updated parameters to 0.1% of lr where the two
+    gradients agree in sign and exceed 1e-6 (Adam's first step moves a
+    parameter by ~lr·sign(g), so a ~0 gradient's rounding may flip it:
+    tests/test_torch_lm_train.py states the bound); no LM kernel."""
+    from repro_torch.launch.train import make_batch_fn, make_train_fns
+    from repro_torch.models.lm import lm_loss, tree_leaves, tree_map
+    from repro_torch.optim import adam_init, constant
+    arch = get_arch("qwen2-0.5b")
+    cfg = arch.make_smoke()
+    p0 = lm_init(torch.Generator().manual_seed(0), cfg)
+    out = {}
+    for dev in ("cpu", cuda):
+        _, step = make_train_fns(arch, cfg, lr_schedule=constant(1e-3),
+                                 compute_dtype=torch.float32)
+        params = tree_map(lambda t: t.clone().to(dev), p0)
+        batch = make_batch_fn(arch, cfg, batch=4, seq_len=64, device=dev)(
+            torch.Generator().manual_seed(1))
+        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+        grads = torch.autograd.grad(lm_loss(
+            params, cfg, batch, compute_dtype=torch.float32)[0], leaves)
+        ops.reset_launches()
+        params, opt, m = step(params, adam_init(leaves), batch)
+        assert ops.LAUNCHES["flash_attention"] == 0
+        out[str(dev)] = (m, [g.cpu() for g in grads],
+                         [t.detach().cpu() for t in tree_leaves(params)])
+    (mc, gc, pc), (mg, gg, pg) = out["cpu"], out[str(cuda)]
+    for key in ("loss", "gnorm"):
+        assert abs(mg[key].item() - mc[key].item()) <= 1e-5 * abs(
+            mc[key].item())
+    for a, b, ga, gb in zip(pc, pg, gc, gg):
+        assert (ga - gb).abs().max() <= 1e-4 * ga.abs().max()
+        same = (torch.sign(ga) == torch.sign(gb)) & (ga.abs() > 1e-6)
+        assert torch.where(same, a - b, 0.0).abs().max() <= 1e-6

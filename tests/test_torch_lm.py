@@ -71,12 +71,10 @@ def test_configs_equal_the_jax_configs(name, make):
 
 
 def test_get_arch_aliases_and_unported_archs():
-    """(The name is from before the other architectures were ported; it
-    is kept so the suite's count of tests stays whole.)  Every architecture of the registry is ported, by either name; what
-    of them is still unported, the losses of the training half, raises
-    naming ROADMAP A.11."""
+    """Every architecture of the registry is ported and found by either
+    name; one outside it (not ported by either package) raises
+    KeyError."""
     from repro_torch.configs import ARCH_IDS
-    from repro_torch.models import whisper
     assert canonical_id("qwen2-0.5b") == "qwen2_0_5b"
     assert get_arch("mamba2_130m").name == "mamba2-130m"
     for name in ("olmo-1b", "deepseek-v3-671b", "whisper-small"):
@@ -85,9 +83,6 @@ def test_get_arch_aliases_and_unported_archs():
     assert len({get_arch(i).name for i in ARCH_IDS}) == 10
     with pytest.raises(KeyError):
         get_arch("gpt-17")
-    for loss in (lm.lm_loss, whisper.whisper_loss):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            loss({}, None, {})
 
 
 def test_bridge_keeps_the_tree_and_rejects_a_mismatch():

@@ -403,13 +403,7 @@ def test_cross_attention_matches_jax_and_its_decode_cache_is_static():
     _close(yd[:, 0], y[:, 0], F32)               # decode = forward row 0
 
 
-# -- what still raises, and flash_attention's head dims -----------------------------
-
-def test_the_losses_stay_refused_naming_the_roadmap():
-    for fn in (lm.lm_loss, whisper.whisper_loss):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            fn({}, None, {})
-
+# -- flash_attention's head dims -------------------------------------------------------
 
 def test_flash_plan_takes_d_head_112_as_the_kernel_switch_does():
     src = (Path(ops.__file__).parent / "csrc" /

@@ -237,11 +237,10 @@ def test_attn_decode_scalar_position_and_cache_untouched():
 
 
 def test_cross_attention_is_not_ported():
-    """(The name is from before cross-attention was ported; it is kept so
-    the suite's count of tests stays whole.)  Cross-attention has no kernel (the reference runs its score-matrix
-    path too): with ``impl="kernel"`` it takes the plain path, bit for bit,
-    against the JAX layer.  The training-only ``chunked_attention`` is
-    not ported (ROADMAP A.11, its training half)."""
+    """Cross-attention is ported to neither the kernel nor the chunked
+    attention (the reference runs its score-matrix path for both): with
+    ``impl="kernel"`` and with ``impl="chunked"`` it takes the plain path,
+    bit for bit, against the JAX layer."""
     kw = dict(d_model=64, n_heads=4, n_kv_heads=4, d_head=16, rope=False,
               causal=False, cross=True, d_kv_in=32)
     p = jattn.attn_init(KEY, jattn.AttnCfg(**kw))
@@ -249,12 +248,13 @@ def test_cross_attention_is_not_ported():
     x, enc = _rand(50, 2, 5, 64), _rand(51, 2, 7, 32)
     out = {impl: attention.attn_forward(
         _t(p), tcfg, torch.tensor(x), kv_src=torch.tensor(enc), impl=impl,
-        compute_dtype=torch.float32) for impl in ("kernel", "plain")}
+        compute_dtype=torch.float32) for impl in ("kernel", "plain",
+                                                  "chunked")}
     assert torch.equal(out["kernel"], out["plain"])
+    assert torch.equal(out["chunked"], out["plain"])
     _close(out["kernel"], jattn.attn_forward(
         p, jattn.AttnCfg(**kw), jnp.asarray(x), kv_src=jnp.asarray(enc),
         compute_dtype=jnp.float32))
-    assert not hasattr(attention, "chunked_attention")
 
 
 # -- ssm -------------------------------------------------------------------------------
