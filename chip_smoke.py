@@ -139,6 +139,23 @@ Phases, each printing one JSON line:
                with exact launches (24 flash_attention a qwen2 prefill, 24
                ssd_scan a mamba2 prefill) and one prefill against the
                plain versions.
+13. dist         — the multi-device path on torch.distributed: run_training
+               of 8 fused cells at the paper's EnvCfg() for 2 episodes in
+               this process, then run_training_sharded of the same cells
+               in a world of one rank (NCCL on cuda:0) and in a world of
+               two gloo ranks on the one card (4 cells each; NCCL refuses
+               two ranks on one device), each started by spawn_ranks with
+               a deadline after phase build, so no rank runs nvcc: every
+               rank's state and history bit for bit this process's,
+               its ddpm_chain and ddpm_chain_bwd launches exactly this
+               process's; wall s per episode, the gather's bytes and ms.
+               The world of two also runs one deepseek-v2-236b MoE layer
+               at full width in bf16 expert-parallel on a ("model",) mesh
+               against the layer unsharded, and deepseek-v3-671b's smoke
+               forward with PerfOpts(moe_shardmap=True)'s config against
+               the unsharded one.  Then the three example twins
+               (examples/*_torch.py) run as subprocesses with reduced
+               arguments, each exiting 0 with finite results.
 
 Phases 3 and 4 cover every kernel: ddpm_step, ddpm_step_bwd, ddpm_chain
 (at the control and data planes' chains, R = 16 and 64, and odd widths),
@@ -154,15 +171,18 @@ the shapes the paths ran; times at other shapes under ``at``) and, last,
 ``{"ok": true, "device": {...}}``.  Launch and grid counts are reset just
 before each path runs (training, serving) and read just after, so
 comparison and timing launches do not count.
-Phases 5-10 and 12 take a device, so the CPU tests run them small.
+Phases 5-10, 12 and 13 take a device, so the CPU tests run them small.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -176,6 +196,7 @@ sys.path.insert(0, str(REPO / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.d3pg import (amend_actions,  # noqa: E402
@@ -199,11 +220,13 @@ from repro_torch.core.buffers import (buffer_cell,  # noqa: E402
                                       buffer_sample, buffer_sample_stacked)
 from repro_torch.core.population import (PopMember,  # noqa: E402
                                          rank_population, train_population)
+from repro_torch.core import t2drl as t2drl_mod  # noqa: E402
 from repro_torch.core.t2drl import (STAT_KEYS, T2DRLCfg,  # noqa: E402
-                                    cell_generators, eval_t2drl,
+                                    cell_generators, cell_state, eval_t2drl,
                                     export_policy, greedy_frame_cache,
                                     greedy_slot_action, policy_init,
-                                    run_eval, run_eval_batch, t2drl_init,
+                                    run_eval, run_eval_batch, run_training,
+                                    run_training_sharded, t2drl_init,
                                     t2drl_init_batch, train_t2drl)
 from repro_torch.device import make_generator, resolve_device  # noqa: E402
 from repro_torch.diffusion import (Denoiser, make_schedule,  # noqa: E402
@@ -215,10 +238,15 @@ from repro_torch.checkpoint import load_pytree  # noqa: E402
 from repro_torch.launch.roofline import (PEAK_FLOPS,  # noqa: E402
                                          active_fraction, model_flops,
                                          roofline, step_cost)
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch.mesh import (make_cells_mesh,  # noqa: E402
+                                     mesh_device_type, spawn_ranks)
 from repro_torch.launch.steps import PerfOpts, param_shapes  # noqa: E402
 from repro_torch.launch.train import train_loop, train_setup  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
+from repro_torch.nn import moe as moe_mod  # noqa: E402
 from repro_torch.nn.core import count_params  # noqa: E402
+from repro_torch.nn.sharding import use_mesh  # noqa: E402
 from repro_torch.serving import (CatalogEntry, EdgeGateway,  # noqa: E402
                                  Engine, ServeCfg, toy_diffusion_builder)
 from repro_torch.serving import engine as engine_mod  # noqa: E402
@@ -3611,6 +3639,370 @@ def phase_lm_train(device, make: str = "make_full", train=LM_TRAIN,
                                      .values())}
 
 
+# -- 13. dist: cells sharded over ranks, expert parallelism, the examples -----
+
+DIST_B = 8                   # the fused cells of phase vector, split 4/4
+DIST_EPISODES = 2
+DIST_MOE = ("deepseek-v2-236b", "make_full")    # one MoE layer, full width
+DIST_MOE_TOKENS = (4, 128)   # rows x length, the same on both "model" ranks
+DIST_LM = ("deepseek-v3-671b", "make_smoke")
+DIST_LM_TOKENS = (2, 64)
+DIST_TIMEOUT_S = 300
+# the example twins, with their reduced arguments (``reduced``)
+DIST_EXAMPLES = {
+    "quickstart_torch": ["--episodes", "2"],
+    "serve_edge_torch": ["--train-episodes", "2", "--frames", "2",
+                         "--slots", "2"],
+    "train_lm_torch": ["--steps", "25"]}
+DIST_TRAIN_KERNELS = ("ddpm_chain", "ddpm_chain_bwd")
+
+
+def _state_digest(ts) -> dict:
+    """sha256 of every leaf of a port train state (tensors by dtype, shape
+    and bytes; host values by repr), by path."""
+    out = {}
+    for path, v in _port_leaves(ts):
+        if torch.is_tensor(v):
+            t = v.detach().cpu().contiguous()
+            v = f"{t.dtype}{tuple(t.shape)}".encode() + t.reshape(
+                -1).view(torch.uint8).numpy().tobytes()
+        else:
+            v = repr(v).encode()
+        out[path] = hashlib.sha256(v).hexdigest()
+    return out
+
+
+def _dist_train(dev, rank: int, n: int, env_cfg: EnvCfg, B: int,
+                episodes: int) -> dict:
+    """``run_training_sharded`` of B fused cells over a ``("cells",)``
+    mesh of the world: this rank's launches (reset just before, read just
+    after), wall s, the state's digest and the history; then the gather
+    alone, timed (this rank's slice written back: the same values)."""
+    cfg = method_cfg("d3pg", "ddqn", env_cfg, episodes)
+    mesh = make_cells_mesh()
+    # a warm-up run from other seeds: the group's communicator, cuBLAS
+    # and the kernels' modules come up before the timed run
+    warm = cell_generators(cfg.seed + 1, B, dev)
+    run_training_sharded(t2drl_init_batch(warm, cfg), cfg, warm, episodes,
+                         mesh=mesh)
+    gens = cell_generators(cfg.seed, B, dev)
+    ts = t2drl_init_batch(gens, cfg)
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    ts, hist = run_training_sharded(ts, cfg, gens, episodes, mesh=mesh)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] for k in DIST_TRAIN_KERNELS}
+    grids = {k: ops.GRIDS[k] for k in DIST_TRAIN_KERNELS}
+    lo = rank * B // n
+    local = t2drl_mod._stack_states([cell_state(ts, cfg, b)
+                                     for b in range(lo, lo + B // n)])
+    group = mesh.get_group("cells")
+    sync(dev)
+    t1 = time.perf_counter()
+    _, nbytes = t2drl_mod._gather_cells(ts, local, group)
+    sync(dev)
+    gather_ms = 1e3 * (time.perf_counter() - t1)
+    # the collective alone on as many bytes, as the gather issues it (the
+    # second of two calls: the first sets up buffers of this size)
+    part = torch.zeros(nbytes // n, dtype=torch.uint8, device=dev)
+
+    def collective():
+        if torch.distributed.get_backend(group) == "nccl":
+            torch.distributed.all_gather_into_tensor(
+                torch.empty(nbytes, dtype=torch.uint8, device=dev), part,
+                group=group)
+        else:
+            host = part.cpu()
+            torch.distributed.all_gather(
+                [torch.empty_like(host) for _ in range(n)], host,
+                group=group)
+        sync(dev)
+
+    collective()
+    t1 = time.perf_counter()
+    collective()
+    collective_ms = 1e3 * (time.perf_counter() - t1)
+    return {"rank": rank, "cells": [lo, lo + B // n], "wall_s": wall,
+            "wall_s_per_episode": wall / episodes, "launches": launches,
+            "grids": grids, "updates": ts["d3pg"]["opt_a"]["step"],
+            "digest": _state_digest(ts), "history": hist,
+            "gather_bytes": nbytes, "gather_ms": gather_ms,
+            "collective_ms": collective_ms}
+
+
+def _event_ms(dev, fn, reps: int = 3) -> float:
+    """Mean ms of ``fn()`` over ``reps`` calls after one warm-up: CUDA
+    events on the card, the host clock on the CPU."""
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _dist_moe(dev, n: int, arch: str, make: str, tokens) -> dict:
+    """One MoE layer of ``arch`` (``make`` width) in bf16 from a seed,
+    expert-parallel on a ``("model",)`` mesh of the world against the
+    same layer unsharded on this rank: the largest differences, ms of
+    each, and the all-reduce's bytes a call."""
+    cfg = getattr(get_arch(arch), make)()
+    mcfg = next(b.moe for g in cfg.groups for b in g.cycle
+                if b.ffn == "moe")
+    p = moe_mod.moe_init(make_generator(11, dev), mcfg,
+                         dtype=torch.bfloat16)
+    rows, L = tokens
+    x = torch.randn((rows, L, mcfg.d_model), generator=make_generator(
+        12, dev), device=dev).to(torch.bfloat16)
+    sm = dataclasses.replace(mcfg, dispatch="shardmap")
+    mesh = init_device_mesh(mesh_device_type(), (n,),
+                            mesh_dim_names=("model",))
+    group = mesh.get_group("model")
+    with torch.no_grad():
+        want = moe_mod.moe_apply(p, mcfg, x)
+        with use_mesh(mesh):
+            got = moe_mod.moe_apply(p, sm, x)
+            ms = _event_ms(dev, lambda: moe_mod.moe_apply(p, sm, x))
+        y = torch.zeros_like(want[0]).reshape(-1, mcfg.d_model)
+        allreduce_ms = _event_ms(dev, lambda: moe_mod._all_reduce(y, group))
+        # the unsharded layer timed on rank 0 alone, the card to itself
+        torch.distributed.barrier()
+        plain_ms = (_event_ms(dev, lambda: moe_mod.moe_apply(p, mcfg, x))
+                    if torch.distributed.get_rank() == 0 else None)
+        torch.distributed.barrier()
+    err = _allclose_err(got[0].float(), want[0].float(),
+                        TOL[torch.bfloat16], f"{arch} MoE layer, {n} ranks")
+    aux_err = abs(float(got[1]) - float(want[1]))
+    require(aux_err <= TOL[torch.float32] * max(1.0, abs(float(want[1]))),
+            f"{arch} MoE aux: {float(got[1])} against {float(want[1])}")
+    del p
+    return {"arch": arch, "make": make, "d_model": mcfg.d_model,
+            "d_ff": mcfg.d_ff, "experts": mcfg.n_experts,
+            "top_k": mcfg.top_k, "shared": mcfg.n_shared,
+            "experts_per_rank": mcfg.n_experts // n, "tokens": rows * L,
+            "y_max_abs_err": err, "aux_abs_err": aux_err,
+            "ms": ms, "unsharded_ms": plain_ms,
+            "allreduce_ms": allreduce_ms,
+            "allreduce_bytes": rows * L * mcfg.d_model * 2 + 4,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if dev.type == "cuda" else None)}
+
+
+def _dist_lm(dev, n: int, arch: str, make: str, tokens) -> dict:
+    """``arch``'s forward with ``PerfOpts(moe_shardmap=True)``'s config on
+    a ``("model",)`` mesh of the world against the unsharded forward, f32
+    compute."""
+    cfg = getattr(get_arch(arch), make)()
+    params = lm_mod.lm_init(make_generator(0, dev), cfg)
+    tok = torch.randint(0, cfg.vocab, tokens,
+                        generator=torch.Generator().manual_seed(13)).to(dev)
+    mesh = init_device_mesh(mesh_device_type(), (n,),
+                            mesh_dim_names=("model",))
+    with torch.no_grad():
+        want, aux = lm_mod.lm_forward(params, cfg, tok,
+                                      compute_dtype=torch.float32)
+        with use_mesh(mesh):
+            got, aux_sm = lm_mod.lm_forward(
+                params, steps_mod._apply_moe_shardmap(cfg), tok,
+                compute_dtype=torch.float32)
+    require(bool(torch.isfinite(got).all()), f"{arch}: non-finite logits")
+    err = _allclose_err(got, want, TOL[torch.float32],
+                        f"{arch} forward, moe_shardmap on {n} ranks")
+    return {"arch": arch, "make": make, "tokens": list(tokens),
+            "logits_max_abs_err": err,
+            "aux_abs_err": abs(float(aux_sm) - float(aux))}
+
+
+def _dist_rank(rank: int, n: int, spec: dict) -> dict:
+    """One rank of a phase-dist world: the sharded training, then, where
+    ``spec`` asks, the MoE layer and the LM forward on a ``("model",)``
+    mesh of the same ranks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = resolve_device(spec["device"])
+    out = {"train": _dist_train(dev, rank, n, spec["env"], spec["B"],
+                                spec["episodes"])}
+    if spec.get("moe"):
+        out["moe"] = _dist_moe(dev, n, *spec["moe"])
+    if spec.get("lm"):
+        out["lm"] = _dist_lm(dev, n, *spec["lm"])
+    return out
+
+
+def _run_examples(dev, examples: dict, timeout_s: float) -> dict:
+    """The example twins as subprocesses at once, each with its reduced
+    arguments and ``--device``, in a scratch directory (the checkpoint
+    one writes lands there): each must exit 0 and print only finite
+    numbers."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    out = {}
+    with tempfile.TemporaryDirectory() as cwd:
+        procs = {name: subprocess.Popen(
+            [sys.executable, str(REPO / "examples" / f"{name}.py"), *args,
+             "--device", str(dev)], cwd=cwd, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for name, args in examples.items()}
+        t0 = time.perf_counter()
+        try:
+            for name, p in procs.items():
+                left = max(timeout_s - (time.perf_counter() - t0), 1.0)
+                stdout, stderr = p.communicate(timeout=left)
+                require(p.returncode == 0, f"example {name} exited "
+                        f"{p.returncode}: {stderr[-2000:]}")
+                nums = [float(t) for t in re.findall(
+                    r"-?\d+\.\d+|-?\bnan\b|-?\binf\b", stdout)]
+                require(nums and all(math.isfinite(v) for v in nums),
+                        f"example {name}: non-finite or no results")
+                out[name] = {"args": examples[name], "numbers": len(nums),
+                             "wall_s": time.perf_counter() - t0,
+                             "last_line": stdout.strip().splitlines()[-1]}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(10)
+    return out
+
+
+def phase_dist(device, env_cfg: EnvCfg = EnvCfg(), B: int = DIST_B,
+               episodes: int = DIST_EPISODES, moe=DIST_MOE,
+               moe_tokens=DIST_MOE_TOKENS, lm=DIST_LM,
+               lm_tokens=DIST_LM_TOKENS, examples=DIST_EXAMPLES,
+               timeout_s: float = DIST_TIMEOUT_S, card: str = "") -> dict:
+    """The port's multi-device path (``card``: nvidia-smi's name and power
+    limit, reported beside the numbers).  In this process:
+    ``run_training`` of B fused cells (``method_cfg``'s t2drl settings) for
+    ``episodes``, launches counted, then again with one intra-op thread
+    (as every rank runs; the same bits, its wall s).  Then a world of one
+    rank (NCCL on the
+    card, gloo on the CPU) and a world of two gloo ranks (both on the one
+    card: NCCL refuses two ranks on one device), each started by
+    ``spawn_ranks`` with a deadline, run ``run_training_sharded`` of the
+    same B cells (after a warm-up run from other seeds): every rank's
+    state and history bit for bit this process's (sha256 of every leaf),
+    its launches of ddpm_chain and ddpm_chain_bwd exactly this process's
+    (one chain an acting slot, 2 + 1 a stacked update, whatever B); wall
+    s per episode, the gather's bytes and ms, and the raw collective's ms
+    on as many bytes.  The world of two also runs one ``moe`` MoE layer
+    in bf16 expert-parallel on a ``("model",)`` mesh against the layer
+    unsharded (2e-2; ms of each, the unsharded one on rank 0 alone, and
+    of the all-reduce alone), and the ``lm`` forward with
+    ``PerfOpts(moe_shardmap=True)``'s config against the unsharded one
+    (f32, 2e-5).  Then the example twins run with their reduced
+    arguments.  The kernels are built before (phase build), so no rank
+    runs nvcc."""
+    dev = resolve_device(device)
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = method_cfg("d3pg", "ddqn", env_cfg, episodes)
+    gens = cell_generators(cfg.seed, B, dev)
+    (ts, hist), run = _timed_run(dev, lambda cb: run_training(
+        t2drl_init_batch(gens, cfg), cfg, gens, episodes, callback=cb))
+    n_upd = ts["d3pg"]["opt_a"]["step"]
+    require(n_upd == sum(u for u, _ in predicted_updates(cfg, episodes)),
+            f"run_training: {n_upd} updates")
+    want = {"ddpm_chain": env_cfg.T * env_cfg.K * episodes + 2 * n_upd,
+            "ddpm_chain_bwd": n_upd}
+    single = {k: run["launches"][k] for k in DIST_TRAIN_KERNELS}
+    if dev.type == "cuda":
+        require(single == want, f"run_training launched {single}, "
+                f"expected {want}")
+    digest = _state_digest(ts)
+    del ts
+    # the same run with one intra-op thread, as every rank runs: the
+    # host-bound episode's cost of the thread pool on the host's small ops
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    gens = cell_generators(cfg.seed, B, dev)
+    try:
+        (ts, hist1), run1 = _timed_run(dev, lambda cb: run_training(
+            t2drl_init_batch(gens, cfg), cfg, gens, episodes, callback=cb))
+    finally:
+        torch.set_num_threads(threads)
+    require(_state_digest(ts) == digest and hist1 == hist,
+            "run_training with one intra-op thread differs")
+    del ts
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    spec = {"device": str(dev), "env": env_cfg, "B": B,
+            "episodes": episodes}
+    worlds = {}
+    for n, backend, extra in (
+            (1, "nccl" if dev.type == "cuda" else "gloo", {}),
+            (2, "gloo", {"moe": (*moe, moe_tokens), "lm": (*lm, lm_tokens)})):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_dist_rank, n, args=({**spec, **extra},),
+                            backend=backend, device_type=dev.type,
+                            timeout_s=timeout_s)
+        world = {"ranks": n, "backend": backend,
+                 "seconds": time.perf_counter() - t0}
+        for r in ranks:
+            tr = r["train"]
+            bad = sorted(k for k in digest if tr["digest"].get(k)
+                         != digest[k])
+            require(not bad and set(tr["digest"]) == set(digest),
+                    f"{n} ranks, rank {tr['rank']}: leaves differ from "
+                    f"run_training's: {bad[:6]}")
+            require(tr["history"] == hist, f"{n} ranks, rank {tr['rank']}: "
+                    "history differs from run_training's")
+            require(tr["launches"] == single, f"{n} ranks, rank "
+                    f"{tr['rank']} launched {tr['launches']}, run_training "
+                    f"{single}")
+            del tr["digest"], tr["history"]
+        world["train"] = [r["train"] for r in ranks]
+        for k in ("moe", "lm"):
+            if k in ranks[0]:
+                world[k] = [r[k] for r in ranks]
+        worlds[str(n)] = world
+    for k, what in (("moe", "y_max_abs_err"), ("lm", "logits_max_abs_err")):
+        vals = [w[what] for w in worlds["2"][k]]
+        require(max(vals) == min(vals), f"the ranks' {k} differ: {vals}")
+    ex = _run_examples(dev, examples, timeout_s)
+    Bl = B // 2
+    return {"phase": "dist", "card": card, "B": B, "episodes": episodes,
+            "leaves": len(digest), "d3pg_updates": n_upd,
+            "single_process": {"wall_s": run["wall_s"],
+                               "wall_s_per_episode": run["wall_s"]
+                               / episodes, "threads": threads,
+                               "launches": single},
+            "single_process_one_thread": {
+                "wall_s": run1["wall_s"],
+                "wall_s_per_episode": run1["wall_s"] / episodes},
+            "worlds": worlds, "examples": ex,
+            "launches_by_shape": {
+                "ddpm_chain": {
+                    f"B{B}_R1": want["ddpm_chain"] - 2 * n_upd,
+                    f"B{B}_R64": n_upd, f"B{B}_R64+record": n_upd,
+                    f"B{Bl}_R1": 2 * (want["ddpm_chain"] - 2 * n_upd),
+                    f"B{Bl}_R64": 2 * n_upd,
+                    f"B{Bl}_R64+record": 2 * n_upd},
+                "ddpm_chain_bwd": {f"B{B}_R64": n_upd,
+                                   f"B{Bl}_R64": 2 * n_upd}},
+            "grids": {k: sum(t["grids"][k] for w in worlds.values()
+                             for t in w["train"])
+                      for k in DIST_TRAIN_KERNELS},
+            "reduced": [
+                f"training: {episodes} episodes of {B} cells (of 500)",
+                f"MoE: one {moe[0]} layer ({moe[1]}) on {moe_tokens[0]} x "
+                f"{moe_tokens[1]} tokens; every rank holds the whole layer",
+                f"LM: {lm[0]} at {lm[1]} width, one forward",
+                *(f"example {k}: {' '.join(v)}" for k, v in
+                  examples.items())],
+            "seconds": time.perf_counter() - t_phase}
+
+
 def modal_bucket(counts: dict) -> int:
     """The most frequent prefill length (the larger on a tie)."""
     return max((c, int(b)) for b, c in counts.items())[1]
@@ -3692,7 +4084,8 @@ def _vector_paths(vector, kernel: str) -> tuple:
 
 
 def kernels_line(check, timing, train, control, data, lm, vector,
-                 ops_run, fleet, archs, arch_timing, lm_train) -> dict:
+                 ops_run, fleet, archs, arch_timing, lm_train,
+                 dist) -> dict:
     """The ``kernels`` line.  ddpm_step: the control plane's impl="step"
     episode (at (20,)) and the impl="step" updates of the train phase's
     update timing (their policy chains, at (64, 20)).  ddpm_step_bwd:
@@ -3718,7 +4111,10 @@ def kernels_line(check, timing, train, control, data, lm, vector,
     phase arch_timing with SDPA beside flash; the modal shape is taken
     over both LM phases.  Phase lm_train adds the launches of serving its
     two trained checkpoints (qwen2-0.5b's and mamba2-130m's heads, at
-    shapes phase kernel_timing times); its training launches none."""
+    shapes phase kernel_timing times); its training launches none.  Phase
+    dist adds its ranks' launches of the two chain kernels (the sharded
+    training's, at the B = 8 and B = 4 stacked shapes), under
+    ``launches_by_phase``."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
     upd = train["update_timing"]
@@ -3753,36 +4149,45 @@ def kernels_line(check, timing, train, control, data, lm, vector,
                 "vector": sum(vec_chain.values()),
                 "ops": sum(ops_chain.values()),
                 "fleet": sum(fleet["launches_by_shape"]["ddpm_chain"]
-                             .values())}
+                             .values()),
+                "dist": sum(dist["launches_by_shape"]["ddpm_chain"]
+                            .values())}
     acting = train["env"]["T"] * train["env"]["K"] * train["episodes"]
     n_d3 = train["d3pg_updates"]
     chain_path = {"control": by_plane["control"] + acting,
                   "control_R64": n_d3, "control_R64+record": n_d3}
     for case, n in (list(vec_chain.items()) + list(ops_chain.items())
                     + list(fleet["launches_by_shape"]["ddpm_chain"]
+                           .items())
+                    + list(dist["launches_by_shape"]["ddpm_chain"]
                            .items())):
         chain_path[case] = chain_path.get(case, 0) + n
     chain = kernel_summary(
         chain_rows, chain_path, "control", [k for k, _ in chain_rows[1:]],
         control["grids"] + train["grids"]["ddpm_chain"] + vec_grids
-        + ops_grids["ddpm_chain"] + fleet["grids"]["ddpm_chain"])
+        + ops_grids["ddpm_chain"] + fleet["grids"]["ddpm_chain"]
+        + dist["grids"]["ddpm_chain"])
     chain["step_ms"] = timing["ddpm_chain"][0]["step_ms"]
     for k, row in chain_rows[1:]:
         if "step_ms" in row:
             chain["at"][k]["step_ms"] = row["step_ms"]
     chain["launches_by_plane"] = by_plane
+    chain["launches_by_phase"] = {"dist": by_plane["dist"]}
     chain["grids_per_call"] = (control["grids"] + data["grids"]
                                + train["grids"]["ddpm_chain"]
                                + lm["gateway"]["grids"]["ddpm_chain"]
                                + vec_grids + ops_grids["ddpm_chain"]
-                               + fleet["grids"]["ddpm_chain"]) \
+                               + fleet["grids"]["ddpm_chain"]
+                               + dist["grids"]["ddpm_chain"]) \
         / sum(by_plane.values())
     chain["clusters_per_call"] = (control["clusters"] + data["clusters"]) \
         / (by_plane["control"] + by_plane["data"])
     summary["ddpm_chain"] = chain
     vec_bwd, vec_bwd_grids = _vector_paths(vector, "ddpm_chain_bwd")
     bwd_path = {"train": tl["ddpm_chain_bwd"]}
-    for case, n in list(vec_bwd.items()) + list(ops_bwd.items()):
+    dist_bwd = dist["launches_by_shape"]["ddpm_chain_bwd"]
+    for case, n in (list(vec_bwd.items()) + list(ops_bwd.items())
+                    + list(dist_bwd.items())):
         bwd_path[case] = bwd_path.get(case, 0) + n
     bwd = kernel_summary(
         [(r["case"], r) for r in timing["ddpm_chain_bwd"]
@@ -3790,20 +4195,22 @@ def kernels_line(check, timing, train, control, data, lm, vector,
         bwd_path, "train", ("control_R1", "R1024")
         + tuple(r["case"] for r in timing["stacked"]["ddpm_chain_bwd"]),
         train["grids"]["ddpm_chain_bwd"] + vec_bwd_grids
-        + ops_grids["ddpm_chain_bwd"])
+        + ops_grids["ddpm_chain_bwd"] + dist["grids"]["ddpm_chain_bwd"])
     bwd["fwd_bwd"] = {r["case"]: r["fwd_bwd"]
                       for r in timing["ddpm_chain_bwd"]}
     bwd["launches_by_path"] = {
         "train": tl["ddpm_chain_bwd"], "vector": sum(vec_bwd.values()),
-        "ops": sum(ops_bwd.values()),
+        "ops": sum(ops_bwd.values()), "dist": sum(dist_bwd.values()),
         "chain_updates": upd["chain"]["launches"]["ddpm_chain_bwd"]}
+    bwd["launches_by_phase"] = {"dist": sum(dist_bwd.values())}
     summary["ddpm_chain_bwd"] = bwd
     launches = {"ddpm_step": sum(step_path.values()),
                 "ddpm_step_bwd": step_upd["launches"]["ddpm_step_bwd"],
                 "ddpm_chain": sum(by_plane.values()),
                 "ddpm_chain_bwd": (tl["ddpm_chain_bwd"]
                                    + sum(vec_bwd.values())
-                                   + sum(ops_bwd.values())),
+                                   + sum(ops_bwd.values())
+                                   + sum(dist_bwd.values())),
                 "flash_attention": (lm["flash_attention_launches"]
                                     + archs["flash_attention_launches"]
                                     + lm_train["flash_attention_launches"]),
@@ -3880,8 +4287,10 @@ def main() -> int:
     emit(arch_timing)
     lm_train = phase_lm_train(device, card=dev_info["nvidia_smi"])
     emit(lm_train)
+    dist = phase_dist(device, card=dev_info["nvidia_smi"])
+    emit(dist)
     emit(kernels_line(check, timing, train, control, data, lm, vector,
-                      ops_run, fleet, archs, arch_timing, lm_train))
+                      ops_run, fleet, archs, arch_timing, lm_train, dist))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

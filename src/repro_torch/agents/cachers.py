@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.baselines import random_cache, static_popular_cache
+from repro_torch.core.baselines import (random_cache, random_cache_batch,
+                                        static_popular_cache,
+                                        static_popular_cache_batch)
 from repro_torch.core.cache_policies import (CACHE_POLICIES, cache_access,
                                              cache_rho, cache_state_init,
                                              quantize_capacity,
@@ -29,7 +31,7 @@ from repro_torch.core.ddqn import (DDQNCfg, amend_caching, ddqn_act,
                                    ddqn_update_stacked, stack_ddqn)
 from repro_torch.core.env import EnvCfg
 
-from .base import Agent, cell_of, no_update
+from .base import Agent, no_update
 
 
 def ddqn_cacher(dq: DDQNCfg, env_cfg: EnvCfg, diag: bool = False) -> Agent:
@@ -74,12 +76,10 @@ def ddqn_cacher(dq: DDQNCfg, env_cfg: EnvCfg, diag: bool = False) -> Agent:
                             if diag else None))
 
 
-def _per_cell(fn, B: int):
-    """(a_int, rho) of B cells from ``fn(b)`` -> rho, one cell at a time,
-    stacked, with zero actions."""
-    rhos = [fn(b) for b in range(B)]
-    rho = torch.stack(rhos)
-    return torch.zeros(B, dtype=torch.int64, device=rho.device), rho
+def _zero_actions(rho):
+    """(a_int, rho) of B cells: zero actions beside the (B, M) rho."""
+    return torch.zeros(rho.shape[0], dtype=torch.int64,
+                       device=rho.device), rho
 
 
 def _zero_action(models):
@@ -94,8 +94,8 @@ def static_cacher(env_cfg: EnvCfg) -> Agent:
                 static_popular_cache(obs.models, env_cfg))
 
     def batch_act(state, obs, generator, step):
-        return _per_cell(lambda b: static_popular_cache(
-            cell_of(obs.models, b), env_cfg), obs.gamma_idx.shape[0])
+        return _zero_actions(static_popular_cache_batch(obs.models,
+                                                        env_cfg))
 
     return Agent(name="static", learns=False, init=lambda g: {}, act=act,
                  update=no_update, export=lambda state: {},
@@ -114,14 +114,12 @@ def random_cacher(env_cfg: EnvCfg) -> Agent:
                 random_cache(generator, obs.models, env_cfg))
 
     def batch_act(state, obs, generator, step):
-        return _per_cell(lambda b: random_cache(
-            generator, cell_of(obs.models, b), env_cfg),
-            obs.gamma_idx.shape[0])
+        return _zero_actions(random_cache_batch(
+            [generator] * obs.gamma_idx.shape[0], obs.models, env_cfg))
 
     def act_stacked(state, obs, generators, step):
-        return _per_cell(lambda b: random_cache(
-            generators[b], cell_of(obs.models, b), env_cfg),
-            len(generators))
+        return _zero_actions(random_cache_batch(generators, obs.models,
+                                                env_cfg))
 
     return Agent(name="random", learns=False, init=lambda g: {}, act=act,
                  update=no_update, export=lambda state: {},

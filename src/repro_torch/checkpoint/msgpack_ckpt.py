@@ -64,6 +64,19 @@ def _unpack(node):
     return node
 
 
+def bf16_safe_cast(tree):
+    """The tree (dicts, lists, tuples) with every bf16 tensor leaf cast to
+    f32, as the reference casts bf16 leaves before a save that numpy must
+    read; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: bf16_safe_cast(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(bf16_safe_cast(v) for v in tree)
+    if torch.is_tensor(tree) and tree.dtype == torch.bfloat16:
+        return tree.to(torch.float32)
+    return tree
+
+
 def write_atomic(path: str, data: bytes) -> None:
     """Write ``data`` to ``path`` through a ``.tmp`` file in the same
     directory (parents created), replaced into place."""

@@ -5,7 +5,8 @@ Each ``configs/<id>.py`` exports ``ARCH: Arch`` with the assigned
 full-width config (``make_full``) and a reduced same-family smoke variant
 (``make_smoke``), as in the JAX package; ``make_cfg`` applies a shape's
 variant (the sliding window of ``long_500k``).  The dry run's
-``input_specs`` belongs to the multi-device work (ROADMAP A.12).
+``input_specs`` comes with the mesh half of the LM (ROADMAP A.12 step
+4).
 """
 from __future__ import annotations
 

@@ -56,6 +56,26 @@ def random_cache(generator: torch.Generator, models: ModelParams,
     return _greedy_fill(perm, models.c, cfg.C)
 
 
+def _zoo_cell(models: ModelParams, b: int) -> ModelParams:
+    return ModelParams(*(f[b] for f in models))
+
+
+def static_popular_cache_batch(models: ModelParams,
+                               cfg: EnvCfg) -> torch.Tensor:
+    """Per-cell SCHRS caching of a zoo with a leading (B,) axis: (B, M)."""
+    return torch.stack([static_popular_cache(_zoo_cell(models, b), cfg)
+                        for b in range(models.c.shape[0])])
+
+
+def random_cache_batch(generators, models: ModelParams,
+                       cfg: EnvCfg) -> torch.Tensor:
+    """Per-cell RCARS caching of a (B,)-leading zoo, cell b's order drawn
+    from ``generators[b]`` (the one generator listed B times draws the
+    cells' orders in cell order): (B, M)."""
+    return torch.stack([random_cache(g, _zoo_cell(models, b), cfg)
+                        for b, g in enumerate(generators)])
+
+
 def rcars_allocate(state: EnvState, cfg: EnvCfg):
     """Equal bandwidth split; compute split equally over cached requests.
     Leading cell axes of ``state`` carry through."""

@@ -113,7 +113,17 @@ def stacked_linear(x, w, b):
     (B, i, o), b (B, o) -> (B, ..., o), one batched product for all B
     learners."""
     B, i = x.shape[0], x.shape[-1]
-    y = torch.bmm(x.reshape(B, -1, i), w)
+    xb = x.reshape(B, -1, i)
+    if B == 1:
+        # BLAS runs a lone product one column wide (the critic's head) as
+        # a matrix-vector product, which rounds other than the batched
+        # one; a learner's numbers must not depend on how many learners
+        # share the call (one cell a rank, run_training_sharded), so a
+        # lone learner runs batched, beside a copy whose output is unused
+        # (its gradient is zero, and adds exactly)
+        y = torch.bmm(xb.expand(2, -1, -1), w.expand(2, -1, -1))[:1]
+    else:
+        y = torch.bmm(xb, w)
     return y.reshape(x.shape[:-1] + (w.shape[-1],)) + b.reshape(
         (B,) + (1,) * (x.dim() - 2) + (w.shape[-1],))
 

@@ -74,6 +74,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.agents.base import FrameObs, SlotObs, cell_of, vmap_agent
 from repro_torch.device import make_generator, resolve_device
@@ -211,14 +212,19 @@ def t2drl_init_batch(generators, cfg: T2DRLCfg, *,
     if len(generators) < 1:
         raise ValueError("num_envs must be >= 1")
     cells = [t2drl_init(g, cfg) for g in generators]
-    zoos = [c["models"] for c in cells]
     if share_models:
-        zoos = [zoos[0]] * len(cells)
-    ts = {"models": stack_models(zoos),
+        cells = [{**c, "models": cells[0]["models"]} for c in cells]
+    return _stack_states(cells, shared=cfg.policy == "shared")
+
+
+def _stack_states(cells: list, shared: bool = False) -> dict:
+    """Single-cell train states -> one B-cell state (copies): stacked
+    learners, or cell 0's agents for a ``shared`` learner."""
+    ts = {"models": stack_models([c["models"] for c in cells]),
           "ebuf": stack_buffers(c["ebuf"] for c in cells),
           "fbuf": stack_buffers(c["fbuf"] for c in cells),
           "cache": _stack_cache([c["cache"] for c in cells])}
-    if cfg.policy == "shared":
+    if shared:
         ts.update(d3pg=cells[0]["d3pg"], ddqn=cells[0]["ddqn"])
     else:
         ts.update(d3pg=stack_d3pg(c["d3pg"] for c in cells),
@@ -372,15 +378,18 @@ def _episode_stats(cols: dict, storage_viols: list) -> dict:
     """The eight episode stats (``STAT_KEYS``) from the slot columns and
     the frames' storage violations, as device tensors: 0-dim, or (B,) per
     cell."""
-    col = {k: torch.stack(v) for k, v in cols.items()}
-    return {"episode_reward": torch.sum(col["r"], dim=0),
-            "mean_reward": torch.mean(col["r"], dim=0),
-            "hit_ratio": torch.mean(col["hit"], dim=0),
-            "utility": torch.mean(col["G"], dim=0),
-            "delay": torch.mean(col["delay"], dim=0),
-            "quality": torch.mean(col["quality"], dim=0),
-            "deadline_viol": torch.mean(col["viol"], dim=0),
-            "storage_viol": torch.mean(torch.stack(storage_viols), dim=0)}
+    # slots last: each cell's row is reduced alone, in an order that does
+    # not depend on how many cells share the call
+    col = {k: torch.stack(v, dim=-1) for k, v in cols.items()}
+    return {"episode_reward": torch.sum(col["r"], dim=-1),
+            "mean_reward": torch.mean(col["r"], dim=-1),
+            "hit_ratio": torch.mean(col["hit"], dim=-1),
+            "utility": torch.mean(col["G"], dim=-1),
+            "delay": torch.mean(col["delay"], dim=-1),
+            "quality": torch.mean(col["quality"], dim=-1),
+            "deadline_viol": torch.mean(col["viol"], dim=-1),
+            "storage_viol": torch.mean(torch.stack(storage_viols, dim=-1),
+                                       dim=-1)}
 
 
 def _storage_viol(rho, models: ModelParams, ec: EnvCfg):
@@ -771,11 +780,12 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
             cache = cacher0.step_frame(cache, torch.stack(reqs, dim=1),
                                        models, masks)
         storage_viol = _storage_viol(rho, models, ec)
-        r_frame = torch.mean(torch.stack(frame_r), dim=0) \
+        # slots last, as in _episode_stats: each cell's mean alone
+        r_frame = torch.mean(torch.stack(frame_r, dim=-1), dim=-1) \
             - storage_viol * ec.Xi
         if shape_hit is not None:
             r_frame = r_frame + shape_hit * torch.mean(
-                torch.stack(cols["hit"][-ec.K:]), dim=0)
+                torch.stack(cols["hit"][-ec.K:], dim=-1), dim=-1)
         r_frames.append(r_frame)
         gammas.append(gamma_t)
         a_ints.append(a_int)
@@ -950,6 +960,158 @@ def run_training(ts: dict, cfg: T2DRLCfg, generators, episodes: int,
     history = _run_episodes(episode, _training_steps(cfg, episodes, pop),
                             log_every, callback, writer)
     return state["ts"], history
+
+
+def run_episode(ts: dict, cfg: T2DRLCfg, generator: torch.Generator, eps,
+                sigma, *, train: bool = True,
+                mods: Optional[ScenarioSchedule] = None):
+    """One episode of Algorithm 1 for a single cell (``t2drl_init``'s
+    layout) at exploration ``eps`` and ``sigma``, its draws from
+    ``generator``; ``mods`` an optional unbatched ``ScenarioSchedule``.
+    The state is updated in place (``_episode_core``).  Returns ``(ts,
+    stats)``, the stats 0-dim device tensors."""
+    return _episode_core(ts, cfg, generator, {"eps": eps, "sigma": sigma},
+                         train=train, mods=mods)
+
+
+# -- cells sharded over ranks (DESIGN.md §13) ---------------------------------
+
+def _cell_leaves(ts: dict) -> list:
+    """Every (B,)-leading tensor of a batched state with stacked
+    learners, in one fixed order: the zoo, the learners' parameters and
+    Adam moments, the buffers' data, the cache state."""
+    out = list(ts["models"])
+    for k in ("d3pg", "ddqn"):
+        for name in sorted(ts[k]):
+            v = ts[k][name]
+            out += ([q.data for q in v.parameters()]
+                    if isinstance(v, torch.nn.Module) else v["mu"] + v["nu"])
+    for k in ("ebuf", "fbuf"):
+        out += [ts[k]["data"][n] for n in sorted(ts[k]["data"])]
+    return out + [ts["cache"][n] for n in sorted(ts["cache"])]
+
+
+def _cell_hosts(ts: dict) -> dict:
+    """The host counters of a batched state: per-cell buffer ``ptr`` and
+    ``size`` lists, and the learners' Adam steps (one for all)."""
+    return {"buffers": {k: (list(ts[k]["ptr"]), list(ts[k]["size"]))
+                        for k in ("ebuf", "fbuf")},
+            "steps": {(k, o): ts[k][o]["step"] for k, opts in
+                      (("d3pg", ("opt_a", "opt_c")), ("ddqn", ("opt",)))
+                      for o in opts}}
+
+
+def _gather_cells(ts: dict, local: dict, group, history=None):
+    """Write every rank's cells of ``local`` (this rank's contiguous
+    slice, rank order) into the whole state ``ts``: the tensors in one
+    byte buffer gathered over ``group`` (device tensors under NCCL, a
+    host copy under gloo), the host counters and ``history`` (per key,
+    episodes of per-cell lists) as objects.  Returns (the whole history,
+    bytes gathered)."""
+    whole, mine = _cell_leaves(ts), _cell_leaves(local)
+    n = dist.get_world_size(group)
+    B_loc = mine[0].shape[0]
+    for w, m in zip(whole, mine):
+        if w.shape != (n * B_loc,) + m.shape[1:] or w.dtype != m.dtype:
+            raise ValueError(f"a local leaf {tuple(m.shape)} {m.dtype} does "
+                             f"not tile its whole leaf {tuple(w.shape)} "
+                             f"{w.dtype} over {n} ranks")
+    chunks = []                 # each leaf's bytes, padded to 8
+    for m in mine:
+        b = m.detach().reshape(-1).view(torch.uint8)
+        chunks += [b, b.new_zeros((-b.numel()) % 8)]
+    buf = torch.cat(chunks)
+    if dist.get_backend(group) == "nccl":
+        parts = torch.empty((n,) + buf.shape, dtype=buf.dtype,
+                            device=buf.device)
+        dist.all_gather_into_tensor(parts, buf, group=group)
+    else:
+        host = buf.cpu()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+    for r in range(n):
+        off, rows = 0, slice(r * B_loc, (r + 1) * B_loc)
+        for w, m in zip(whole, mine):
+            nb = m.numel() * m.element_size()
+            w[rows].copy_(parts[r][off:off + nb].view(m.dtype)
+                          .reshape(m.shape))
+            off += nb + (-nb) % 8
+    hosts, objs = _cell_hosts(local), [None] * n
+    dist.all_gather_object(objs, (hosts, history), group=group)
+    steps = {tuple(sorted(o[0]["steps"].items())) for o in objs}
+    if len(steps) != 1:
+        raise RuntimeError(f"the ranks' learners stepped apart: {steps}")
+    for k in ("ebuf", "fbuf"):
+        ts[k]["ptr"] = [p for o in objs for p in o[0]["buffers"][k][0]]
+        ts[k]["size"] = [z for o in objs for z in o[0]["buffers"][k][1]]
+    for (k, o), step in hosts["steps"].items():
+        ts[k][o]["step"] = step
+    if history is not None:
+        history = {k: [[c for o in objs for c in o[1][k][e]]
+                       for e in range(len(v))] for k, v in history.items()}
+    return history, buf.numel() * n
+
+
+def run_training_sharded(ts: dict, cfg: T2DRLCfg, generators, episodes: int,
+                         masks=None, *, train: bool = True, pop=None,
+                         mesh=None, mods=None):
+    """``run_training`` with the B independent cells sharded over the
+    ranks of a 1-D ``("cells",)`` mesh (``mesh``, default
+    ``repro_torch.launch.mesh.make_cells_mesh()``): the reference's
+    ``run_training_sharded``, one process a rank (SPMD).
+
+    Every rank calls it with the same whole state ``ts`` and the B global
+    ``cell_generators(cfg.seed, B)``.  Rank r takes its contiguous slice
+    of B/n cells (state leaves, Adam moments, buffers with their
+    ``ptr``/``size``, ``masks``, ``pop``'s columns and generators), runs
+    the fused episodes on that slice alone, with no communication during
+    training, and the schedules of the global episodes and B (``pop`` is
+    validated against B).  At the end the slices are gathered over the
+    mesh's group into ``ts`` (written in place) on every rank, so every
+    rank returns the whole ``(ts, history)`` that ``run_training`` gives
+    on all B cells: the same values, history (episodes, B).  The
+    generators of other ranks' cells are not advanced on this rank.
+
+    Refusals, as the reference's: ``policy="independent"`` with
+    ``independent_impl="fused"`` only; B divisible by the mesh's size; no
+    ``mods``."""
+    if cfg.policy != "independent" or cfg.independent_impl != "fused":
+        raise ValueError("run_training_sharded requires policy="
+                         "'independent' and independent_impl='fused'")
+    if mods is not None:
+        raise ValueError("run_training_sharded takes no scenario schedule "
+                         "(mods), as the reference's does not")
+    B = len(generators)
+    if mesh is None:
+        from repro_torch.launch.mesh import make_cells_mesh
+        mesh = make_cells_mesh()
+    n = mesh.size()
+    if B % n:
+        raise ValueError(f"num_envs={B} must be divisible by the mesh's "
+                         f"{n} devices")
+    pop = _validate_pop(pop, cfg, B, episodes)
+    lo = mesh.get_local_rank("cells") * (B // n)
+    mine = slice(lo, lo + B // n)
+    gens = list(generators[mine])
+    local = _stack_states([cell_state(ts, cfg, b)
+                           for b in range(mine.start, mine.stop)])
+    masks = None if masks is None else masks[mine]
+    if pop is not None:
+        pop = {k: [row[mine] for row in v] for k, v in pop.items()}
+    # run_training's core at the global B: the fused one for B > 1
+    core = _episode_core_fused if B > 1 else _episode_batch
+    state = {"ts": local}
+
+    def episode(step):
+        state["ts"], stats = core(state["ts"], cfg, gens, step,
+                                  train=train, masks=masks)
+        return stats
+
+    history = _run_episodes(episode, _training_steps(cfg, episodes, pop),
+                            0, None)
+    history, _ = _gather_cells(ts, state["ts"], mesh.get_group("cells"),
+                               history)
+    return ts, history
 
 
 def _mean(v) -> float:

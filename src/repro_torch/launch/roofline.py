@@ -15,8 +15,8 @@ products, attention, convolutions), bytes as every dispatched op's
 tensor inputs read once and outputs written once (XLA's "bytes
 accessed" without fusion), views and other aliases counting none.
 Collective bytes come from the partitioned HLO in the reference; their
-parser goes to the multi-device slice (ROADMAP A.12), so ``coll`` is
-empty on one card.
+counterpart, bytes counted from torch.distributed's collectives, comes
+with the dry run (ROADMAP A.12 step 4), so ``coll`` is empty here.
 """
 from __future__ import annotations
 

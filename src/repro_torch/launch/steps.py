@@ -1,13 +1,16 @@
-"""Step pieces of the single-device training path (port of the
-single-device part of ``repro.launch.steps``): the performance options
-that configure a train step (``launch.train.make_train_fns``) and their
-tags, the ring-cache transform, the loss a step differentiates, and the
-parameter shapes of a config without allocating them.
+"""Step pieces of the training path (port of ``repro.launch.steps``): the
+performance options that configure a train step
+(``launch.train.make_train_fns``) and their tags, the ring-cache and
+expert-parallel transforms of a config, the loss a step differentiates,
+and the parameter shapes of a config without allocating them.
 
-The mesh and sharding half (``batch_spec_for``, ``spec_to_sharding``,
-FSDP, the shard_map MoE dispatch and ``build_step``) belongs to the
-multi-device work with the dry run (ROADMAP A.12); ``PerfOpts`` refuses
-``fsdp`` and ``moe_shardmap`` naming it.
+``PerfOpts(moe_shardmap=True)`` switches every MoE block to the
+expert-parallel dispatch (``_apply_moe_shardmap``), which runs where a
+mesh is current (``repro_torch.nn.sharding.use_mesh``, around the step or
+the forward) and is the global path without one.  The rest of the mesh
+half (``batch_spec_for``, ``spec_to_sharding``, FSDP, ``build_step``)
+comes with the parameter specs and the dry run (ROADMAP A.12 step 4);
+``PerfOpts`` refuses ``fsdp`` naming it.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models import whisper as wh_mod
 
 IMPLS = ("plain", "chunked", "kernel")
-MESH_TODO = ("needs a device mesh: the multi-device slice (ROADMAP A.12, "
-             "with launch/dryrun.py)")
+FSDP_TODO = ("needs the parameter specs over a device mesh: ROADMAP A.12 "
+             "step 4, with launch/dryrun.py")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +32,7 @@ class PerfOpts:
     the one way ``make_train_fns`` is configured.
 
     fsdp         — shard params and Adam moments over the data axes
-                   (ZeRO-3); refused here (A.12).
+                   (ZeRO-3); refused here (A.12 step 4).
     bf16_moments — keep Adam mu/nu in bf16 (halves optimizer bytes).
     impl         — attention for train/prefill: 'plain' (materialised
                    scores), 'chunked' (online softmax, O(bq·bk) working
@@ -39,8 +42,10 @@ class PerfOpts:
                    ``window`` slots instead of full-sequence buffers
                    (``_apply_ring``); a train step builds no cache, so
                    ``make_train_fns`` refuses it.
-    moe_shardmap — expert-parallel dispatch over a mesh; refused here
-                   (A.12).
+    moe_shardmap — expert-parallel MoE dispatch: each rank of the
+                   current mesh's ``"model"`` dimension runs its share of
+                   the experts and one all-reduce combines them
+                   (``_apply_moe_shardmap``).
     """
     fsdp: bool = False
     bf16_moments: bool = False
@@ -52,10 +57,8 @@ class PerfOpts:
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, not "
                              f"{self.impl!r}")
-        for name in ("fsdp", "moe_shardmap"):
-            if getattr(self, name):
-                raise NotImplementedError(f"PerfOpts({name}=True) "
-                                          f"{MESH_TODO}")
+        if self.fsdp:
+            raise NotImplementedError(f"PerfOpts(fsdp=True) {FSDP_TODO}")
 
     @property
     def moment_dtype(self) -> torch.dtype:
@@ -70,6 +73,8 @@ class PerfOpts:
             parts.append(self.impl)
         if self.ring:
             parts.append("ring")
+        if self.moe_shardmap:
+            parts.append("moesm")
         return "-".join(parts) or "base"
 
 
@@ -82,6 +87,21 @@ def _apply_ring(cfg):
             if b.mixer == "attn" and b.attn and b.attn.window:
                 b = dataclasses.replace(
                     b, attn=dataclasses.replace(b.attn, ring=True))
+            cycle.append(b)
+        new_groups.append(dataclasses.replace(g, cycle=tuple(cycle)))
+    return dataclasses.replace(cfg, groups=tuple(new_groups))
+
+
+def _apply_moe_shardmap(cfg):
+    """Switch every MoE block of a CompositeLM to the expert-parallel
+    dispatch."""
+    new_groups = []
+    for g in cfg.groups:
+        cycle = []
+        for b in g.cycle:
+            if b.ffn == "moe" and b.moe:
+                b = dataclasses.replace(
+                    b, moe=dataclasses.replace(b.moe, dispatch="shardmap"))
             cycle.append(b)
         new_groups.append(dataclasses.replace(g, cycle=tuple(cycle)))
     return dataclasses.replace(cfg, groups=tuple(new_groups))
@@ -109,7 +129,7 @@ class _MetaGenerator(torch.Generator):
 def param_shapes(arch, cfg) -> dict:
     """The parameter tree of ``cfg`` as meta tensors (shapes and dtypes,
     no storage): the shape half of the reference's ``params_and_specs``;
-    its PartitionSpecs wait for the mesh (A.12)."""
+    its PartitionSpecs come with the mesh half (A.12 step 4)."""
     g = _MetaGenerator()
     if arch.kind == "whisper":
         return wh_mod.whisper_init(g, cfg)

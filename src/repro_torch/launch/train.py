@@ -29,7 +29,8 @@ from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_arch
 from repro_torch.data import make_lm_batch
 from repro_torch.device import make_generator, resolve_device
-from repro_torch.launch.steps import IMPLS, PerfOpts, _loss_fn
+from repro_torch.launch.steps import (IMPLS, PerfOpts, _apply_moe_shardmap,
+                                      _loss_fn)
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import whisper as wh_mod
 from repro_torch.optim import adam_init, adam_update, linear_warmup_cosine
@@ -45,10 +46,14 @@ def make_train_fns(arch, cfg, *, lr_schedule, opts: PerfOpts = PerfOpts(),
     ``opt`` is ``adam_init``'s state over ``lm_mod.tree_leaves(params)``.
     Metrics are detached 0-dim tensors (``loss``, ``xent``,
     ``aux``/``mtp_xent`` where the loss has them, ``gnorm`` before
-    clipping) and ``lr``, a float."""
+    clipping) and ``lr``, a float.  ``opts.moe_shardmap``: the MoE
+    blocks dispatch expert-parallel over the mesh current when the step
+    runs (``repro_torch.nn.sharding.use_mesh``)."""
     if opts.ring:
         raise ValueError("PerfOpts(ring=True) turns decode caches into "
                          "rings; a train step builds no cache")
+    if opts.moe_shardmap and arch.kind != "whisper":
+        cfg = _apply_moe_shardmap(cfg)
     loss_fn = _loss_fn(arch, cfg, opts.impl, compute_dtype)
     init = wh_mod.whisper_init if arch.kind == "whisper" else lm_mod.lm_init
 

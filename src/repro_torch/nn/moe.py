@@ -1,6 +1,7 @@
 """Mixture-of-Experts with shared experts and top-k routed experts
 (DeepSeek-V2/V3 style), sort-based capacity dispatch; port of
-``repro.nn.moe``'s global-scatter path.
+``repro.nn.moe``: the global-scatter path and the expert-parallel one
+(``moe_apply_shardmap``'s body, ``_local_dispatch_combine``).
 
 The router's softmax picks each token's top-k experts, whose weights are
 renormalised; the (token, expert) assignments are sorted by expert
@@ -19,10 +20,26 @@ agrees with the reference to bf16 rounding, not bit for bit.
 
 ``route_rows=True`` routes each batch row on its own (its own capacity
 and sort), what the reference gives when it maps a one-row call over the
-rows, as its serving engine maps its decode step.  The expert-parallel
-mesh path (the reference's ``dispatch="shardmap"`` under a mesh) is
-multi-device work: with a ``mesh`` it raises; without one, ``"shardmap"``
-falls through to this path, as the reference's does.
+rows, as its serving engine maps its decode step.
+
+Expert parallelism: with ``dispatch="shardmap"`` and a current mesh
+(``repro_torch.nn.sharding.use_mesh``) that has a ``"model"`` dimension
+whose size n divides E, each rank (SPMD, one process a rank) routes the
+tokens it was given, its data shard (every rank of a ``"model"`` group
+passes the same rows), dispatches them locally into the full (E·cap, D)
+buffer, runs its own E/n experts (the slice at its ``"model"``
+coordinate of the whole parameter tree), combines its experts'
+contributions and sums the (T, D) outputs over the ``"model"`` group in
+one ``all_reduce``; the aux loss is averaged over the whole mesh.  Every
+rank holds the whole tree for now (placing only its slice there comes
+with the parameter specs, ROADMAP A.12 step 4), so under autograd the
+collectives are differentiated to keep the copies whole: the gradients
+of the tokens and the router are summed over the ``"model"`` group, and
+each expert slice's gradient reaches every rank, so a train step gives
+every rank the gradients of the unsharded layer.  Without a mesh
+``"shardmap"`` falls through to the global path, as the reference's
+does; the global path is the same code with every expert local and no
+collective.
 """
 from __future__ import annotations
 
@@ -30,12 +47,11 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from .core import silu
 from .mlp import MLPCfg, mlp_apply, mlp_init
-
-_MESH_TODO = ("the expert-parallel MoE dispatch over a device mesh is not "
-              "ported yet (ROADMAP A.12: multi-device)")
+from .sharding import current_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +64,8 @@ class MoECfg:
     capacity_factor: float = 1.25
     aux_coef: float = 0.001
     router_dtype: object = torch.float32
-    dispatch: str = "gspmd"        # "gspmd" | "shardmap" (mesh only)
+    dispatch: str = "gspmd"        # "gspmd" | "shardmap" (expert-parallel
+    # under a mesh; the global path without one)
 
 
 def moe_init(generator: torch.Generator, cfg: MoECfg, *,
@@ -76,32 +93,133 @@ def _capacity(T: int, cfg: MoECfg) -> int:
     return max(cap, cfg.top_k)
 
 
+def _model_share(mesh, E: int) -> tuple:
+    """(first expert, experts, ``"model"`` group) of this rank on
+    ``mesh``."""
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        raise ValueError(f"the expert-parallel MoE needs a 'model' mesh "
+                         f"dimension; this mesh has {names}")
+    n = mesh["model"].size()
+    if E % n:
+        raise ValueError(f"{E} experts do not split over a 'model' "
+                         f"dimension of {n}")
+    e_loc = E // n
+    return mesh.get_local_rank("model") * e_loc, e_loc, \
+        mesh.get_group("model")
+
+
+def _all_reduce(t, group):
+    """Sum ``t`` over ``group`` in place; a gloo group takes a host copy
+    of a device tensor."""
+    if t.device.type == "cpu" or dist.get_backend(group) != "gloo":
+        dist.all_reduce(t, group=group)
+        return t
+    host = t.cpu()
+    dist.all_reduce(host, group=group)
+    return t.copy_(host)
+
+
+class _ToModelGroup(torch.autograd.Function):
+    """Identity forward; the gradient summed over the ``"model"`` group
+    backward.  Marks a replicated tensor (the tokens, the router) entering
+    the per-rank expert share, whose gradient on each rank is only its
+    experts' part."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.group), None
+
+
+class _SumModelGroup(torch.autograd.Function):
+    """The experts' partial outputs summed over the ``"model"`` group
+    forward; the gradient passed through backward (every rank holds the
+    same downstream loss)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ExpertShare(torch.autograd.Function):
+    """This rank's slice of an expert weight forward; backward, the
+    slice's gradient placed in the whole weight's shape and summed over
+    the ``"model"`` group, so every rank's copy of the whole tree gets the
+    whole gradient (each slice from the rank that ran it)."""
+
+    @staticmethod
+    def forward(ctx, w, mine, group):
+        ctx.mine, ctx.group, ctx.shape = mine, group, w.shape
+        return w[mine]
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = g.new_zeros(ctx.shape)
+        whole[ctx.mine] = g
+        return _all_reduce(whole, ctx.group), None, None
+
+
+def _share(w, mine: slice, group):
+    """``w[mine]``; under autograd on a mesh, through ``_ExpertShare``."""
+    if group is None or not (torch.is_grad_enabled() and w.requires_grad):
+        return w[mine]
+    return _ExpertShare.apply(w, mine, group)
+
+
+class _MeshMean(torch.autograd.Function):
+    """The mean over every rank of the mesh forward, 1/n of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.n = mesh.size()
+        t = t.clone()
+        for name in mesh.mesh_dim_names:
+            _all_reduce(t, mesh.get_group(name))
+        return t / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
-              route_rows: bool = False, mesh=None):
+              route_rows: bool = False):
     """x: (B, L, D) -> (y (B, L, D) in the compute dtype, aux loss f32).
     ``route_rows``: each of the B rows routed on its own (the aux loss is
-    then the mean of the rows').  ``mesh`` stands where the reference
-    reads ``current_mesh()``: the device mesh of an expert-parallel run.
-    The port has no mesh until ROADMAP A.12, so it takes only ``None`` and
-    refuses any other value naming that item."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    then the mean of the rows').  With ``cfg.dispatch == "shardmap"``
+    under a current mesh, the expert-parallel path (module docstring):
+    ``x`` is this rank's data shard and ``y`` its rows."""
+    mesh = current_mesh() if cfg.dispatch == "shardmap" else None
     B, L, D = x.shape
     G = B if route_rows else 1          # routing groups
     T = B * L // G                      # tokens per group
     E, K = cfg.n_experts, cfg.top_k
+    e0, e_loc, group = (0, E, None) if mesh is None else \
+        _model_share(mesh, E)
     cap = _capacity(T, cfg)
     dev = x.device
-    xt = x.reshape(G * T, D)
+    xt, router = x.reshape(G * T, D), p["router"]["w"]
+    if group is not None:
+        xt, router = (_ToModelGroup.apply(t, group) for t in (xt, router))
 
-    logits = torch.matmul(xt.float(), p["router"]["w"].float())
+    logits = torch.matmul(xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)                    # (G*T, E)
     w, ids = torch.topk(probs, K, dim=-1)                    # (G*T, K)
     w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-9)      # renormalise
 
     # flatten the assignments, each keyed by (group, expert), and sort
-    group = torch.arange(G * T, device=dev) // T
-    key = (ids + (group * E)[:, None]).reshape(-1)
+    group_of = torch.arange(G * T, device=dev) // T
+    key = (ids + (group_of * E)[:, None]).reshape(-1)
     flat_w = w.reshape(-1)
     flat_tok = torch.arange(G * T, device=dev).repeat_interleave(K)
     order = torch.argsort(key, stable=True)
@@ -116,26 +234,36 @@ def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
     slot = torch.where(keep, e_sorted * cap + rank,
                        torch.full_like(rank, n_slots))
 
-    # dispatch
+    # dispatch every kept assignment into the full buffer, then take this
+    # rank's experts (all of them off a mesh)
     tok = xt[t_sorted].to(compute_dtype)
     tok = torch.where(keep[:, None], tok, torch.zeros_like(tok))
     buf = torch.zeros((n_slots + 1, D), dtype=compute_dtype, device=dev)
     buf.index_add_(0, slot, tok)
-    h = buf[:n_slots].reshape(G, E, cap, D)
+    h = buf[:n_slots].reshape(G, E, cap, D)[:, e0:e0 + e_loc]
 
     # expert FFN (SwiGLU)
-    up = torch.einsum("gecd,edf->gecf", h, p["up"].to(compute_dtype))
-    gate = torch.einsum("gecd,edf->gecf", h, p["gate"].to(compute_dtype))
-    out = torch.einsum("gecf,efd->gecd", silu(gate) * up,
-                       p["down"].to(compute_dtype))
+    w_up, w_gate, w_down = (_share(p[k], slice(e0, e0 + e_loc), group)
+                            .to(compute_dtype) for k in ("up", "gate", "down"))
+    up = torch.einsum("gecd,edf->gecf", h, w_up)
+    gate = torch.einsum("gecd,edf->gecf", h, w_gate)
+    out = torch.einsum("gecf,efd->gecd", silu(gate) * up, w_down)
 
-    # combine
-    out_flat = torch.cat([out.reshape(n_slots, D),
+    # combine this rank's experts' contributions
+    n_mine = G * e_loc * cap
+    out_flat = torch.cat([out.reshape(n_mine, D),
                           torch.zeros((1, D), dtype=compute_dtype,
                                       device=dev)])
-    contrib = out_flat[slot] * w_sorted[:, None].to(compute_dtype)
+    e_of = e_sorted % E
+    valid = keep & (e_of >= e0) & (e_of < e0 + e_loc)
+    row = ((e_sorted // E) * e_loc + e_of - e0) * cap + rank
+    row = torch.where(valid, row, torch.full_like(row, n_mine))
+    w_mine = torch.where(valid, w_sorted, torch.zeros_like(w_sorted))
+    contrib = out_flat[row] * w_mine[:, None].to(compute_dtype)
     y = torch.zeros((G * T, D), dtype=compute_dtype, device=dev)
     y.index_add_(0, t_sorted, contrib)
+    if group is not None:
+        y = _SumModelGroup.apply(y, group)
     y = y.reshape(B, L, D)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], _shared_cfg(cfg), x,
@@ -145,5 +273,7 @@ def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
     frac = torch.zeros(G * E, device=dev).index_add_(
         0, key, torch.ones_like(flat_w)).reshape(G, E) / (T * K)
     mean_prob = torch.mean(probs.reshape(G, T, E), dim=1)
-    aux = cfg.aux_coef * E * torch.sum(frac * mean_prob, dim=-1)
-    return y, torch.mean(aux)
+    aux = torch.mean(cfg.aux_coef * E * torch.sum(frac * mean_prob, dim=-1))
+    if mesh is not None:
+        aux = _MeshMean.apply(aux, mesh)
+    return y, aux

@@ -105,12 +105,14 @@ def test_lm_init_matches_the_jax_tree():
             np.shape, jp)
 
 
-def test_unported_lm_features_raise_naming_the_roadmap():
-    """(The name is from before these features were ported; it is kept so
-    the suite's count of tests stays whole.)  MTP parameters, the VLM prefix projector, an untied head and learned
-    positions are ported: each builds the JAX tree.  The MoE mesh dispatch
-    still raises, naming ROADMAP A.12."""
+def test_lm_features_build_the_jax_tree_and_moe_reads_the_mesh():
+    """MTP parameters, the VLM prefix projector, an untied head and learned
+    positions each build the JAX tree.  The MoE takes its mesh from the
+    context (``use_mesh``), not an argument: ``"shardmap"`` is the global
+    path without a mesh and on a world of one (every expert local)."""
+    from _dist_ranks import world_of_one
     from repro_torch.nn import moe
+    from repro_torch.nn.sharding import use_mesh
     tcfg = get_arch("qwen2-0.5b").make_smoke()
     jcfg = jget_arch("qwen2-0.5b").make_smoke()
     for over in (dict(mtp=True), dict(prefix_embed_dim=8, n_prefix=4),
@@ -122,9 +124,14 @@ def test_unported_lm_features_raise_naming_the_roadmap():
         assert lm.tree_map(lambda t: tuple(t.shape), tp) == jax.tree.map(
             np.shape, jp)
     mcfg = moe.MoECfg(16, 8, n_experts=4, top_k=2, dispatch="shardmap")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        moe.moe_apply(moe.moe_init(torch.Generator(), mcfg), mcfg,
-                      torch.zeros(1, 2, 16), mesh=object())
+    p = moe.moe_init(torch.Generator().manual_seed(0), mcfg)
+    x = torch.randn(1, 6, 16, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(TypeError, match="mesh"):
+        moe.moe_apply(p, mcfg, x, mesh=object())
+    want = moe.moe_apply(p, dataclasses.replace(mcfg, dispatch="gspmd"), x)
+    with world_of_one() as mesh, use_mesh(mesh):
+        got = moe.moe_apply(p, mcfg, x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # -- lm forward / prefill / decode (f32) -------------------------------------------

@@ -357,7 +357,13 @@ def test_moe_route_rows_is_the_reference_mapped_over_rows():
     assert not torch.allclose(y, yj)
 
 
-def test_moe_shardmap_without_a_mesh_is_the_global_path_and_a_mesh_raises():
+def test_moe_shardmap_is_the_global_path_without_a_mesh_and_on_one_rank():
+    """``dispatch="shardmap"`` without a mesh, and on a world of one (every
+    expert local, the sums over one rank), is the global path bit for bit;
+    a mesh without a ``"model"`` dimension is refused."""
+    from _dist_ranks import world_of_one
+    from repro_torch.launch.mesh import make_cells_mesh
+    from repro_torch.nn.sharding import use_mesh
     jcfg, tcfg, jp, tp = _moe(1, 1.25)
     x = torch.tensor(np.random.default_rng(10).standard_normal(
         (1, 6, 32)).astype(np.float32))
@@ -365,8 +371,13 @@ def test_moe_shardmap_without_a_mesh_is_the_global_path_and_a_mesh_raises():
     a = moe.moe_apply(tp, sm, x, compute_dtype=torch.float32)
     b = moe.moe_apply(tp, tcfg, x, compute_dtype=torch.float32)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    with pytest.raises(NotImplementedError, match="A.12"):
-        moe.moe_apply(tp, sm, x, mesh=object())
+    with world_of_one() as mesh:
+        with use_mesh(mesh):
+            c = moe.moe_apply(tp, sm, x, compute_dtype=torch.float32)
+        with use_mesh(make_cells_mesh()), pytest.raises(ValueError,
+                                                        match="'model'"):
+            moe.moe_apply(tp, sm, x, compute_dtype=torch.float32)
+    assert torch.equal(c[0], b[0]) and torch.equal(c[1], b[1])
 
 
 # -- cross-attention ------------------------------------------------------------------

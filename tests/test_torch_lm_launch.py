@@ -6,6 +6,7 @@ configures a step, the ring transform, parameter shapes on the meta
 device, the roofline terms with the H100's constants (views counting no
 bytes) and ``active_fraction`` against the JAX package's, and
 ``chip_smoke.py``'s ``lm_train`` phase run small."""
+import dataclasses
 import importlib.util
 import sys
 from pathlib import Path
@@ -101,15 +102,26 @@ def test_kernel_impl_is_refused_under_grad():
         step(params, opt, batch_fn(torch.Generator().manual_seed(0)))
 
 
-def test_perf_opts_tags_and_the_mesh_options_refused():
+def test_perf_opts_tags_fsdp_refused_and_moe_shardmap_accepted():
     assert steps.PerfOpts().tag == "base"
     assert steps.PerfOpts(bf16_moments=True).tag == "bf16m"
     assert steps.PerfOpts(impl="chunked", ring=True).tag == "chunked-ring"
     assert steps.PerfOpts(impl="kernel", bf16_moments=True).tag == \
         "bf16m-kernel"
-    for opt in ("fsdp", "moe_shardmap"):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            steps.PerfOpts(**{opt: True})
+    with pytest.raises(NotImplementedError, match="A.12 step 4"):
+        steps.PerfOpts(fsdp=True)
+    assert steps.PerfOpts(moe_shardmap=True, impl="chunked").tag == \
+        "chunked-moesm"
+    # every MoE block, and only those, switched to the expert-parallel
+    # dispatch, as the reference's _apply_moe_shardmap does
+    cfg = get_arch("deepseek-v3-671b").make_smoke()
+    blocks = [b for g in steps._apply_moe_shardmap(cfg).groups
+              for b in g.cycle]
+    assert {b.moe.dispatch for b in blocks if b.ffn == "moe"} == \
+        {"shardmap"}
+    assert [dataclasses.replace(b, moe=None) for b in blocks] == [
+        dataclasses.replace(b, moe=None) for g in cfg.groups
+        for b in g.cycle]
     with pytest.raises(ValueError, match="impl"):
         steps.PerfOpts(impl="flash")
     arch = get_arch("qwen2-0.5b")

@@ -408,11 +408,11 @@ def test_block_init_refuses_an_unknown_mixer_or_ffn(over):
 @pytest.mark.parametrize("over", [dict(mixer="mla"), dict(ffn="moe"),
                                   dict(cross=attention.AttnCfg(64, 2, 2, 32,
                                                                cross=True))])
-def test_unported_block_parts_raise_naming_the_roadmap(over):
-    """(The name is from before these block parts were ported; it is kept
-    so the suite's count of tests stays whole.)  MLA mixers, MoE FFNs and cross-attention blocks are ported: the
-    block builds the JAX tree and its forward matches JAX's.  What still
-    raises names its ROADMAP item: the MoE mesh dispatch (A.12)."""
+def test_block_parts_match_jax_and_moe_reads_the_mesh(over):
+    """MLA mixers, MoE FFNs and cross-attention blocks: the block builds
+    the JAX tree and its forward matches JAX's.  A MoE block switched to
+    ``dispatch="shardmap"`` reads the mesh from the context: on a world of
+    one it is the global path bit for bit."""
     from repro.nn import mla as jmla
     from repro.nn import moe as jmoe
     from repro_torch.nn import mla, moe
@@ -443,6 +443,12 @@ def test_unported_block_parts_raise_naming_the_roadmap(over):
     _close(y, jy)
     _close(aux, jaux)
     if "ffn" in over:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-            moe.moe_apply(_t(p)["ffn"], tcfg.moe, torch.tensor(x),
-                          mesh=object())
+        from _dist_ranks import world_of_one
+        from repro_torch.nn.sharding import use_mesh
+        sm = dataclasses.replace(tcfg, moe=dataclasses.replace(
+            tcfg.moe, dispatch="shardmap"))
+        with world_of_one() as mesh, use_mesh(mesh):
+            y1, aux1 = blocks.block_forward(_t(p), sm, torch.tensor(x),
+                                            enc=torch.tensor(enc),
+                                            compute_dtype=torch.float32)
+        assert torch.equal(y1, y) and torch.equal(aux1, aux)

@@ -537,3 +537,47 @@ def test_chip_smoke_ops_phase_runs_small_on_cpu(one_thread):
         > by["ddpm_chain"]["control_R64"] > 0
     assert by["ddpm_chain_bwd"]["train"] == by["ddpm_chain"]["control_R64"] \
         + out["telemetry"]["diag_updates"]
+
+
+def test_chip_smoke_dist_phase_runs_small_on_cpu(one_thread):
+    """Phase dist on the CPU: the world of one and the world of two on
+    gloo (two spawned worlds), 4 cells at a tiny EnvCfg, deepseek-v2's
+    MoE layer and deepseek-v3's forward at their smoke widths, and the
+    example twins at tiny arguments.  The ranks unpickle their function
+    from the module ``chip_smoke``, so it is registered under that name
+    and the repository root is importable (the card runs the script as
+    ``__main__``, which the spawn start method imports alike)."""
+    cs = _chip_smoke()
+    sys.modules["chip_smoke"] = cs
+    sys.path.insert(0, str(REPO))
+    try:
+        out = cs.phase_dist(
+            "cpu", cs.EnvCfg(U=3, M=4, T=10, K=6), B=4, episodes=2,
+            moe=("deepseek-v2-236b", "make_smoke"), moe_tokens=(2, 8),
+            lm=("deepseek-v3-671b", "make_smoke"), lm_tokens=(2, 8),
+            examples={"quickstart_torch": ["--episodes", "1"],
+                      "serve_edge_torch": ["--train-episodes", "1",
+                                           "--frames", "1", "--slots", "2"],
+                      "train_lm_torch": ["--steps", "1", "--batch", "1",
+                                         "--seq-len", "8"]},
+            timeout_s=240)
+    finally:
+        sys.path.remove(str(REPO))
+        del sys.modules["chip_smoke"]
+    assert out["phase"] == "dist" and out["d3pg_updates"] > 0
+    assert set(out["worlds"]) == {"1", "2"}
+    w1, w2 = out["worlds"]["1"], out["worlds"]["2"]
+    assert w1["backend"] == w2["backend"] == "gloo"
+    assert [t["cells"] for t in w2["train"]] == [[0, 2], [2, 4]]
+    assert all(t["updates"] == out["d3pg_updates"]
+               for w in (w1, w2) for t in w["train"])
+    assert w2["train"][0]["gather_bytes"] > 0
+    for m in w2["moe"]:
+        assert m["experts_per_rank"] * 2 == m["experts"]
+        assert m["y_max_abs_err"] <= 2e-2
+    assert all(x["logits_max_abs_err"] <= 2e-5 for x in w2["lm"])
+    assert set(out["examples"]) == {"quickstart_torch", "serve_edge_torch",
+                                    "train_lm_torch"}
+    shapes = out["launches_by_shape"]["ddpm_chain"]
+    assert shapes["B4_R64"] == out["d3pg_updates"]
+    assert shapes["B2_R1"] == 2 * 10 * 6 * 2
