@@ -126,7 +126,7 @@ Phases, each printing one JSON line:
                with a checkpoint (finite losses and gnorms, the schedule's
                lr every step, every parameter changed; s/step, tokens/s,
                peak memory; one step's host ms, device ms, idle share and
-               kernels, FlopCounterMode's FLOPs, useful_ratio and mfu);
+               kernels, step_cost's FLOPs, useful_ratio and mfu);
                qwen2-0.5b at batch 1, L = 2048 through the plain and the
                chunked attention (s/step, peak memory, the same loss);
                whisper-small at full width and deepseek-v3-671b at its
@@ -153,7 +153,14 @@ Phases, each printing one JSON line:
                at full width in bf16 expert-parallel on a ("model",) mesh
                against the layer unsharded, and deepseek-v3-671b's smoke
                forward with PerfOpts(moe_shardmap=True)'s config against
-               the unsharded one.  Then the three example twins
+               the unsharded one.  The world of one also runs the LM's
+               mesh half on a (1, 1) ("data", "model") mesh: qwen2-0.5b's
+               and mamba2-130m's prefill and 16 decode steps through the
+               kernels on DTensor weights, and two FSDP train steps of
+               qwen2-0.5b, each bit for bit the unsharded run (the
+               two-rank meshes stay in the CPU tests: gloo does not carry
+               DTensor's CUDA collectives, scripts/probe_gloo_cuda.py).
+               Then the three example twins
                (examples/*_torch.py) run as subprocesses with reduced
                arguments, each exiting 0 with finite results.
 
@@ -246,7 +253,8 @@ from repro_torch.launch.train import train_loop, train_setup  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.nn import moe as moe_mod  # noqa: E402
 from repro_torch.nn.core import count_params  # noqa: E402
-from repro_torch.nn.sharding import use_mesh  # noqa: E402
+from repro_torch.nn.sharding import is_dtensor, use_mesh  # noqa: E402
+from repro_torch.nn.sharding import distribute as shard_spec  # noqa: E402
 from repro_torch.serving import (CatalogEntry, EdgeGateway,  # noqa: E402
                                  Engine, ServeCfg, toy_diffusion_builder)
 from repro_torch.serving import engine as engine_mod  # noqa: E402
@@ -3410,9 +3418,9 @@ def _step_profile(dev, params, opt, setup, seed: int) -> dict:
     """One more step of a trained state, measured three ways on a fixed
     batch: host ms (3 steps, each ending in a synchronise); on the card,
     device ms and kernels a step from torch.profiler and the idle share
-    of the host time; FLOPs (FlopCounterMode) and bytes of one step
-    (``roofline.step_cost``), their roofline terms against the H100's
-    peaks, ``mfu`` (6·N·tokens over the step's host time, against 989
+    of the host time; FLOPs and bytes of one step (``roofline.step_cost``,
+    whose count of a step with no mesh is FlopCounterMode's), their
+    roofline terms against the H100's peaks, ``mfu`` (6·N·tokens over the step's host time, against 989
     TFLOP/s) and ``useful_ratio`` (6·N·tokens over the counted FLOPs)."""
     arch, cfg, _, _, train_step, batch_fn = setup
     b = batch_fn(torch.Generator().manual_seed(seed + 1))
@@ -3647,7 +3655,16 @@ DIST_MOE = ("deepseek-v2-236b", "make_full")    # one MoE layer, full width
 DIST_MOE_TOKENS = (4, 128)   # rows x length, the same on both "model" ranks
 DIST_LM = ("deepseek-v3-671b", "make_smoke")
 DIST_LM_TOKENS = (2, 64)
-DIST_TIMEOUT_S = 300
+DIST_TIMEOUT_S = 420
+# the LM's mesh half: tensor-parallel serving on ("data", "model") =
+# (1, 2), FSDP training on (2, 1), the serving steps on (1, 1) in the
+# world of one
+DIST_SERVE = (("qwen2-0.5b", "flash_attention"), ("mamba2-130m", "ssd_scan"))
+DIST_PROMPTS = (4, 128)       # prompts x length
+DIST_DECODE = 16
+DIST_FSDP = dict(arch="qwen2-0.5b", steps=2, batch=8, seq_len=128, lr=3e-4)
+DIST_FSDP_TOL = 4e-2          # relative L2 of a leaf's update in bf16
+BF16_LOSS_TOL = 2e-2          # relative, the loss in bf16
 # the example twins, with their reduced arguments (``reduced``)
 DIST_EXAMPLES = {
     "quickstart_torch": ["--episodes", "2"],
@@ -3750,11 +3767,24 @@ def _event_ms(dev, fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _local_bytes(tree) -> int:
+    """Bytes of this rank's shards of the DTensors (the plain tensors
+    whole) in ``tree``."""
+    leaves = []
+    lm_mod.tree_map(lambda t: leaves.append(
+        (t.to_local() if is_dtensor(t) else t)), tree)
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
 def _dist_moe(dev, n: int, arch: str, make: str, tokens) -> dict:
     """One MoE layer of ``arch`` (``make`` width) in bf16 from a seed,
-    expert-parallel on a ``("model",)`` mesh of the world against the
-    same layer unsharded on this rank: the largest differences, ms of
-    each, and the all-reduce's bytes a call."""
+    expert-parallel on a ``("model",)`` mesh of the world, each rank
+    holding only its E/n expert slice (the layer's whole tree is made,
+    run unsharded, and freed; the rank keeps its slice, a plain tree whose
+    expert leaves hold E/n experts), against the layer unsharded on this
+    rank: the largest differences, ms of each, the all-reduce's bytes a
+    call, this rank's and the whole layer's parameter bytes, and the
+    card's peak while the sliced layer runs."""
     cfg = getattr(get_arch(arch), make)()
     mcfg = next(b.moe for g in cfg.groups for b in g.cycle
                 if b.ffn == "moe")
@@ -3767,40 +3797,48 @@ def _dist_moe(dev, n: int, arch: str, make: str, tokens) -> dict:
     mesh = init_device_mesh(mesh_device_type(), (n,),
                             mesh_dim_names=("model",))
     group = mesh.get_group("model")
+    whole_bytes = _weights_bytes(p)
     with torch.no_grad():
         want = moe_mod.moe_apply(p, mcfg, x)
-        with use_mesh(mesh):
-            got = moe_mod.moe_apply(p, sm, x)
-            ms = _event_ms(dev, lambda: moe_mod.moe_apply(p, sm, x))
-        y = torch.zeros_like(want[0]).reshape(-1, mcfg.d_model)
-        allreduce_ms = _event_ms(dev, lambda: moe_mod._all_reduce(y, group))
-        # the unsharded layer timed on rank 0 alone, the card to itself
         torch.distributed.barrier()
         plain_ms = (_event_ms(dev, lambda: moe_mod.moe_apply(p, mcfg, x))
                     if torch.distributed.get_rank() == 0 else None)
         torch.distributed.barrier()
+        mine = moe_mod.expert_slice(p, mesh)
+        del p
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh):
+            got = moe_mod.moe_apply(mine, sm, x)
+            ms = _event_ms(dev, lambda: moe_mod.moe_apply(mine, sm, x))
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None)
+        y = torch.zeros_like(want[0]).reshape(-1, mcfg.d_model)
+        allreduce_ms = _event_ms(dev, lambda: moe_mod._all_reduce(y, group))
     err = _allclose_err(got[0].float(), want[0].float(),
                         TOL[torch.bfloat16], f"{arch} MoE layer, {n} ranks")
     aux_err = abs(float(got[1]) - float(want[1]))
     require(aux_err <= TOL[torch.float32] * max(1.0, abs(float(want[1]))),
             f"{arch} MoE aux: {float(got[1])} against {float(want[1])}")
-    del p
     return {"arch": arch, "make": make, "d_model": mcfg.d_model,
             "d_ff": mcfg.d_ff, "experts": mcfg.n_experts,
             "top_k": mcfg.top_k, "shared": mcfg.n_shared,
-            "experts_per_rank": mcfg.n_experts // n, "tokens": rows * L,
+            "experts_per_rank": mine["up"].shape[0], "tokens": rows * L,
             "y_max_abs_err": err, "aux_abs_err": aux_err,
             "ms": ms, "unsharded_ms": plain_ms,
             "allreduce_ms": allreduce_ms,
             "allreduce_bytes": rows * L * mcfg.d_model * 2 + 4,
-            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
-                        if dev.type == "cuda" else None)}
+            "param_bytes_per_rank": _weights_bytes(mine),
+            "param_bytes_unsharded": whole_bytes,
+            "peak_gb_sliced_layer": peak}
 
 
 def _dist_lm(dev, n: int, arch: str, make: str, tokens) -> dict:
     """``arch``'s forward with ``PerfOpts(moe_shardmap=True)``'s config on
     a ``("model",)`` mesh of the world against the unsharded forward, f32
-    compute."""
+    compute (plain tensors: each rank holds its slice of the experts)."""
     cfg = getattr(get_arch(arch), make)()
     params = lm_mod.lm_init(make_generator(0, dev), cfg)
     tok = torch.randint(0, cfg.vocab, tokens,
@@ -3810,9 +3848,11 @@ def _dist_lm(dev, n: int, arch: str, make: str, tokens) -> dict:
     with torch.no_grad():
         want, aux = lm_mod.lm_forward(params, cfg, tok,
                                       compute_dtype=torch.float32)
+        mine = moe_mod.expert_slice(params, mesh)
+        del params
         with use_mesh(mesh):
             got, aux_sm = lm_mod.lm_forward(
-                params, steps_mod._apply_moe_shardmap(cfg), tok,
+                mine, steps_mod._apply_moe_shardmap(cfg), tok,
                 compute_dtype=torch.float32)
     require(bool(torch.isfinite(got).all()), f"{arch}: non-finite logits")
     err = _allclose_err(got, want, TOL[torch.float32],
@@ -3822,18 +3862,231 @@ def _dist_lm(dev, n: int, arch: str, make: str, tokens) -> dict:
             "aux_abs_err": abs(float(aux_sm) - float(aux))}
 
 
+class _KernelHeads:
+    """Records, for the duration, the shape of every flash_attention and
+    ssd_scan call (``ops``' wrappers, which the attention and SSM layers
+    reach as ``kops.<name>``): (B, L, H, Hkv, D) and (B, L, H, P, G, N,
+    chunk), the heads those of the call's own tensors."""
+
+    def __enter__(self):
+        self.calls = {"flash_attention": [], "ssd_scan": []}
+        self.orig = (ops.flash_attention, ops.ssd_scan)
+        fa, ss = self.orig
+
+        def flash(q, k, v, **kw):
+            self.calls["flash_attention"].append(
+                tuple(q.shape[:3]) + (k.shape[2], q.shape[3]))
+            return fa(q, k, v, **kw)
+
+        def ssd(x, dt, A, Bm, Cm, D, *, chunk, **kw):
+            self.calls["ssd_scan"].append(
+                tuple(x.shape) + tuple(Bm.shape[2:]) + (chunk,))
+            return ss(x, dt, A, Bm, Cm, D, chunk=chunk, **kw)
+        ops.flash_attention, ops.ssd_scan = flash, ssd
+        return self
+
+    def __exit__(self, *exc):
+        ops.flash_attention, ops.ssd_scan = self.orig
+
+
+def _serve_run(params, cfg, tok, dec, S: int, mesh=None) -> list:
+    """The serving steps the prefill and decode bundles run (``lm_prefill``
+    through the kernels, then one ``lm_decode`` a column of ``dec``), bf16
+    compute, on ``mesh`` where given (the cache a DTensor by
+    ``lm_cache_spec``, the tokens by the batch axes).  Returns every
+    step's logits as f32 (whole)."""
+    B, L = tok.shape
+    cache = lm_mod.lm_init_cache(cfg, B, S, dtype=torch.bfloat16,
+                                 device=tok.device)
+    with torch.no_grad(), use_mesh(mesh):
+        if mesh is not None:
+            cache = steps_mod.shard_tree(cache, lm_mod.lm_cache_spec(cfg),
+                                         mesh)
+            tok, dec = (shard_spec(t, steps_mod.batch_spec_for(mesh, None),
+                                   mesh) for t in (tok, dec))
+        logits, cache = lm_mod.lm_prefill(params, cfg, tok, cache,
+                                          impl="kernel")
+        out = [logits]
+        for i in range(dec.shape[1]):
+            logits, cache = lm_mod.lm_decode(params, cfg, dec[:, i:i + 1],
+                                             cache, L + i)
+            out.append(logits)
+    return [(t.full_tensor() if is_dtensor(t) else t).float() for t in out]
+
+
+def _dist_lm_serve(dev, n: int, shape, arch: str, kernel: str, prompts,
+                   n_decode: int, make: str = "make_full") -> dict:
+    """``arch`` at ``make``'s width (full on the card), f32 weights from a seed: a prefill of
+    ``prompts`` (rows x length) and ``n_decode`` decode tokens on a
+    ``("data", "model")`` mesh of ``shape`` over the world, against the
+    same steps unsharded in this process (LM_PREFILL_TOL of the largest
+    logit, each step), and equal argmaxes where the unsharded top-2 margin
+    is wide.  The sharded run's launches of ``kernel`` (counts reset just
+    before, read just after) and the heads of each call, which must be
+    this rank's: (H / model, Hkv / model) where "model" divides them.
+    Also this rank's weight bytes beside the unsharded."""
+    cfg = getattr(get_arch(arch), make)()
+    params = lm_mod.lm_init(make_generator(0, dev), cfg)
+    gen = torch.Generator().manual_seed(21)
+    tok = torch.randint(0, cfg.vocab, prompts, generator=gen).to(dev)
+    dec = torch.randint(0, cfg.vocab, (prompts[0], n_decode),
+                        generator=gen).to(dev)
+    S = prompts[1] + n_decode
+    want = _serve_run(params, cfg, tok, dec, S)
+    mesh = init_device_mesh(mesh_device_type(), shape,
+                            mesh_dim_names=("data", "model"))
+    sp = steps_mod.shard_tree(params, lm_mod.lm_spec(cfg), mesh)
+    whole = _weights_bytes(params)
+    del params
+    sync(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _KernelHeads() as rec:
+        got = _serve_run(sp, cfg, tok, dec, S, mesh)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "ssd_scan")}
+    grids = {k: ops.GRIDS[k] for k in launches}
+    n_model, n_data = shape[1], shape[0]
+    blk = cfg.groups[0].cycle[0]
+    if kernel == "flash_attention":
+        H, Hkv = blk.attn.n_heads, blk.attn.n_kv_heads
+        mine = (H // n_model if H % n_model == 0 else H,
+                Hkv // n_model if Hkv % n_model == 0 else Hkv)
+        heads = {(c[2], c[3]) for c in rec.calls[kernel]}
+    else:
+        H = blk.ssm.n_heads
+        mine = (H // n_model if H % n_model == 0 else H,)
+        heads = {(c[2],) for c in rec.calls[kernel]}
+    rows = {c[0] for c in rec.calls[kernel]}
+    n_layers = cfg.n_layers
+    if dev.type == "cuda":
+        require(launches[kernel] == n_layers and sum(launches.values())
+                == n_layers, f"{arch} on {shape}: launched {launches}, "
+                f"expected {n_layers} {kernel}")
+    require(heads == {mine}, f"{arch} on {shape}: {kernel} ran on heads "
+            f"{heads}, this rank's are {mine}")
+    require(rows == {prompts[0] // n_data}, f"{arch} on {shape}: {kernel}"
+            f" ran on rows {rows}")
+    errs, agree = [], 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(bool(torch.isfinite(g).all()), f"{arch} on {shape}: "
+                f"non-finite logits at step {i}")
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        require(err <= LM_PREFILL_TOL * scale, f"{arch} on {shape}, step "
+                f"{i}: logits differ by {err} > {LM_PREFILL_TOL} x {scale}")
+        errs.append(err / scale)
+        top2 = w.topk(2, dim=-1).values
+        wide = (top2[..., 0] - top2[..., 1]) >= 0.05
+        agree += int(((g.argmax(-1) == w.argmax(-1)) | ~wide).all())
+    require(agree == len(got), f"{arch} on {shape}: argmax differs where "
+            "the unsharded margin is >= 0.05")
+    diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    by_shape = _sum_by_key([{_shape_key(c): 1} for c in rec.calls[kernel]])
+    return {"arch": arch, "mesh": list(shape), "prompts": list(prompts),
+            "decode_tokens": n_decode, "launches": launches,
+            "grids": grids, "launches_by_shape": {kernel: by_shape},
+            "heads_per_call": sorted(heads), "rows_per_call": sorted(rows),
+            "max_rel_err": max(errs), "rel_err_by_step": errs,
+            "max_abs_diff": max(diffs), "bit_for_bit": max(diffs) == 0.0,
+            "first_step_differing": next((i for i, d in enumerate(diffs)
+                                          if d), None),
+            "tolerance_rel": LM_PREFILL_TOL, "wall_s": wall,
+            "weight_bytes_per_rank": _local_bytes(sp),
+            "weight_bytes_unsharded": whole}
+
+
+def _dist_fsdp(dev, n: int, arch: str, steps: int, batch: int,
+               seq_len: int, lr: float, smoke: bool = False) -> dict:
+    """``steps`` train steps of ``arch`` at full width with
+    ``PerfOpts(fsdp=True)`` on a (n, 1) ``("data", "model")`` mesh, each
+    rank its shard of the parameters and moments, against ``train_loop``
+    unsharded in this process (the same seed, batches and schedule): the
+    losses, and every parameter leaf's update (after the steps less the
+    init) by relative L2 (DIST_FSDP_TOL, bf16 compute), so a leaf left
+    unchanged fails; in a world of one (every redistribution a no-op),
+    the losses and leaves bit for bit."""
+    want_p, _, want_h = train_loop(arch, smoke=smoke, steps=steps,
+                                   batch=batch, seq_len=seq_len, lr=lr,
+                                   log_every=0, device=dev)
+    want = [t.detach() for t in lm_mod.tree_leaves(want_p)]
+    del want_p
+    mesh = init_device_mesh(mesh_device_type(), (n, 1),
+                            mesh_dim_names=("data", "model"))
+    arch_o, cfg, sched, _, _, batch_fn = train_setup(
+        arch, smoke=smoke, steps=steps, batch=batch, seq_len=seq_len,
+        lr=lr, device=dev)
+    from repro_torch.launch.train import make_train_fns
+    init_fn, step = make_train_fns(arch_o, cfg, lr_schedule=sched,
+                                   opts=PerfOpts(fsdp=True), mesh=mesh)
+    params, opt = init_fn(make_generator(0, dev))
+    data = torch.Generator().manual_seed(0)
+    hist = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, m = step(params, opt, batch_fn(data))
+        hist.append({k: float(v) for k, v in m.items()})
+    sync(dev)
+    wall = time.perf_counter() - t0
+    init = lm_mod.tree_leaves(train_setup(
+        arch, smoke=smoke, steps=steps, batch=batch, seq_len=seq_len,
+        lr=lr, device=dev)[3](make_generator(0, dev))[0])
+    rel, diff = [], []
+    for t, w, i in zip(lm_mod.tree_leaves(params), want, init):
+        g, w, i = t.detach().full_tensor().float(), w.float(), i.float()
+        moved = (w - i).norm().item()
+        require(moved > 0, f"{arch}: train_loop left a leaf unchanged")
+        rel.append((g - w).norm().item() / moved)
+        diff.append((g - w).abs().max().item())
+    del init
+    require(max(rel) <= DIST_FSDP_TOL, f"{arch} FSDP: a leaf's update "
+            f"differs by {max(rel)} (relative L2) from train_loop's")
+    loss_rel = [abs(h["loss"] - w["loss"]) / abs(w["loss"])
+                for h, w in zip(hist, want_h)]
+    require(max(loss_rel) <= BF16_LOSS_TOL, f"{arch} FSDP: losses "
+            f"{[h['loss'] for h in hist]} against "
+            f"{[w['loss'] for w in want_h]}")
+    if n == 1:
+        require(max(diff) == 0.0 and max(loss_rel) == 0.0, f"{arch} FSDP "
+                f"on (1, 1): leaves differ by up to {max(diff)}, losses by "
+                f"{max(loss_rel)} (relative) from train_loop's")
+    return {"arch": arch, "mesh": [n, 1], "steps": steps, "batch": batch,
+            "seq_len": seq_len, "losses": [h["loss"] for h in hist],
+            "unsharded_losses": [w["loss"] for w in want_h],
+            "loss_max_rel_err": max(loss_rel),
+            "update_max_rel_l2": max(rel), "leaf_max_abs_diff": max(diff),
+            "leaves": len(rel), "tolerance_update_rel_l2": DIST_FSDP_TOL,
+            "wall_s": wall,
+            "param_bytes_per_rank": _local_bytes(params),
+            "moment_bytes_per_rank": _local_bytes([opt["mu"], opt["nu"]]),
+            "param_bytes_unsharded": sum(w.numel() * w.element_size()
+                                         for w in want)}
+
+
 def _dist_rank(rank: int, n: int, spec: dict) -> dict:
     """One rank of a phase-dist world: the sharded training, then, where
     ``spec`` asks, the MoE layer and the LM forward on a ``("model",)``
-    mesh of the same ranks."""
+    mesh of the same ranks, the LM's mesh half (tensor-parallel serving,
+    FSDP training) on ``("data", "model")`` meshes, or, in a world of
+    one, the serving steps on a (1, 1) mesh against the unsharded."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = resolve_device(spec["device"])
-    out = {"train": _dist_train(dev, rank, n, spec["env"], spec["B"],
-                                spec["episodes"])}
+    out = ({"train": _dist_train(dev, rank, n, spec["env"], spec["B"],
+                                 spec["episodes"])}
+           if spec.get("train", True) else {})
     if spec.get("moe"):
         out["moe"] = _dist_moe(dev, n, *spec["moe"])
     if spec.get("lm"):
         out["lm"] = _dist_lm(dev, n, *spec["lm"])
+    if spec.get("serve"):
+        out["serve"] = [_dist_lm_serve(dev, n, (1, n), arch, kernel,
+                                       spec["prompts"], spec["decode"],
+                                       spec["make"])
+                        for arch, kernel in spec["serve"]]
+    if spec.get("fsdp"):
+        out["fsdp"] = _dist_fsdp(dev, n, **spec["fsdp"])
     return out
 
 
@@ -3876,7 +4129,9 @@ def phase_dist(device, env_cfg: EnvCfg = EnvCfg(), B: int = DIST_B,
                episodes: int = DIST_EPISODES, moe=DIST_MOE,
                moe_tokens=DIST_MOE_TOKENS, lm=DIST_LM,
                lm_tokens=DIST_LM_TOKENS, examples=DIST_EXAMPLES,
-               timeout_s: float = DIST_TIMEOUT_S, card: str = "") -> dict:
+               timeout_s: float = DIST_TIMEOUT_S, card: str = "",
+               serve=DIST_SERVE, prompts=DIST_PROMPTS, decode=DIST_DECODE,
+               make: str = "make_full", fsdp=DIST_FSDP) -> dict:
     """The port's multi-device path (``card``: nvidia-smi's name and power
     limit, reported beside the numbers).  In this process:
     ``run_training`` of B fused cells (``method_cfg``'s t2drl settings) for
@@ -3896,7 +4151,10 @@ def phase_dist(device, env_cfg: EnvCfg = EnvCfg(), B: int = DIST_B,
     unsharded (2e-2; ms of each, the unsharded one on rank 0 alone, and
     of the all-reduce alone), and the ``lm`` forward with
     ``PerfOpts(moe_shardmap=True)``'s config against the unsharded one
-    (f32, 2e-5).  Then the example twins run with their reduced
+    (f32, 2e-5), each rank holding its slice of the experts.  The world of
+    one runs the LM's mesh half on a (1, 1) mesh: the ``serve`` models'
+    prefill and ``decode`` steps (``_dist_lm_serve``) and ``fsdp``'s train
+    steps (``_dist_fsdp``).  Then the example twins run with their reduced
     arguments.  The kernels are built before (phase build), so no rank
     runs nvcc."""
     dev = resolve_device(device)
@@ -3937,10 +4195,13 @@ def phase_dist(device, env_cfg: EnvCfg = EnvCfg(), B: int = DIST_B,
         torch.cuda.empty_cache()
 
     spec = {"device": str(dev), "env": env_cfg, "B": B,
-            "episodes": episodes}
+            "episodes": episodes, "prompts": tuple(prompts),
+            "decode": decode}
+    mesh_half = {"serve": serve, "make": make,
+                 "fsdp": {**fsdp, "smoke": make != "make_full"}}
     worlds = {}
     for n, backend, extra in (
-            (1, "nccl" if dev.type == "cuda" else "gloo", {}),
+            (1, "nccl" if dev.type == "cuda" else "gloo", mesh_half),
             (2, "gloo", {"moe": (*moe, moe_tokens), "lm": (*lm, lm_tokens)})):
         t0 = time.perf_counter()
         ranks = spawn_ranks(_dist_rank, n, args=({**spec, **extra},),
@@ -3962,7 +4223,7 @@ def phase_dist(device, env_cfg: EnvCfg = EnvCfg(), B: int = DIST_B,
                     f"{single}")
             del tr["digest"], tr["history"]
         world["train"] = [r["train"] for r in ranks]
-        for k in ("moe", "lm"):
+        for k in ("moe", "lm", "serve", "fsdp"):
             if k in ranks[0]:
                 world[k] = [r[k] for r in ranks]
         worlds[str(n)] = world
@@ -3971,6 +4232,25 @@ def phase_dist(device, env_cfg: EnvCfg = EnvCfg(), B: int = DIST_B,
         require(max(vals) == min(vals), f"the ranks' {k} differ: {vals}")
     ex = _run_examples(dev, examples, timeout_s)
     Bl = B // 2
+    served = [r for rank in worlds["1"]["serve"] for r in rank]
+    lm_by_shape = {k: _sum_by_key([r["launches_by_shape"].get(k, {})
+                                   for r in served])
+                   for k in ("flash_attention", "ssd_scan")}
+    f1, m2 = worlds["1"]["fsdp"][0], worlds["2"]["moe"]
+    per_rank_bytes = {
+        **{f"{r['arch']} serve {r['mesh']}": {
+            "weights_per_rank": r["weight_bytes_per_rank"],
+            "weights_unsharded": r["weight_bytes_unsharded"]}
+           for r in served},
+        f"{f1['arch']} fsdp {f1['mesh']}": {
+            "params_per_rank": f1["param_bytes_per_rank"],
+            "moments_per_rank": f1["moment_bytes_per_rank"],
+            "params_unsharded": f1["param_bytes_unsharded"]},
+        f"{moe[0]} MoE layer, model 2": {
+            "params_per_rank": [r["param_bytes_per_rank"] for r in m2],
+            "params_unsharded": m2[0]["param_bytes_unsharded"],
+            "peak_gb_sliced_layer": [r["peak_gb_sliced_layer"]
+                                     for r in m2]}}
     return {"phase": "dist", "card": card, "B": B, "episodes": episodes,
             "leaves": len(digest), "d3pg_updates": n_upd,
             "single_process": {"wall_s": run["wall_s"],
@@ -3989,14 +4269,26 @@ def phase_dist(device, env_cfg: EnvCfg = EnvCfg(), B: int = DIST_B,
                     f"B{Bl}_R64": 2 * n_upd,
                     f"B{Bl}_R64+record": 2 * n_upd},
                 "ddpm_chain_bwd": {f"B{B}_R64": n_upd,
-                                   f"B{Bl}_R64": 2 * n_upd}},
+                                   f"B{Bl}_R64": 2 * n_upd},
+                **lm_by_shape},
+            "lm_grids": {k: sum(r["grids"][k] for r in served)
+                         for k in ("flash_attention", "ssd_scan")},
+            "per_rank_bytes": per_rank_bytes,
             "grids": {k: sum(t["grids"][k] for w in worlds.values()
                              for t in w["train"])
                       for k in DIST_TRAIN_KERNELS},
             "reduced": [
                 f"training: {episodes} episodes of {B} cells (of 500)",
                 f"MoE: one {moe[0]} layer ({moe[1]}) on {moe_tokens[0]} x "
-                f"{moe_tokens[1]} tokens; every rank holds the whole layer",
+                f"{moe_tokens[1]} tokens; each rank holds its slice of the "
+                "experts",
+                f"LM mesh half on the card: the world of one, a (1, 1) mesh "
+                f"({', '.join(a for a, _ in serve)} at {make}: "
+                f"{prompts[0]} prompts of {prompts[1]}, {decode} decode "
+                f"tokens; {fsdp['arch']} {fsdp['steps']} FSDP steps at "
+                f"{fsdp['batch']} x {fsdp['seq_len']}); the two-rank "
+                "meshes run in the CPU tests (gloo does not carry "
+                "DTensor's CUDA collectives: scripts/probe_gloo_cuda.py)",
                 f"LM: {lm[0]} at {lm[1]} width, one forward",
                 *(f"example {k}: {' '.join(v)}" for k, v in
                   examples.items())],
@@ -4113,8 +4405,9 @@ def kernels_line(check, timing, train, control, data, lm, vector,
     two trained checkpoints (qwen2-0.5b's and mamba2-130m's heads, at
     shapes phase kernel_timing times); its training launches none.  Phase
     dist adds its ranks' launches of the two chain kernels (the sharded
-    training's, at the B = 8 and B = 4 stacked shapes), under
-    ``launches_by_phase``."""
+    training's, at the B = 8 and B = 4 stacked shapes), and of
+    flash_attention and ssd_scan (the LM mesh half's prefills, at the
+    shapes phase dist_timing times), under ``launches_by_phase``."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
     upd = train["update_timing"]
@@ -4213,10 +4506,14 @@ def kernels_line(check, timing, train, control, data, lm, vector,
                                    + sum(dist_bwd.values())),
                 "flash_attention": (lm["flash_attention_launches"]
                                     + archs["flash_attention_launches"]
-                                    + lm_train["flash_attention_launches"]),
+                                    + lm_train["flash_attention_launches"]
+                                    + sum(dist["launches_by_shape"]
+                                          ["flash_attention"].values())),
                 "ssd_scan": (lm["ssd_scan_launches"]
                              + archs["ssd_scan_launches"]
-                             + lm_train["ssd_scan_launches"])}
+                             + lm_train["ssd_scan_launches"]
+                             + sum(dist["launches_by_shape"]
+                                   ["ssd_scan"].values()))}
     for kname, model, heads in (
             ("flash_attention", "qwen2-0.5b", QWEN_HEADS),
             ("ssd_scan", "mamba2-130m", MAMBA_SSD)):
@@ -4225,7 +4522,8 @@ def kernels_line(check, timing, train, control, data, lm, vector,
             {_shape_key((1, int(b)) + heads): lm["n_layers"][model] * c
              for b, c in counts.items()},
             archs["launches_by_shape"][kname],
-            lm_train["launches_by_shape"][kname]])
+            lm_train["launches_by_shape"][kname],
+            dist["launches_by_shape"][kname]])
         require(sum(per_shape.values()) == launches[kname],
                 f"{kname}: {launches[kname]} launches but the shapes "
                 f"account for {sum(per_shape.values())}")
@@ -4235,13 +4533,14 @@ def kernels_line(check, timing, train, control, data, lm, vector,
             rows, per_shape, max(per_shape, key=lambda k: (per_shape[k], k)),
             [_shape_key((1, L) + heads) for L in (512, LONG_L)],
             lm["grids"][kname] + archs["grids"][kname]
-            + lm_train["grids"][kname])
+            + lm_train["grids"][kname] + dist["lm_grids"][kname])
         summary[kname]["launches_by_phase"] = {
             "lm_plane": (lm["flash_attention_launches"]
                          if kname == "flash_attention"
                          else lm["ssd_scan_launches"]),
             "lm_archs": sum(archs["launches_by_shape"][kname].values()),
-            "lm_train": sum(lm_train["launches_by_shape"][kname].values())}
+            "lm_train": sum(lm_train["launches_by_shape"][kname].values()),
+            "dist": sum(dist["launches_by_shape"][kname].values())}
     idle = [k for k, n in launches.items() if n <= 0]
     require(not idle, f"kernels never launched on their paths: {idle}")
     err = {k: max([check[k]["max_abs_err"]] + [
@@ -4289,6 +4588,14 @@ def main() -> int:
     emit(lm_train)
     dist = phase_dist(device, card=dev_info["nvidia_smi"])
     emit(dist)
+    # timing rows of the shapes phase dist launched and no phase timed
+    dist_timing = phase_arch_timing(
+        device, {k: timing[k] + arch_timing[k]
+                 for k in ("flash_attention", "ssd_scan")},
+        {"launches_by_shape": dist["launches_by_shape"]})
+    emit({**dist_timing, "phase": "dist_timing"})
+    arch_timing = {k: arch_timing[k] + dist_timing[k]
+                   for k in ("flash_attention", "ssd_scan")}
     emit(kernels_line(check, timing, train, control, data, lm, vector,
                       ops_run, fleet, archs, arch_timing, lm_train, dist))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,15 +4,17 @@ architectures.
 Each ``configs/<id>.py`` exports ``ARCH: Arch`` with the assigned
 full-width config (``make_full``) and a reduced same-family smoke variant
 (``make_smoke``), as in the JAX package; ``make_cfg`` applies a shape's
-variant (the sliding window of ``long_500k``).  The dry run's
-``input_specs`` comes with the mesh half of the LM (ROADMAP A.12 step
-4).
+variant (the sliding window of ``long_500k``).  ``input_specs(arch,
+shape)`` gives meta-tensor stand-ins (shapes and dtypes, no storage) for
+every model input of the shape's step, as the dry run uses them.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,3 +105,57 @@ def make_cfg(arch: Arch, shape: str, *, remat: Optional[bool] = None,
     if unroll:
         cfg = dataclasses.replace(cfg, unroll=True)
     return cfg
+
+
+# -- input specs (meta-tensor stand-ins: no allocation) ------------------------------
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(arch: Arch, shape: str, *, cache_dtype=torch.bfloat16):
+    """Returns (step, inputs: dict[str, tree of meta tensors]).
+
+    train:   {tokens, labels[, prefix_embeds | frame_embeds]}
+    prefill: {tokens[, prefix_embeds | frame_embeds], cache}
+    decode:  {token, cache, pos}
+
+    Token ids are int32, as the reference's are."""
+    sc = SHAPES[shape]
+    cfg = make_cfg(arch, shape)
+    B, L = sc.global_batch, sc.seq_len
+    step = sc.step
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    if arch.kind == "whisper":
+        from repro_torch.models.whisper import whisper_init_cache
+        fe = _sds((B, cfg.n_frames, cfg.d_model), bf16)
+        if step == "train":
+            return step, {"frame_embeds": fe, "tokens": _sds((B, L), i32),
+                          "labels": _sds((B, L), i32)}
+        cache = whisper_init_cache(cfg, B, L, dtype=cache_dtype,
+                                   device="meta")
+        if step == "prefill":
+            return step, {"frame_embeds": fe, "tokens": _sds((B, L), i32),
+                          "cache": cache}
+        return step, {"token": _sds((B, 1), i32), "cache": cache,
+                      "pos": _sds((), i32)}
+
+    from repro_torch.models.lm import lm_init_cache
+    n_pre = arch.n_prefix
+    if step == "train":
+        d = {"tokens": _sds((B, L - n_pre), i32),
+             "labels": _sds((B, L), i32)}
+        if n_pre:
+            d["prefix_embeds"] = _sds((B, n_pre, arch.prefix_embed_dim),
+                                      bf16)
+        return step, d
+    cache = lm_init_cache(cfg, B, L, dtype=cache_dtype, device="meta")
+    if step == "prefill":
+        d = {"tokens": _sds((B, L - n_pre), i32), "cache": cache}
+        if n_pre:
+            d["prefix_embeds"] = _sds((B, n_pre, arch.prefix_embed_dim),
+                                      bf16)
+        return step, d
+    return step, {"token": _sds((B, 1), i32), "cache": cache,
+                  "pos": _sds((), i32)}

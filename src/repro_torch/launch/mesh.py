@@ -14,8 +14,8 @@ Without an initialised process group they raise and say how to start
 ranks; they never invent a world of one.  The mesh's device type is
 ``"cuda"`` under NCCL and ``"cpu"`` otherwise: a gloo group (the CPU, or
 several ranks sharing one card, which NCCL refuses) moves device tensors
-through host copies.  The production meshes of 256 and 512 chips come
-with the dry run (ROADMAP A.12 step 4).
+through host copies.  ``batch_sharding`` and ``replicated`` give the
+placements of a batch-leading and of a replicated tensor on a mesh.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch.nn.sharding import batch_axes  # noqa: F401
+from repro_torch.nn.sharding import P, batch_axes, placements
 
 _HOW = ("no torch.distributed process group is initialised: start one "
         "process per rank (torchrun --nproc-per-node=N, or "
@@ -70,6 +70,37 @@ def make_host_mesh():
                          f"{world} (build a mesh over all of them)")
     return init_device_mesh(mesh_device_type(), (1, 1),
                             mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: (16, 16) = 256 ranks, dims (data, model).  Multi-pod:
+    (2, 16, 16) = 512 ranks, dims (pod, data, model).  The world must
+    have exactly that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = _world()
+    n = 1
+    for s in shape:
+        n *= s
+    if world != n:
+        raise ValueError(f"the {'multi-pod' if multi_pod else 'single-pod'}"
+                         f" production mesh {shape} needs a world of {n} "
+                         f"ranks; this one has {world}")
+    return init_device_mesh(mesh_device_type(), shape,
+                            mesh_dim_names=axes)
+
+
+def batch_sharding(mesh, *rest) -> tuple:
+    """Placements of a tensor whose dim 0 is the batch, over the mesh's
+    batch dimensions (``"pod"`` first), the rest as ``rest`` names."""
+    ba = batch_axes(mesh)
+    lead = ba if len(ba) != 1 else ba[0]
+    return placements(P(lead, *rest), mesh)
+
+
+def replicated(mesh) -> tuple:
+    """Placements of a tensor every rank holds whole."""
+    return placements(P(), mesh)
 
 
 # -- rank processes ------------------------------------------------------------

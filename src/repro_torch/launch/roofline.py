@@ -9,14 +9,20 @@ sheet, dense, at the full 700 W power limit):
   collective = collective bytes / (900 GB/s NVLink)
 
 The reference reads FLOPs and bytes from XLA's ``cost_analysis`` of the
-compiled step; here ``step_cost`` counts them while the step runs:
-FLOPs from ``torch.utils.flop_counter.FlopCounterMode`` (matrix
-products, attention, convolutions), bytes as every dispatched op's
-tensor inputs read once and outputs written once (XLA's "bytes
-accessed" without fusion), views and other aliases counting none.
-Collective bytes come from the partitioned HLO in the reference; their
-counterpart, bytes counted from torch.distributed's collectives, comes
-with the dry run (ROADMAP A.12 step 4), so ``coll`` is empty here.
+compiled (partitioned) step; here ``step_cost`` counts them while the
+step runs, in one ``TorchDispatchMode`` (``_StepCounter``): FLOPs from
+``torch.utils.flop_counter``'s formulas (matrix products, attention,
+convolutions; with no mesh the count is ``FlopCounterMode``'s), bytes
+as every dispatched op's tensor inputs read once and outputs written
+once (XLA's "bytes accessed" without fusion), views and other aliases
+counting none.  On DTensors the mode lets DTensor
+dispatch first (it returns ``NotImplemented`` to a DTensor op), so it
+counts the local ops of this rank, per chip as the reference's
+partitioned module is, and the collectives DTensor issues: the
+``_c10d_functional`` all_reduce, all_gather_into_tensor,
+reduce_scatter_tensor and all_to_all_single, each by its output's bytes,
+which ``collective_bytes`` sums per kind with the reference's wire
+factors, where the reference parses them out of the partitioned HLO.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from typing import Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.nn.core import count_params  # noqa: F401
 
@@ -33,6 +39,46 @@ from repro_torch.nn.core import count_params  # noqa: F401
 PEAK_FLOPS = 989e12      # bf16, dense
 HBM_BW = 3.35e12         # bytes/s
 NVLINK_BW = 900e9        # bytes/s, NVLink 4 (the data sheet's figure)
+
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+
+# approximate wire-bytes factor per algorithm (ring), relative to the
+# output bytes (the reference's)
+_WIRE_FACTOR = {
+    "all-gather": 1.0,        # each device receives (n-1)/n of the output
+    "all-reduce": 2.0,        # reduce-scatter + all-gather
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+# torch's functional collectives by the reference's kinds
+_C10D_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "permute_tensor": "collective-permute",
+}
+
+
+def collective_bytes(records) -> Dict[str, float]:
+    """Sum the output bytes of each collective in ``records`` ((kind,
+    bytes) pairs, as ``_StepCounter`` gathers them), keyed by kind;
+    ``"total"`` applies the wire factors; ``"counts"`` the number of
+    each kind."""
+    out: Dict[str, float] = {k: 0.0 for k in COLLECTIVE_OPS}
+    count: Dict[str, int] = {k: 0 for k in COLLECTIVE_OPS}
+    for kind, nbytes in records:
+        out[kind] += nbytes
+        count[kind] += 1
+    out["total"] = sum(out[k] * _WIRE_FACTOR[k] for k in COLLECTIVE_OPS)
+    out["counts"] = count  # type: ignore[assignment]
+    return out
 
 
 @dataclasses.dataclass
@@ -68,36 +114,63 @@ def roofline(cost: dict, coll: Dict[str, float], *, chips: int,
         useful_ratio=(mf / flops if (mf and flops) else None))
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Sums the bytes of every dispatched op's tensor inputs and outputs,
-    except ops that only alias their input (views, ``detach``,
-    ``unbind``, ``_unsafe_view``), which move no bytes."""
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+class _StepCounter(TorchDispatchMode):
+    """Counts, per dispatched op on plain tensors, its FLOPs (the flop
+    counter's formulas), its bytes (tensor inputs and outputs, except ops
+    that only alias their input: views, ``_unsafe_view``) and, for torch's
+    functional collectives, (kind, output bytes) in ``collectives``.  A
+    DTensor op is handed back to DTensor (``NotImplemented``), whose local
+    ops and collectives come here in turn; so are the fake tensors its
+    sharding propagation infers shapes on, which are not this rank's
+    work."""
 
     ALIASES = (torch.ops.aten._unsafe_view.default,)
 
     def __init__(self):
         super().__init__()
+        self.flops = 0
         self.bytes = 0
+        self.collectives = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if func.is_view or func in self.ALIASES:
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        if any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        packet = func._overloadpacket
+        if func.namespace == "_c10d_functional":
+            kind = _C10D_KINDS.get(packet.__name__)
+            if kind is not None:
+                self.collectives.append((kind, _tensor_bytes(out)))
             return out
-        for t in torch.utils._pytree.tree_leaves((args, kwargs, out)):
-            if isinstance(t, torch.Tensor):
-                self.bytes += t.numel() * t.element_size()
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs,
+                                                out_val=out)
+        if not (func.is_view or func in self.ALIASES):
+            self.bytes += _tensor_bytes((args, kwargs, out))
         return out
 
 
 def step_cost(fn, *args, **kwargs):
-    """Run ``fn(*args, **kwargs)`` once, counting its FLOPs and bytes.
-    Returns (fn's result, {"flops", "bytes accessed"})."""
-    flops = FlopCounterMode(display=False)
-    byts = _ByteCounter()
-    with flops, byts:
+    """Run ``fn(*args, **kwargs)`` once, counting this rank's FLOPs and
+    bytes and the collectives it issues.  Returns (fn's result, {"flops",
+    "bytes accessed", "collectives": ``collective_bytes`` of them})."""
+    counter = _StepCounter()
+    with counter:
         out = fn(*args, **kwargs)
-    return out, {"flops": float(flops.get_total_flops()),
-                 "bytes accessed": float(byts.bytes)}
+    return out, {"flops": float(counter.flops),
+                 "bytes accessed": float(counter.bytes),
+                 "collectives": collective_bytes(counter.collectives)}
 
 
 def model_flops(n_params_active: float, tokens: float,

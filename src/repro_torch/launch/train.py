@@ -30,13 +30,14 @@ from repro_torch.configs import get_arch
 from repro_torch.data import make_lm_batch
 from repro_torch.device import make_generator, resolve_device
 from repro_torch.launch.steps import (IMPLS, PerfOpts, _apply_moe_shardmap,
-                                      _loss_fn)
+                                      _loss_fn, make_step, mesh_param_specs,
+                                      shard_tree)
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import whisper as wh_mod
-from repro_torch.optim import adam_init, adam_update, linear_warmup_cosine
+from repro_torch.optim import adam_init, linear_warmup_cosine
 
 def make_train_fns(arch, cfg, *, lr_schedule, opts: PerfOpts = PerfOpts(),
-                   compute_dtype=torch.bfloat16):
+                   compute_dtype=torch.bfloat16, mesh=None):
     """(init_fn(generator) -> (params, opt), train_step(params, opt,
     batch) -> (params, opt, metrics)) of the step ``opts`` configures:
     the loss through ``opts.impl``, Adam's moments in
@@ -47,8 +48,14 @@ def make_train_fns(arch, cfg, *, lr_schedule, opts: PerfOpts = PerfOpts(),
     Metrics are detached 0-dim tensors (``loss``, ``xent``,
     ``aux``/``mtp_xent`` where the loss has them, ``gnorm`` before
     clipping) and ``lr``, a float.  ``opts.moe_shardmap``: the MoE
-    blocks dispatch expert-parallel over the mesh current when the step
-    runs (``repro_torch.nn.sharding.use_mesh``)."""
+    blocks dispatch expert-parallel over the mesh.
+
+    ``mesh`` (a ``DeviceMesh`` of every rank): ``init_fn`` shards the
+    parameters by their specs (FSDP's added with ``opts.fsdp``), which
+    every rank draws alike from its generator, so each keeps its shard;
+    Adam's moments follow them; the step runs on the mesh
+    (``steps.make_step``): a batch of whole tensors is sharded over its
+    batch axes, and metrics are replicated DTensors."""
     if opts.ring:
         raise ValueError("PerfOpts(ring=True) turns decode caches into "
                          "rings; a train step builds no cache")
@@ -59,22 +66,13 @@ def make_train_fns(arch, cfg, *, lr_schedule, opts: PerfOpts = PerfOpts(),
 
     def init_fn(generator):
         params = init(generator, cfg)
+        if mesh is not None:
+            params = shard_tree(params, mesh_param_specs(
+                arch, cfg, mesh, opts.fsdp), mesh)
         return params, adam_init(lm_mod.tree_leaves(params),
                                  moment_dtype=opts.moment_dtype)
 
-    def train_step(params, opt, batch):
-        leaves = lm_mod.tree_leaves(params)
-        for t in leaves:
-            t.requires_grad_(True)
-        loss, metrics = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        lr = float(lr_schedule(opt["step"]))
-        _, opt, om = adam_update(grads, opt, leaves, lr=lr, max_norm=1.0)
-        return params, opt, {**{k: v.detach() for k, v in metrics.items()},
-                             **om, "lr": lr}
-
-    return init_fn, train_step
+    return init_fn, make_step(loss_fn, lr_schedule, mesh)
 
 
 def make_batch_fn(arch, cfg, *, batch: int, seq_len: int, device=None):

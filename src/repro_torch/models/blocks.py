@@ -3,7 +3,10 @@ sequence mixer (GQA attention, MLA or Mamba2-SSD), an optional
 cross-attention over encoder states, and an optional FFN (dense SwiGLU or
 GELU, or MoE), each pre-normed with a residual.  Blocks are assembled into
 groups by :mod:`repro_torch.models.lm`; a MoE FFN's load-balance loss
-comes back as the block's aux, as in the reference.
+comes back as the block's aux, as in the reference.  ``block_spec`` and
+``block_cache_spec`` are the reference's PartitionSpec trees; under a
+mesh the residual stream crosses the reference's ``constrain`` after
+each full-sequence block.
 """
 from __future__ import annotations
 
@@ -14,13 +17,17 @@ import torch
 
 from repro_torch.nn import core
 from repro_torch.nn.attention import (AttnCfg, attn_decode, attn_forward,
-                                      attn_init, init_kv_cache)
-from repro_torch.nn.mla import (MLACfg, init_mla_cache, mla_decode,
-                                mla_forward, mla_init)
-from repro_torch.nn.mlp import MLPCfg, mlp_apply, mlp_init
-from repro_torch.nn.moe import MoECfg, moe_apply, moe_init
+                                      attn_init, attn_spec, init_kv_cache,
+                                      kv_cache_spec)
+from repro_torch.nn.mla import (MLACfg, init_mla_cache, mla_cache_spec,
+                                mla_decode, mla_forward, mla_init, mla_spec)
+from repro_torch.nn.mlp import MLPCfg, mlp_apply, mlp_init, mlp_spec
+from repro_torch.nn.moe import MoECfg, moe_apply, moe_init, moe_spec
+from repro_torch.nn.sharding import (batch_spec, constrain, gather_dim,
+                                     is_dtensor, like)
 from repro_torch.nn.ssm import (SSMCfg, init_ssm_state, ssm_decode,
-                                ssm_forward, ssm_init)
+                                ssm_forward, ssm_init, ssm_spec,
+                                ssm_state_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +53,14 @@ def _norm_init(kind: str, d: int, dtype, device):
     if kind in ("ln", "ln_np"):
         return core.layernorm_init(d, elementwise=kind == "ln", dtype=dtype,
                                    device=device)
+    raise ValueError(kind)
+
+
+def _norm_spec(kind: str) -> dict:
+    if kind == "rms":
+        return core.rmsnorm_spec()
+    if kind in ("ln", "ln_np"):
+        return core.layernorm_spec(elementwise=kind == "ln")
     raise ValueError(kind)
 
 
@@ -88,6 +103,28 @@ def block_init(generator: torch.Generator, cfg: BlockCfg, *,
     return p
 
 
+def block_spec(cfg: BlockCfg) -> dict:
+    s = {}
+    if cfg.mixer != "none":
+        s["norm1"] = _norm_spec(cfg.norm)
+    if cfg.mixer == "attn":
+        s["mixer"] = attn_spec(cfg.attn)
+    elif cfg.mixer == "mla":
+        s["mixer"] = mla_spec(cfg.mla)
+    elif cfg.mixer == "ssm":
+        s["mixer"] = ssm_spec(cfg.ssm)
+    if cfg.cross is not None:
+        s["norm_cross"] = _norm_spec(cfg.norm)
+        s["cross"] = attn_spec(cfg.cross)
+    if cfg.ffn != "none":
+        s["norm2"] = _norm_spec(cfg.norm)
+    if cfg.ffn == "mlp":
+        s["ffn"] = mlp_spec(cfg.mlp)
+    elif cfg.ffn == "moe":
+        s["ffn"] = moe_spec(cfg.moe)
+    return s
+
+
 # -- forward (full sequence) -----------------------------------------------------
 
 def _cross_and_ffn(p, cfg: BlockCfg, x, enc, compute_dtype, *,
@@ -95,7 +132,7 @@ def _cross_and_ffn(p, cfg: BlockCfg, x, enc, compute_dtype, *,
     """The cross-attention (over ``enc``, or the static K/V of
     ``cross_cache`` in decode) and the FFN.  Returns (x, aux, cross K/V
     when ``enc`` is given)."""
-    aux = torch.zeros((), device=x.device)
+    aux = x.new_zeros((), dtype=torch.float32)
     kv = None
     if cfg.cross is not None:
         xn = _norm_apply(cfg.norm, p["norm_cross"], x)
@@ -137,7 +174,7 @@ def block_forward(p, cfg: BlockCfg, x, *, positions=None, enc=None,
                             _norm_apply(cfg.norm, p["norm1"], x),
                             impl=impl, compute_dtype=compute_dtype)
     x, aux, _ = _cross_and_ffn(p, cfg, x, enc, compute_dtype)
-    return x, aux
+    return constrain(x, batch_spec(None, None)), aux
 
 
 # -- cache / prefill / decode -------------------------------------------------------
@@ -156,15 +193,46 @@ def block_init_cache(cfg: BlockCfg, B: int, S: int, *, enc_len: int = 0,
     return c
 
 
+def block_cache_spec(cfg: BlockCfg, *, seq_shard=None) -> dict:
+    """seq_shard: mesh axis to shard the cache *sequence* dim over (used
+    when kv-heads cannot fill the model axis, e.g. long-context
+    decode)."""
+    c = {}
+    if cfg.mixer == "attn":
+        if seq_shard is not None:
+            c["mixer"] = {"k": batch_spec(seq_shard, None, None),
+                          "v": batch_spec(seq_shard, None, None)}
+        else:
+            c["mixer"] = kv_cache_spec(cfg.attn)
+    elif cfg.mixer == "mla":
+        c["mixer"] = mla_cache_spec(cfg.mla)
+    elif cfg.mixer == "ssm":
+        c["mixer"] = ssm_state_spec(cfg.ssm)
+    if cfg.cross is not None:
+        c["cross"] = kv_cache_spec(cfg.cross)
+    return c
+
+
 def _write_prefix(cache: dict, new: dict) -> dict:
     """Each leaf of ``cache`` (B, S, ...) with its first L positions set to
-    ``new``'s (B, L, ...) leaf; the cache passed in is not changed."""
+    ``new``'s (B, L, ...) leaf; the cache passed in is not changed.  A
+    DTensor cache is written on its local shards with the sequence
+    gathered, and comes back in its own layout."""
     out = {}
     for k, c in cache.items():
         L = new[k].shape[1]
         if L > c.shape[1]:
             raise ValueError(f"prefill of {L} tokens into a cache of "
                              f"{c.shape[1]}")
+        if is_dtensor(c):
+            from torch.distributed.tensor import DTensor
+            whole = gather_dim(c, 1)
+            loc = whole.to_local().clone()
+            loc[:, :L] = like(new[k].to(c.dtype), whole).to_local()
+            out[k] = like(DTensor.from_local(loc, whole.device_mesh,
+                                             whole.placements,
+                                             run_check=False), c)
+            continue
         c = c.clone()
         c[:, :L] = new[k].to(c.dtype)
         out[k] = c
@@ -197,13 +265,16 @@ def block_prefill(p, cfg: BlockCfg, x, cache, *, positions=None, enc=None,
         y, st = ssm_forward(p["mixer"], cfg.ssm, xn, impl=impl,
                             compute_dtype=compute_dtype, return_state=True)
         x = x + y
-        new["mixer"] = {"conv": st["conv"].to(cache["mixer"]["conv"].dtype),
-                        "ssm": st["ssm"]}
+        new["mixer"] = {
+            "conv": like(st["conv"].to(cache["mixer"]["conv"].dtype),
+                         cache["mixer"]["conv"]),
+            "ssm": like(st["ssm"], cache["mixer"]["ssm"])}
     x, aux, kv = _cross_and_ffn(p, cfg, x, enc, compute_dtype)
     if kv is not None:
-        new["cross"] = {"k": kv[0].to(cache["cross"]["k"].dtype),
-                        "v": kv[1].to(cache["cross"]["v"].dtype)}
-    return x, new, aux
+        new["cross"] = {k: like(t.to(cache["cross"][k].dtype),
+                                cache["cross"][k])
+                        for k, t in zip(("k", "v"), kv)}
+    return constrain(x, batch_spec(None, None)), new, aux
 
 
 def block_decode(p, cfg: BlockCfg, x, cache, pos, *,

@@ -22,6 +22,12 @@ DeepSeek-V3's depth-1 MTP loss) runs through ``impl="plain"`` (the
 reference's ``"xla"``) or ``"chunked"``; ``cfg.remat`` recomputes each
 repeat of a cycle in the backward (``torch.utils.checkpoint``), as the
 reference's ``jax.checkpoint`` of its scan body does.
+
+Under a mesh: ``lm_spec`` and ``lm_cache_spec`` are the reference's
+PartitionSpec trees (the repeat axis unsharded); with DTensor parameters
+and inputs the embeddings, logits and every block's residual stream
+cross the reference's ``constrain`` points, and each group's new cache
+comes back in the layout of the cache passed in.
 """
 from __future__ import annotations
 
@@ -32,9 +38,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import core
+from repro_torch.nn.sharding import P, batch_spec, constrain, gather_dim, like
 
-from .blocks import (BlockCfg, block_decode, block_forward, block_init,
-                     block_init_cache, block_prefill)
+from .blocks import (BlockCfg, block_cache_spec, block_decode, block_forward,
+                     block_init, block_init_cache, block_prefill, block_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,12 +112,64 @@ def unstack(tree, n: int) -> list:
     repeat axis, from one ``unbind`` a leaf: under autograd each leaf then
     gets one backward that stacks its repeats' gradients, where a select
     a repeat would write a zero-filled copy of the whole stack each."""
-    parts = tree_map(lambda a: a.unbind(0), tree)
+    parts = tree_map(lambda a: gather_dim(a, 0).unbind(0), tree)
     return [tree_map(lambda t: t[r], parts) for r in range(n)]
 
 
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+# -- specs -------------------------------------------------------------------------
+
+def _stack_spec(spec):
+    """Prepend a None (repeat) dim to every PartitionSpec leaf."""
+    if isinstance(spec, dict):
+        return {k: _stack_spec(v) for k, v in spec.items()}
+    return P(None, *spec)
+
+
+def _group_spec(g: GroupCfg) -> dict:
+    shared, stacked = {}, {}
+    for i, bcfg in enumerate(g.cycle):
+        if bcfg.shared:
+            shared[str(i)] = block_spec(bcfg)
+        else:
+            stacked[str(i)] = _stack_spec(block_spec(bcfg))
+    return {"shared": shared, "stacked": stacked}
+
+
+def lm_spec(cfg: LMCfg) -> dict:
+    s: dict = {
+        "embed": core.embedding_spec(),
+        "groups": [_group_spec(g) for g in cfg.groups],
+        "final_norm": (core.rmsnorm_spec() if cfg.final_norm == "rms"
+                       else core.layernorm_spec(
+                           elementwise=cfg.final_norm == "ln"))}
+    if cfg.pos_embed == "learned":
+        s["pos"] = P(None, None)
+    if not cfg.tie_embeddings:
+        s["lm_head"] = {"w": P(None, "model")}
+    if cfg.prefix_embed_dim:
+        s["proj"] = {"w": P(None, None), "b": P(None)}
+    if cfg.mtp:
+        s["mtp"] = {"norm_h": core.rmsnorm_spec(),
+                    "norm_e": core.rmsnorm_spec(),
+                    "proj": {"w": P(None, None)},
+                    "block": block_spec(cfg.groups[-1].cycle[-1])}
+    return s
+
+
+def lm_cache_spec(cfg: LMCfg, *, seq_shard=None) -> list:
+    out = []
+    for g in cfg.groups:
+        gs = {}
+        for i, bcfg in enumerate(g.cycle):
+            c = block_cache_spec(bcfg, seq_shard=seq_shard)
+            if c:
+                gs[str(i)] = _stack_spec(c)
+        out.append(gs)
+    return out
 
 
 # -- init --------------------------------------------------------------------------
@@ -195,7 +254,9 @@ def _positions(p, cfg: LMCfg, start, L: int):
 
 
 def _embed_inputs(p, cfg: LMCfg, tokens, prefix_embeds, *, compute_dtype):
-    x = core.embed(p["embed"], tokens, compute_dtype=compute_dtype)
+    # a vocab-sharded table's lookup is partial until this constrain
+    x = constrain(core.embed(p["embed"], tokens, compute_dtype=compute_dtype),
+                  batch_spec(None, None))
     if cfg.prefix_embed_dim and prefix_embeds is not None:
         vis = core.linear(p["proj"], prefix_embeds,
                           compute_dtype=compute_dtype)
@@ -216,9 +277,11 @@ def _logits(p, cfg: LMCfg, x, *, compute_dtype):
     untied head (bf16 operands, f32 products and sums)."""
     x = _final_norm(p, cfg, x)
     if cfg.tie_embeddings:
-        return core.unembed(p["embed"], x, compute_dtype=compute_dtype)
-    w = p["lm_head"]["w"].to(compute_dtype).float()
-    return torch.matmul(x.to(compute_dtype).float(), w)
+        logits = core.unembed(p["embed"], x, compute_dtype=compute_dtype)
+    else:
+        w = p["lm_head"]["w"].to(compute_dtype).float()
+        logits = torch.matmul(x.to(compute_dtype).float(), w)
+    return constrain(logits, batch_spec(None, "model"))
 
 
 def repeat_params(gp, g: GroupCfg) -> list:
@@ -252,7 +315,8 @@ def lm_forward(p, cfg: LMCfg, tokens, *, prefix_embeds=None, positions=None,
                       compute_dtype=compute_dtype)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    aux = torch.zeros((), device=x.device)
+    x = constrain(x, batch_spec(None, None))
+    aux = x.new_zeros((), dtype=torch.float32)
     for gp, g in zip(p["groups"], cfg.groups):
         def body(bps, x, aux, g=g):
             for bp, bcfg in zip(bps, g.cycle):
@@ -276,9 +340,15 @@ def softmax_xent(logits, labels, *, ignore: int = -100):
     mask = labels != ignore
     safe = torch.where(mask, labels, torch.zeros_like(labels))
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    # gathered from (B·L, V) rows: a vocab-sharded DTensor's gather is
+    # partial until reduced, and DTensor reduces it on 2-D tensors
+    V = logits.shape[-1]
+    gold = constrain(torch.gather(logits.reshape(-1, V), -1,
+                                  safe.reshape(-1, 1).long()),
+                     batch_spec(None)).reshape(safe.shape)
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp(min=1)
+    # replicated: a DTensor sum over sharded rows is partial until reduced
+    return constrain(nll.sum() / mask.sum().clamp(min=1), P())
 
 
 def lm_loss(p, cfg: LMCfg, batch: dict, *, impl: str = "plain",
@@ -317,7 +387,7 @@ def lm_loss(p, cfg: LMCfg, batch: dict, *, impl: str = "plain",
         metrics["mtp_xent"] = mtp_loss
     loss = loss + aux
     metrics["loss"] = loss
-    return loss, metrics
+    return loss, {k: constrain(v, P()) for k, v in metrics.items()}
 
 
 # -- cache / prefill / decode -----------------------------------------------------------
@@ -356,7 +426,13 @@ def group_prefill(gp, g: GroupCfg, x, gc, *, positions, enc=None,
             if nc:
                 nc_r[str(i)] = nc
         per_repeat.append(nc_r)
-    return x, _stack(per_repeat)
+    return x, _stack_like(per_repeat, gc)
+
+
+def _stack_like(per_repeat: list, gc):
+    """The per-repeat caches stacked, each leaf in the layout of ``gc``'s
+    (a DTensor cache keeps its placements)."""
+    return tree_map(like, _stack(per_repeat), gc)
 
 
 def group_decode(gp, g: GroupCfg, x, gc, pos, *,
@@ -374,7 +450,7 @@ def group_decode(gp, g: GroupCfg, x, gc, pos, *,
             if nc:
                 nc_r[str(i)] = nc
         per_repeat.append(nc_r)
-    return x, _stack(per_repeat)
+    return x, _stack_like(per_repeat, gc)
 
 
 def lm_prefill(p, cfg: LMCfg, tokens, cache, *, prefix_embeds=None,
@@ -386,6 +462,7 @@ def lm_prefill(p, cfg: LMCfg, tokens, cache, *, prefix_embeds=None,
     x = _embed_inputs(p, cfg, tokens, prefix_embeds,
                       compute_dtype=compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    x = constrain(x, batch_spec(None, None))
     new_cache = []
     for gp, g, gc in zip(p["groups"], cfg.groups, cache):
         x, nc = group_prefill(gp, g, x, gc, positions=positions, impl=impl,
@@ -406,6 +483,7 @@ def lm_decode(p, cfg: LMCfg, token, cache, pos, *,
         start = torch.as_tensor(pos, device=x.device)
         start = start.expand(x.shape[0]) if start.dim() == 0 else start
         x = x + _positions(p, cfg, start, 1).to(compute_dtype)
+    x = constrain(x, batch_spec(None, None))
     new_cache = []
     for gp, g, gc in zip(p["groups"], cfg.groups, cache):
         x, nc = group_decode(gp, g, x, gc, pos, compute_dtype=compute_dtype,

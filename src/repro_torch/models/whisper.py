@@ -10,7 +10,10 @@ unembedding.  The decoder's cache holds its self-attention K/V per
 position and, per layer, the encoder's cross K/V, which prefill computes
 once and decode only reads.  ``whisper_loss`` trains teacher-forced
 through the plain path, as the reference's does; ``cfg.remat`` recomputes
-each encoder and decoder layer in the backward.
+each encoder and decoder layer in the backward.  ``whisper_spec`` and
+``whisper_cache_spec`` are the reference's PartitionSpec trees; under a
+mesh the encoder and decoder streams and the logits cross the
+reference's ``constrain`` points.
 """
 from __future__ import annotations
 
@@ -22,10 +25,14 @@ import torch
 from repro_torch.nn import core
 from repro_torch.nn.attention import AttnCfg
 from repro_torch.nn.mlp import MLPCfg
+from repro_torch.nn.sharding import (P, batch_spec, constrain, is_dtensor,
+                                     replicate_like)
 
-from .blocks import BlockCfg, block_forward, block_init_cache
-from .lm import (GroupCfg, _group_init, group_decode, group_prefill,
-                 repeat_params, run_repeats, softmax_xent, stacked_cache)
+from .blocks import (BlockCfg, block_cache_spec, block_forward,
+                     block_init_cache)
+from .lm import (GroupCfg, _group_init, _group_spec, _stack_spec,
+                 group_decode, group_prefill, repeat_params, run_repeats,
+                 softmax_xent, stacked_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,12 +103,23 @@ def whisper_init(generator: torch.Generator, cfg: WhisperCfg, *,
     }
 
 
+def whisper_spec(cfg: WhisperCfg) -> dict:
+    return {"embed": core.embedding_spec(),
+            "pos": P(None, None),
+            "enc": _group_spec(cfg.enc_group()),
+            "enc_norm": core.layernorm_spec(),
+            "dec": _group_spec(cfg.dec_group()),
+            "dec_norm": core.layernorm_spec()}
+
+
 def whisper_encode(p, cfg: WhisperCfg, frame_embeds, *,
                    compute_dtype=torch.bfloat16):
     """frame_embeds: (B, n_frames, d_model), the stubbed frontend's
     output -> the encoder states, layer-normed."""
     x = frame_embeds.to(compute_dtype)
-    x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(compute_dtype)
+    x = x + replicate_like(sinusoids(x.shape[1], cfg.d_model, x.device)
+                           .to(compute_dtype), x)
+    x = constrain(x, batch_spec(None, None))
     g = cfg.enc_group()
 
     def body(bps, x, aux):
@@ -118,7 +136,11 @@ def _decode_embed(p, cfg: WhisperCfg, tokens, pos_offset, compute_dtype):
     x = core.embed(p["embed"], tokens, compute_dtype=compute_dtype)
     L = tokens.shape[1]
     if torch.is_tensor(pos_offset) and pos_offset.dim():
-        pos = p["pos"][pos_offset.clamp(0, cfg.max_positions - 1)[:, None]]
+        table = p["pos"]
+        if is_dtensor(table):        # replicated: every rank's whole table
+            table = constrain(table, P(None, None)).to_local()
+        pos = replicate_like(
+            table[pos_offset.clamp(0, cfg.max_positions - 1)[:, None]], x)
     else:
         s = min(max(int(pos_offset), 0), cfg.max_positions - L)
         pos = p["pos"][s: s + L]
@@ -130,11 +152,16 @@ def _unembed(p, x, compute_dtype):
     return core.unembed(p["embed"], x, compute_dtype=compute_dtype)
 
 
+def _logits(p, x, compute_dtype):
+    return constrain(_unembed(p, x, compute_dtype), batch_spec(None, "model"))
+
+
 def whisper_forward(p, cfg: WhisperCfg, frame_embeds, tokens, *,
                     impl: str = "kernel", compute_dtype=torch.bfloat16):
     """Teacher-forced forward.  Returns (logits (B, L, vocab) f32, aux=0)."""
     enc = whisper_encode(p, cfg, frame_embeds, compute_dtype=compute_dtype)
-    x = _decode_embed(p, cfg, tokens, 0, compute_dtype)
+    x = constrain(_decode_embed(p, cfg, tokens, 0, compute_dtype),
+                  batch_spec(None, None))
     g = cfg.dec_group()
     positions = torch.arange(x.shape[1], device=x.device)
 
@@ -143,8 +170,8 @@ def whisper_forward(p, cfg: WhisperCfg, frame_embeds, tokens, *,
                              enc=enc, impl=impl, compute_dtype=compute_dtype)
         return x, aux
     x, _ = run_repeats(body, repeat_params(p["dec"], g), x, None, cfg.remat)
-    return (_unembed(p, x, compute_dtype),
-            torch.zeros((), device=x.device))
+    return (_logits(p, x, compute_dtype),
+            x.new_zeros((), dtype=torch.float32))
 
 
 def whisper_loss(p, cfg: WhisperCfg, batch: dict, *,
@@ -170,6 +197,12 @@ def whisper_init_cache(cfg: WhisperCfg, B: int, S: int, *,
         b, B, S, enc_len=cfg.n_frames, dtype=dtype, device=device))
 
 
+def whisper_cache_spec(cfg: WhisperCfg, *, seq_shard=None) -> dict:
+    g = cfg.dec_group()
+    return {str(i): _stack_spec(block_cache_spec(b, seq_shard=seq_shard))
+            for i, b in enumerate(g.cycle)}
+
+
 def whisper_prefill(p, cfg: WhisperCfg, frame_embeds, tokens, cache, *,
                     impl: str = "kernel", compute_dtype=torch.bfloat16):
     """Encode the audio and prefill decoder tokens [0, L).  Returns
@@ -177,7 +210,8 @@ def whisper_prefill(p, cfg: WhisperCfg, frame_embeds, tokens, cache, *,
     K/V at [0, L) and the cross K/V computed from the encoder output); the
     cache passed in is not changed."""
     enc = whisper_encode(p, cfg, frame_embeds, compute_dtype=compute_dtype)
-    x = _decode_embed(p, cfg, tokens, 0, compute_dtype)
+    x = constrain(_decode_embed(p, cfg, tokens, 0, compute_dtype),
+                  batch_spec(None, None))
     x, new = group_prefill(p["dec"], cfg.dec_group(), x, cache,
                            positions=torch.arange(x.shape[1],
                                                   device=x.device),
@@ -193,7 +227,8 @@ def whisper_decode(p, cfg: WhisperCfg, token, cache, pos, *,
     if not torch.is_tensor(pos) or pos.dim() == 0:
         pos = torch.as_tensor(pos, device=token.device).expand(
             token.shape[0])
-    x = _decode_embed(p, cfg, token, pos, compute_dtype)
+    x = constrain(_decode_embed(p, cfg, token, pos, compute_dtype),
+                  batch_spec(None, None))
     x, new = group_decode(p["dec"], cfg.dec_group(), x, cache, pos,
                           compute_dtype=compute_dtype)
     return _unembed(p, x, compute_dtype), new

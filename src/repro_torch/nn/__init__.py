@@ -2,9 +2,10 @@
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 layout, so a JAX tree crosses over leaf for leaf
-(:func:`repro_torch.bridge.lm_params_from_numpy`).  The JAX ``constrain``
-sharding hints are single-device no-ops here and are dropped; the mesh
-context is ``sharding`` (``use_mesh``), which the expert-parallel MoE
-reads.
+(:func:`repro_torch.bridge.lm_params_from_numpy`), and each layer has its
+``*_spec``, the reference's PartitionSpec tree.  ``sharding`` holds the
+mesh context (``use_mesh``), the map from specs to DTensor placements
+and the reference's ``constrain`` points, which are no-ops without a
+mesh.
 """
 from . import attention, core, mla, mlp, moe, rotary, sharding, ssm  # noqa: F401

@@ -18,6 +18,20 @@ q-blocks and k-blocks whose backward recomputes the probabilities from
 the saved log-sum-exp (a ``torch.autograd.Function``, the reference's
 ``custom_vjp``), so neither direction holds an (L, S) score matrix and
 the backward keeps only q, k, v, the output and the log-sum-exp.
+
+Tensor parallelism over heads (``"model"``; the reference's specs,
+``attn_spec`` and ``kv_cache_spec``): under a mesh with DTensor inputs the
+projections run as DTensor products, and q, k and v cross the
+reference's ``constrain`` into a local region (``sharding.Region``)
+where heads are counted from the local shards, RoPE tables are built,
+and the kernel or the plain path runs on this rank's heads.  Where
+``"model"`` divides the query heads but not the KV heads, k and v stay
+whole on each rank, and the rank takes the KV heads its own query heads
+read (``Region.groups_of_heads``) before the kernel is called.  Decode gathers a
+sequence-sharded cache (``block_cache_spec(seq_shard=...)``) to the
+heads layout before it writes and reads it, as the reference's
+``constrain`` of the written cache does, and hands the new cache back in
+the layout it came in.
 """
 from __future__ import annotations
 
@@ -31,6 +45,8 @@ from repro_torch.kernels import ops as kops
 
 from .core import linear, linear_init, rmsnorm, rmsnorm_init
 from .rotary import apply_rope, rope_cos_sin
+from .sharding import (P, Region, batch_spec, constrain, gather_dim, like,
+                       split_last)
 
 NEG_INF = -1e30
 IMPLS = ("kernel", "plain", "chunked")
@@ -72,8 +88,24 @@ def attn_init(generator: torch.Generator, cfg: AttnCfg, *,
     return p
 
 
+def attn_spec(cfg: AttnCfg) -> dict:
+    def lin(bias, wspec):
+        s = {"w": wspec}
+        if bias:
+            s["b"] = P(wspec[1])
+        return s
+    s = {"q": lin(cfg.qkv_bias, P(None, "model")),
+         "k": lin(cfg.qkv_bias, P(None, "model")),
+         "v": lin(cfg.qkv_bias, P(None, "model")),
+         "o": lin(False, P("model", None))}
+    if cfg.qk_norm:
+        s["q_norm"] = {"scale": P(None)}
+        s["k_norm"] = {"scale": P(None)}
+    return s
+
+
 def _split_heads(x, n, d):
-    return x.reshape(x.shape[:-1] + (n, d))
+    return split_last(x, n, d)
 
 
 def _merge_heads(x):
@@ -93,6 +125,20 @@ def _gqa_out(probs, v):
     B, Hkv, G, L, S = probs.shape
     out = torch.einsum("bkgls,bskd->blkgd", probs, v.float())
     return out.reshape(B, L, Hkv * G, v.shape[-1])
+
+
+def _heads_spec() -> P:
+    return batch_spec(None, "model", None)
+
+
+def _leave(reg: Region, out):
+    """The region's output (B, L, H, D), heads merged, as it crosses the
+    reference's ``constrain`` back: merged on the local shard and handed
+    out sharded on its last dim where the heads are (DTensor's backward
+    of a merge, a view that splits a sharded dim, is not taken)."""
+    out = _merge_heads(out)
+    return reg.give_spec(out, reg.spec(None, "model")) if reg.active \
+        else out
 
 
 def causal_window_mask(L: int, S: int, *, causal: bool,
@@ -292,33 +338,45 @@ def attn_forward(p: dict, cfg: AttnCfg, x: torch.Tensor, *, kv_src=None,
                      cfg.n_kv_heads, cfg.d_head)
     v = _split_heads(linear(p["v"], kv_in, compute_dtype=compute_dtype),
                      cfg.n_kv_heads, cfg.d_head)
+    k, v = constrain(k, _heads_spec()), constrain(v, _heads_spec())
+    # the local region: this rank's heads, from here to the output's
+    # constrain
+    reg = Region(q)
+    q = reg.open(q, _heads_spec())
+    k_pl, v_pl = getattr(k, "placements", None), getattr(v, "placements",
+                                                          None)
+    k, v = reg.take(k), reg.take(v)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
-        k = rmsnorm(p["k_norm"], k)
+        q = rmsnorm({"scale": reg.take(p["q_norm"]["scale"])}, q)
+        k = rmsnorm({"scale": reg.take(p["k_norm"]["scale"])}, k)
     if cfg.rope and not cfg.cross:
         if positions is None:
-            positions = torch.arange(L, device=x.device)
+            positions = torch.arange(L, device=q.device)
         cos, sin = rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    kq, vq = reg.groups_of_heads((k, v), 2, cfg.n_heads, cfg.n_kv_heads,
+                                 q.shape[2])
 
     scale = 1.0 / math.sqrt(cfg.d_head)
     if impl == "kernel" and cfg.causal and not cfg.cross:
-        out = kops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=True,
+        out = kops.flash_attention(q.contiguous(), kq.contiguous(),
+                                   vq.contiguous(), causal=True,
                                    window=cfg.window)
     elif impl == "chunked" and not cfg.cross:
-        out = chunked_attention(q, k, v, causal=cfg.causal,
+        out = chunked_attention(q, kq, vq, causal=cfg.causal,
                                 window=cfg.window, scale=scale)
     else:
-        scores = _gqa_scores(q, k, scale)
+        scores = _gqa_scores(q, kq, scale)
         if cfg.cross:
             probs = torch.softmax(scores, dim=-1)
         else:
             probs = _masked_softmax(scores, causal_window_mask(
-                L, S, causal=cfg.causal, window=cfg.window, device=x.device))
-        out = _gqa_out(probs, v).to(compute_dtype)
-    y = linear(p["o"], _merge_heads(out), compute_dtype=compute_dtype)
+                L, S, causal=cfg.causal, window=cfg.window, device=q.device))
+        out = _gqa_out(probs, vq).to(compute_dtype)
+    y = linear(p["o"], _leave(reg, out), compute_dtype=compute_dtype)
+    if reg.active and return_kv:
+        k, v = reg.give(k, k_pl), reg.give(v, v_pl)
     if return_kv:
         return y, (k, v)
     return y
@@ -333,10 +391,18 @@ def init_kv_cache(B: int, S: int, cfg: AttnCfg, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _row_positions(pos, B: int, device) -> torch.Tensor:
-    """A scalar or (B,) position -> (B,) int64 on ``device``."""
+def kv_cache_spec(cfg: AttnCfg) -> dict:
+    # batch over data axes, kv heads over model.
+    return {"k": batch_spec(None, "model", None),
+            "v": batch_spec(None, "model", None)}
+
+
+def _row_positions(pos, B: int, device, reg: Region = None) -> torch.Tensor:
+    """A scalar or (B,) position -> (B,) int64 on ``device``; in an
+    active region, this rank's rows of it."""
     pos = torch.as_tensor(pos, device=device).to(torch.int64)
-    return pos.expand(B) if pos.dim() == 0 else pos.reshape(B)
+    pos = pos.expand(B) if pos.dim() == 0 else pos.reshape(B)
+    return pos if reg is None else reg.rows(pos)
 
 
 def attn_decode(p: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict, pos, *,
@@ -350,40 +416,59 @@ def attn_decode(p: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict, pos, *,
     cross-attention the cache holds the encoder's (static) K/V: it is read
     whole, unmasked, and returned as it is (``pos`` is not used)."""
     B = x.shape[0]
-    dev = x.device
     q = _split_heads(linear(p["q"], x, compute_dtype=compute_dtype),
                      cfg.n_heads, cfg.d_head)
+    reg = Region(q)
+
+    def leave(out):
+        return linear(p["o"], _leave(reg, out), compute_dtype=compute_dtype)
+
     if cfg.cross:
+        q = reg.open(q, _heads_spec())
+        kc = reg.take(gather_dim(cache["k"], 1), _heads_spec())
+        vc = reg.take(gather_dim(cache["v"], 1), _heads_spec())
         if cfg.qk_norm:
-            q = rmsnorm(p["q_norm"], q)
-        probs = torch.softmax(_gqa_scores(q, cache["k"], 1.0 / math.sqrt(
+            q = rmsnorm({"scale": reg.take(p["q_norm"]["scale"])}, q)
+        kc, vc = reg.groups_of_heads((kc, vc), 2, cfg.n_heads,
+                                     cfg.n_kv_heads, q.shape[2])
+        probs = torch.softmax(_gqa_scores(q, kc, 1.0 / math.sqrt(
             cfg.d_head)), dim=-1)
-        out = _gqa_out(probs, cache["v"]).to(compute_dtype)
-        return linear(p["o"], _merge_heads(out),
-                      compute_dtype=compute_dtype), cache
-    pos = _row_positions(pos, B, dev)
+        return leave(_gqa_out(probs, vc).to(compute_dtype)), cache
     k_new = _split_heads(linear(p["k"], x, compute_dtype=compute_dtype),
                          cfg.n_kv_heads, cfg.d_head)
     v_new = _split_heads(linear(p["v"], x, compute_dtype=compute_dtype),
                          cfg.n_kv_heads, cfg.d_head)
+    # the cache in the heads layout (a sequence-sharded one gathered), the
+    # write and the read on this rank's heads
+    kc = constrain(gather_dim(cache["k"], 1), _heads_spec())
+    vc = constrain(gather_dim(cache["v"], 1), _heads_spec())
+    kc_pl = getattr(kc, "placements", None)
+    q = reg.open(q, _heads_spec())
+    k_new = reg.take(k_new, _heads_spec())
+    v_new = reg.take(v_new, _heads_spec())
+    k, v = reg.take(kc), reg.take(vc)
+    dev = q.device
+    pos = _row_positions(pos, B, dev, reg if reg.active else None)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
-        k_new = rmsnorm(p["k_norm"], k_new)
+        q = rmsnorm({"scale": reg.take(p["q_norm"]["scale"])}, q)
+        k_new = rmsnorm({"scale": reg.take(p["k_norm"]["scale"])}, k_new)
     if cfg.rope:
         cos, sin = rope_cos_sin(pos[:, None], cfg.d_head, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
 
-    S = cache["k"].shape[1]
+    S = k.shape[1]
     ring = cfg.ring and cfg.window is not None
     write_at = torch.remainder(pos, S) if ring else pos.clamp(0, S - 1)
-    rows = torch.arange(B, device=dev)
-    k = cache["k"].clone()
-    v = cache["v"].clone()
+    rows = torch.arange(k.shape[0], device=dev)
+    k = k.clone()
+    v = v.clone()
     k[rows, write_at] = k_new[:, 0].to(k.dtype)
     v[rows, write_at] = v_new[:, 0].to(v.dtype)
 
-    scores = _gqa_scores(q, k, 1.0 / math.sqrt(cfg.d_head))  # (B,Hkv,G,1,S)
+    kq, vq = reg.groups_of_heads((k, v), 2, cfg.n_heads, cfg.n_kv_heads,
+                                 q.shape[2])
+    scores = _gqa_scores(q, kq, 1.0 / math.sqrt(cfg.d_head))  # (B,Hkv,G,1,S)
     kpos = torch.arange(S, device=dev)[None, :]
     if ring:
         # slot s holds global position pos - ((pos - s) mod S); only slots
@@ -394,6 +479,8 @@ def attn_decode(p: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict, pos, *,
         if cfg.window is not None:
             valid &= kpos > pos[:, None] - cfg.window
     probs = _masked_softmax(scores, valid[:, None, None, None, :])
-    out = _gqa_out(probs, v).to(compute_dtype)
-    y = linear(p["o"], _merge_heads(out), compute_dtype=compute_dtype)
+    y = leave(_gqa_out(probs, vq).to(compute_dtype))
+    if reg.active:
+        k = like(reg.give(k, kc_pl), cache["k"])
+        v = like(reg.give(v, kc_pl), cache["v"])
     return y, {"k": k, "v": v}

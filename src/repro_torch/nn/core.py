@@ -4,6 +4,8 @@ embedding (port of ``repro.nn.core``).
 Dtype policy as in the JAX package: a linear casts both operands to the
 compute dtype and adds its bias in it; norms run in f32 and cast back; the
 tied unembedding gives f32 logits (bf16 operands, f32 products and sums).
+Each layer has its ``*_spec``, the PartitionSpec tree of its parameters
+(the reference's, leaf for leaf): ``w`` is (d_in, d_out) in both trees.
 """
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .sharding import (P, batch_spec, constrain, current_mesh, is_dtensor,
+                       local_contiguous)
 
 
 def truncated_normal_init(generator: torch.Generator, shape, scale: float,
@@ -47,10 +52,20 @@ def linear(p: dict, x: torch.Tensor, *,
            compute_dtype=torch.bfloat16) -> torch.Tensor:
     """``x @ w (+ b)`` with both operands and the bias in the compute
     dtype; ``w`` is (d_in, d_out) as in the JAX tree."""
-    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    x = local_contiguous(x.to(compute_dtype))   # matmul views x
+    y = torch.matmul(x, p["w"].to(compute_dtype))
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
+
+
+def linear_spec(*, bias: bool = False, w_spec=P(None, None),
+                b_spec=None) -> dict:
+    s = {"w": w_spec}
+    if bias:
+        s["b"] = (b_spec if b_spec is not None
+                  else P(w_spec[1]) if len(w_spec) == 2 else P(None))
+    return s
 
 
 # -- norms ----------------------------------------------------------------------
@@ -64,6 +79,10 @@ def rmsnorm(p: dict, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def rmsnorm_spec() -> dict:
+    return {"scale": P(None)}
 
 
 def layernorm_init(d: int, *, elementwise: bool = True, dtype=torch.float32,
@@ -84,6 +103,12 @@ def layernorm(p: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def layernorm_spec(*, elementwise: bool = True) -> dict:
+    if not elementwise:
+        return {}
+    return {"scale": P(None), "bias": P(None)}
+
+
 # -- embedding ------------------------------------------------------------------
 
 def embedding_init(generator: torch.Generator, vocab: int, d: int, *,
@@ -92,9 +117,48 @@ def embedding_init(generator: torch.Generator, vocab: int, d: int, *,
                                  dtype)}
 
 
+def embedding_spec() -> dict:
+    return {"table": P("model", None)}
+
+
 def embed(p: dict, ids: torch.Tensor, *,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The table's rows at ``ids``.  A DTensor table under a mesh is
+    looked up on local shards (``_embed_local``)."""
+    if is_dtensor(p["table"]) and current_mesh() is not None:
+        return _embed_local(p["table"], ids).to(compute_dtype)
     return F.embedding(ids, p["table"]).to(compute_dtype)
+
+
+def _embed_local(table, ids):
+    """The lookup of a vocab-sharded table: each rank looks its ids up in
+    its vocab slice (``P("model", None)``), ids outside it give zero rows,
+    and the rows come back partial over the vocab's mesh dimensions (the
+    caller's ``constrain`` sums them), their gradient to each rank's slice
+    whole.  The table's local gradient is partial over the mesh
+    dimensions the ids are split on."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = current_mesh()
+    table = constrain(table, P("model", None))
+    ids = constrain(ids, batch_spec(None))
+    rows = [i for i, pl in enumerate(ids.placements)
+            if isinstance(pl, Shard)]
+    grad = tuple(Partial() if isinstance(pl, Replicate) and i in rows
+                 else pl for i, pl in enumerate(table.placements))
+    t, x = table.to_local(grad_placements=grad), ids.to_local()
+    vocab = [i for i, pl in enumerate(table.placements)
+             if isinstance(pl, Shard)]
+    out_pl = list(ids.placements)
+    if vocab:
+        (i,) = vocab
+        lo = mesh.get_local_rank(i) * t.shape[0]
+        mine = (x >= lo) & (x < lo + t.shape[0])
+        e = F.embedding(torch.where(mine, x - lo, torch.zeros_like(x)), t)
+        e = e * mine[..., None].to(e.dtype)
+        out_pl[i] = Partial()
+    else:
+        e = F.embedding(x, t)
+    return DTensor.from_local(e, mesh, tuple(out_pl), run_check=False)
 
 
 def unembed(p: dict, x: torch.Tensor, *,

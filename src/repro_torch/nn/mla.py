@@ -8,6 +8,14 @@ Decode uses the absorbed formulation: ``W_uk`` folded into the query and
 ``c_kv`` (kv_lora_rank) and the shared RoPE key ``k_rope``.  The cache
 ``{"c_kv": (B, S, C), "k_rope": (B, S, d_rope)}`` leads with the batch
 like the attention cache, and decode takes one position per batch row.
+
+Under a mesh (DTensor parameters and inputs) the projections run as
+DTensor products and the attention runs on this rank's heads in a local
+region (``sharding.Region``) opened at the reference's ``constrain`` of
+k and v (q, its heads sharded as ``q_up``/``q_proj`` are, crosses with
+them); the shared RoPE key and the tables are made there.  The cache,
+sequence-sharded by ``mla_cache_spec``, is gathered for decode, as the
+reference's GSPMD does, and handed back in its own layout.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ import torch
 from .attention import _masked_softmax, _row_positions, causal_window_mask
 from .core import linear, linear_init, rmsnorm, rmsnorm_init
 from .rotary import apply_rope, rope_cos_sin
+from .sharding import P, Region, batch_spec, constrain, gather_dim, like, \
+    split_last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,25 +73,46 @@ def mla_init(generator: torch.Generator, cfg: MLACfg, *,
     return p
 
 
+def mla_spec(cfg: MLACfg) -> dict:
+    s = {"kv_down": {"w": P(None, None)},
+         "kv_norm": {"scale": P(None)},
+         "kv_up": {"w": P(None, "model")},
+         "o": {"w": P("model", None)}}
+    if cfg.q_lora_rank:
+        s["q_down"] = {"w": P(None, None)}
+        s["q_norm"] = {"scale": P(None)}
+        s["q_up"] = {"w": P(None, "model")}
+    else:
+        s["q_proj"] = {"w": P(None, "model")}
+    return s
+
+
+def _heads_spec() -> P:
+    return batch_spec(None, "model", None)
+
+
 def _project_q(p, cfg: MLACfg, x, compute_dtype):
+    """q (B, L, H, nope + rope), heads last but one."""
     if cfg.q_lora_rank:
         qc = rmsnorm(p["q_norm"], linear(p["q_down"], x,
                                          compute_dtype=compute_dtype))
         q = linear(p["q_up"], qc, compute_dtype=compute_dtype)
     else:
         q = linear(p["q_proj"], x, compute_dtype=compute_dtype)
-    q = q.reshape(x.shape[:-1] + (cfg.n_heads,
-                                  cfg.qk_nope_dim + cfg.qk_rope_dim))
-    return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return split_last(q, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
 
 
-def _compress_kv(p, cfg: MLACfg, x, positions, compute_dtype):
-    """(c_kv normalised (B, S, C), k_rope roped (B, S, 1, d_rope))."""
+def _compress_kv(p, cfg: MLACfg, x, compute_dtype):
+    """(c_kv normalised (B, S, C), the shared RoPE key before RoPE (B, S,
+    1, d_rope))."""
     ckr = linear(p["kv_down"], x, compute_dtype=compute_dtype)
     c_kv = rmsnorm(p["kv_norm"], ckr[..., :cfg.kv_lora_rank])
-    k_rope = ckr[..., cfg.kv_lora_rank:][..., None, :]  # one shared head
+    return c_kv, ckr[..., cfg.kv_lora_rank:][..., None, :]
+
+
+def _rope(cfg: MLACfg, t, positions):
     cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta)
-    return c_kv, apply_rope(k_rope, cos, sin)
+    return apply_rope(t, cos, sin)
 
 
 def _scale(cfg: MLACfg) -> float:
@@ -95,27 +126,38 @@ def mla_forward(p, cfg: MLACfg, x, *, positions=None,
     the decode cache holds."""
     B, L, _ = x.shape
     H = cfg.n_heads
+    q = _project_q(p, cfg, x, compute_dtype)
+    c_kv, kr = _compress_kv(p, cfg, x, compute_dtype)
+    kv = split_last(linear(p["kv_up"], c_kv, compute_dtype=compute_dtype),
+                    H, cfg.qk_nope_dim + cfg.v_head_dim)
+    kv = constrain(kv, _heads_spec())
+    # the local region: this rank's heads
+    reg = Region(q)
+    q = reg.open(q, _heads_spec())
+    kr_pl = getattr(kr, "placements", None)
+    kv, kr = reg.take(kv), reg.take(kr)
     if positions is None:
-        positions = torch.arange(L, device=x.device)
-    q_nope, q_rope = _project_q(p, cfg, x, compute_dtype)
-    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
-    c_kv, k_rope = _compress_kv(p, cfg, x, positions, compute_dtype)
-    kv = linear(p["kv_up"], c_kv, compute_dtype=compute_dtype)
-    kv = kv.reshape(B, L, H, cfg.qk_nope_dim + cfg.v_head_dim)
+        positions = torch.arange(L, device=q.device)
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = _rope(cfg, q[..., cfg.qk_nope_dim:], positions)
+    k_rope = _rope(cfg, kr, positions)
     k_nope, v = kv[..., :cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim:]
     # bf16 operands, f32 products and sums (preferred_element_type=f32)
     scores = (torch.einsum("blhd,bshd->bhls", q_nope.float(), k_nope.float())
               + torch.einsum("blhd,bsd->bhls", q_rope.float(),
                              k_rope[:, :, 0].float())) * _scale(cfg)
     mask = causal_window_mask(L, L, causal=cfg.causal, window=cfg.window,
-                              device=x.device)
+                              device=q.device)
     probs = _masked_softmax(scores, mask)
     out = torch.einsum("bhls,bshd->blhd", probs, v.float())
-    out = out.to(compute_dtype).reshape(B, L, H * cfg.v_head_dim)
+    out = out.to(compute_dtype).reshape(out.shape[:2] + (-1,))
+    k_rope = k_rope[:, :, 0, :]
+    if reg.active:
+        out = reg.give_spec(out, reg.spec(None, "model"))
+        k_rope = reg.give(k_rope, kr_pl)
     y = linear(p["o"], out, compute_dtype=compute_dtype)
     if return_kv:
-        return y, (c_kv, k_rope[:, :, 0, :])
+        return y, (c_kv, k_rope)
     return y
 
 
@@ -127,6 +169,12 @@ def init_mla_cache(B: int, S: int, cfg: MLACfg, dtype=torch.bfloat16,
                                   device=device)}
 
 
+def mla_cache_spec(cfg: MLACfg) -> dict:
+    # no head dim -> shard sequence over "model" so huge contexts fit.
+    return {"c_kv": batch_spec("model", None),
+            "k_rope": batch_spec("model", None)}
+
+
 def mla_decode(p, cfg: MLACfg, x, cache, pos, *,
                compute_dtype=torch.bfloat16):
     """One-token absorbed-MLA decode.  x: (B, 1, D); cache ``{"c_kv",
@@ -134,22 +182,31 @@ def mla_decode(p, cfg: MLACfg, x, cache, pos, *,
     position at or past S writes the last slot, the reference's clamp).
     Returns (y, new_cache); the cache passed in is not changed."""
     B = x.shape[0]
-    H, C = cfg.n_heads, cfg.kv_lora_rank
-    dev = x.device
-    pos = _row_positions(pos, B, dev)
-    q_nope, q_rope = _project_q(p, cfg, x, compute_dtype)    # (B, 1, H, *)
-    cos, sin = rope_cos_sin(pos[:, None], cfg.qk_rope_dim, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
-    c_new, kr_new = _compress_kv(p, cfg, x, pos[:, None], compute_dtype)
-    S = cache["c_kv"].shape[1]
-    rows = torch.arange(B, device=dev)
+    C = cfg.kv_lora_rank
+    q = _project_q(p, cfg, x, compute_dtype)                # (B, 1, H, *)
+    c_new, kr_new = _compress_kv(p, cfg, x, compute_dtype)
+    # the local region: this rank's heads over the whole (gathered) cache
+    reg = Region(q)
+    q = reg.open(q, _heads_spec())
+    cache_l = {k: gather_dim(c, 1) for k, c in cache.items()}
+    pls = {k: getattr(c, "placements", None) for k, c in cache_l.items()}
+    c_kv, k_rope = reg.take(cache_l["c_kv"]), reg.take(cache_l["k_rope"])
+    c_new, kr_new = reg.take(c_new), reg.take(kr_new)
+    W = reg.take(p["kv_up"]["w"], P(None, "model" if reg.sharded("model")
+                                    else None))
+    dev = q.device
+    pos = _row_positions(pos, B, dev, reg if reg.active else None)
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = _rope(cfg, q[..., cfg.qk_nope_dim:], pos[:, None])
+    kr_new = _rope(cfg, kr_new, pos[:, None])
+    S = c_kv.shape[1]
+    rows = torch.arange(c_kv.shape[0], device=dev)
     write_at = pos.clamp(0, S - 1)
-    c_kv, k_rope = cache["c_kv"].clone(), cache["k_rope"].clone()
+    c_kv, k_rope = c_kv.clone(), k_rope.clone()
     c_kv[rows, write_at] = c_new[:, 0].to(c_kv.dtype)
     k_rope[rows, write_at] = kr_new[:, 0, 0].to(k_rope.dtype)
 
-    W = p["kv_up"]["w"].to(compute_dtype).reshape(
-        C, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    W = W.to(compute_dtype).reshape(C, -1, cfg.qk_nope_dim + cfg.v_head_dim)
     W_uk, W_uv = W[..., :cfg.qk_nope_dim], W[..., cfg.qk_nope_dim:]
     q_lat = torch.einsum("blhd,chd->blhc", q_nope, W_uk)     # absorbed
     scores = (torch.einsum("blhc,bsc->bhls", q_lat.float(), c_kv.float())
@@ -162,6 +219,10 @@ def mla_decode(p, cfg: MLACfg, x, cache, pos, *,
     probs = _masked_softmax(scores, valid[:, None, None, :])
     ctx = torch.einsum("bhls,bsc->blhc", probs, c_kv.float())
     out = torch.einsum("blhc,chv->blhv", ctx.to(compute_dtype), W_uv)
-    y = linear(p["o"], out.reshape(B, 1, H * cfg.v_head_dim),
-               compute_dtype=compute_dtype)
+    out = out.reshape(out.shape[:2] + (-1,))
+    if reg.active:
+        out = reg.give_spec(out, reg.spec(None, "model"))
+        c_kv = like(reg.give(c_kv, pls["c_kv"]), cache["c_kv"])
+        k_rope = like(reg.give(k_rope, pls["k_rope"]), cache["k_rope"])
+    y = linear(p["o"], out, compute_dtype=compute_dtype)
     return y, {"c_kv": c_kv, "k_rope": k_rope}

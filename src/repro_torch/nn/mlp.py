@@ -6,6 +6,7 @@ import dataclasses
 import torch
 
 from .core import gelu, linear, linear_init, silu
+from .sharding import P, batch_spec, constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +26,13 @@ def mlp_init(generator: torch.Generator, cfg: MLPCfg, *,
     return p
 
 
+def mlp_spec(cfg: MLPCfg) -> dict:
+    s = {"up": {"w": P(None, "model")}, "down": {"w": P("model", None)}}
+    if cfg.gated:
+        s["gate"] = {"w": P(None, "model")}
+    return s
+
+
 def mlp_apply(p: dict, cfg: MLPCfg, x: torch.Tensor, *,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
     act = silu if cfg.act == "silu" else gelu
@@ -33,4 +41,5 @@ def mlp_apply(p: dict, cfg: MLPCfg, x: torch.Tensor, *,
         h = act(linear(p["gate"], x, compute_dtype=compute_dtype)) * h
     else:
         h = act(h)
+    h = constrain(h, batch_spec(None, "model"))
     return linear(p["down"], h, compute_dtype=compute_dtype)

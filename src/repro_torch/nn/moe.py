@@ -24,22 +24,29 @@ rows, as its serving engine maps its decode step.
 
 Expert parallelism: with ``dispatch="shardmap"`` and a current mesh
 (``repro_torch.nn.sharding.use_mesh``) that has a ``"model"`` dimension
-whose size n divides E, each rank (SPMD, one process a rank) routes the
-tokens it was given, its data shard (every rank of a ``"model"`` group
-passes the same rows), dispatches them locally into the full (E·cap, D)
-buffer, runs its own E/n experts (the slice at its ``"model"``
-coordinate of the whole parameter tree), combines its experts'
-contributions and sums the (T, D) outputs over the ``"model"`` group in
-one ``all_reduce``; the aux loss is averaged over the whole mesh.  Every
-rank holds the whole tree for now (placing only its slice there comes
-with the parameter specs, ROADMAP A.12 step 4), so under autograd the
-collectives are differentiated to keep the copies whole: the gradients
-of the tokens and the router are summed over the ``"model"`` group, and
-each expert slice's gradient reaches every rank, so a train step gives
-every rank the gradients of the unsharded layer.  Without a mesh
-``"shardmap"`` falls through to the global path, as the reference's
-does; the global path is the same code with every expert local and no
-collective.
+whose size n divides E, each rank (SPMD, one process a rank) holds only
+its E/n expert slice: the experts are DTensors on ``P("model", None,
+None)`` (``moe_spec``), and the rank takes its slice as the local shard,
+as the reference's ``shard_map`` ``in_specs`` hand it over.  It routes
+the tokens of its data shard (x on the batch axes; every rank of a
+``"model"`` group holds the same rows), dispatches them locally into the
+full (E·cap, D) buffer, runs its experts, combines their contributions
+and sums the (T, D) outputs over the ``"model"`` group in one
+``all_reduce``; the aux loss is averaged over the whole mesh.  Under
+autograd the tokens' and the router's gradients are summed over the
+``"model"`` group (each rank's is its experts' part), and an expert
+slice's gradient stays on its rank.  Plain tensors under a mesh must
+already be this rank's slice (``expert_slice`` cuts a whole tree); a
+tree whose expert leaves hold another number of experts is refused.
+Without a mesh ``"shardmap"`` falls through to the global path, as the
+reference's does; the global path is the same code with every expert
+local and no collective.
+
+The global path (``"gspmd"``) under a mesh keeps the reference's
+``constrain``s of the dispatch buffer and the experts' output on
+``P("model", None, None)``: the routing and the combine run on the
+tokens gathered whole on every rank (local code between those
+boundaries), the experts as DTensor products on the rank's slice.
 """
 from __future__ import annotations
 
@@ -50,8 +57,9 @@ import torch
 import torch.distributed as dist
 
 from .core import silu
-from .mlp import MLPCfg, mlp_apply, mlp_init
-from .sharding import current_mesh
+from .mlp import MLPCfg, mlp_apply, mlp_init, mlp_spec
+from .sharding import (P, Region, batch_spec, constrain, current_mesh,
+                       is_dtensor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +92,16 @@ def moe_init(generator: torch.Generator, cfg: MoECfg, *,
     return p
 
 
+def moe_spec(cfg: MoECfg) -> dict:
+    s = {"router": {"w": P(None, None)},
+         "up": P("model", None, None),
+         "gate": P("model", None, None),
+         "down": P("model", None, None)}
+    if cfg.n_shared:
+        s["shared"] = mlp_spec(_shared_cfg(cfg))
+    return s
+
+
 def _shared_cfg(cfg: MoECfg) -> MLPCfg:
     return MLPCfg(cfg.d_model, cfg.d_ff * cfg.n_shared)
 
@@ -107,6 +125,23 @@ def _model_share(mesh, E: int) -> tuple:
     e_loc = E // n
     return mesh.get_local_rank("model") * e_loc, e_loc, \
         mesh.get_group("model")
+
+
+def expert_slice(tree, mesh):
+    """``tree`` (plain tensors: a MoE layer's parameters, or a model's)
+    with the expert leaves of every MoE in it cut to this rank's E/n
+    experts on ``mesh``'s ``"model"`` dimension (copies, so the whole
+    tree can be freed), as the expert-parallel path takes them."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(expert_slice(v, mesh) for v in tree)
+    if not isinstance(tree, dict):
+        return tree
+    if "router" not in tree:
+        return {k: expert_slice(v, mesh) for k, v in tree.items()}
+    d = tree["up"].dim() - 3                 # experts lead (E, ...) leaves
+    e0, e_loc, _ = _model_share(mesh, tree["up"].shape[d])
+    return {k: v.narrow(d, e0, e_loc).clone() if k in ("up", "gate", "down")
+            else v for k, v in tree.items()}
 
 
 def _all_reduce(t, group):
@@ -150,31 +185,6 @@ class _SumModelGroup(torch.autograd.Function):
         return g, None
 
 
-class _ExpertShare(torch.autograd.Function):
-    """This rank's slice of an expert weight forward; backward, the
-    slice's gradient placed in the whole weight's shape and summed over
-    the ``"model"`` group, so every rank's copy of the whole tree gets the
-    whole gradient (each slice from the rank that ran it)."""
-
-    @staticmethod
-    def forward(ctx, w, mine, group):
-        ctx.mine, ctx.group, ctx.shape = mine, group, w.shape
-        return w[mine]
-
-    @staticmethod
-    def backward(ctx, g):
-        whole = g.new_zeros(ctx.shape)
-        whole[ctx.mine] = g
-        return _all_reduce(whole, ctx.group), None, None
-
-
-def _share(w, mine: slice, group):
-    """``w[mine]``; under autograd on a mesh, through ``_ExpertShare``."""
-    if group is None or not (torch.is_grad_enabled() and w.requires_grad):
-        return w[mine]
-    return _ExpertShare.apply(w, mine, group)
-
-
 class _MeshMean(torch.autograd.Function):
     """The mean over every rank of the mesh forward, 1/n of the gradient
     backward."""
@@ -192,25 +202,75 @@ class _MeshMean(torch.autograd.Function):
         return g / ctx.n, None
 
 
-def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
-              route_rows: bool = False):
-    """x: (B, L, D) -> (y (B, L, D) in the compute dtype, aux loss f32).
-    ``route_rows``: each of the B rows routed on its own (the aux loss is
-    then the mean of the rows').  With ``cfg.dispatch == "shardmap"``
-    under a current mesh, the expert-parallel path (module docstring):
-    ``x`` is this rank's data shard and ``y`` its rows."""
-    mesh = current_mesh() if cfg.dispatch == "shardmap" else None
-    B, L, D = x.shape
+def _expert_parallel_dtensor(p, cfg: MoECfg, x, mesh, compute_dtype,
+                             route_rows):
+    """The expert-parallel layer on DTensors: the shard_map's in_specs
+    taken as local shards (tokens on the batch axes, the router whole,
+    the experts on ``"model"``; ``Region`` gives the router's and the
+    experts' local gradients as partial over the batch axes), the local
+    body, and y back on the tokens' placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    reg = Region(x)
+    x_pl = constrain(x, batch_spec(None, None)).placements
+    xl = reg.open(x, batch_spec(None, None))
+    model = (mesh.mesh_dim_names or ()).index("model")
+    local = {"router": {"w": reg.take(p["router"]["w"], P(None, None))}}
+    for k in ("up", "gate", "down"):
+        w = constrain(p[k], P("model", None, None))
+        if not isinstance(w.placements[model], Shard):
+            raise ValueError(f"{cfg.n_experts} experts do not split over "
+                             f"a 'model' dimension of {mesh.size(model)}")
+        local[k] = reg.take(w)
+    y, aux = _moe_local(local, cfg, xl, mesh, compute_dtype, route_rows)
+    return reg.give(y, x_pl), reg.give(aux, (Replicate(),) * mesh.ndim)
+
+
+def _gspmd_dtensor(p, cfg: MoECfg, x, mesh, compute_dtype, route_rows):
+    """The global path under a mesh: routing, dispatch and combine on the
+    tokens gathered whole (identical on every rank), the dispatch buffer
+    and the experts' output crossing the reference's ``constrain`` on
+    ``P("model", None, None)``, the experts as DTensor products."""
+    from torch.distributed.tensor import Replicate
+    repl = (Replicate(),) * mesh.ndim
+    reg = Region(x)
+    xl = reg.open(x, P(None, None, None))
+    router = reg.take(p["router"]["w"], P(None, None))
+
+    def experts(h):
+        h = constrain(reg.give(h, repl), P(None, "model", None, None))
+        out = constrain(_expert_ffn(p, h, compute_dtype),
+                        P(None, "model", None, None))
+        return reg.take(out, P(None, None, None, None))
+
+    y, aux = _route_dispatch_combine(xl, router, cfg, compute_dtype,
+                                     route_rows, experts, 0, cfg.n_experts)
+    y = reg.give(y.reshape(xl.shape[:2] + (-1,)), repl)
+    return constrain(y, batch_spec(None, None)), reg.give(aux, repl)
+
+
+def _expert_ffn(p, h, compute_dtype):
+    """SwiGLU experts on the (G, E, cap, D) buffer ``h``."""
+    w_up, w_gate, w_down = (p[k].to(compute_dtype)
+                            for k in ("up", "gate", "down"))
+    up = torch.einsum("gecd,edf->gecf", h, w_up)
+    gate = torch.einsum("gecd,edf->gecf", h, w_gate)
+    return torch.einsum("gecf,efd->gecd", silu(gate) * up, w_down)
+
+
+def _route_dispatch_combine(xt3, router, cfg: MoECfg, compute_dtype,
+                            route_rows, experts, e0: int, e_loc: int):
+    """Route the (B, L, D) tokens ``xt3`` (plain tensors), dispatch every
+    kept assignment into the full (G, E, cap, D) buffer, run
+    ``experts(buffer)`` on experts [e0, e0 + e_loc) (its result (G,
+    e_loc, cap, D)), and combine their contributions.  Returns (y (G·T,
+    D) in the compute dtype, this rank's aux loss)."""
+    B, L, D = xt3.shape
     G = B if route_rows else 1          # routing groups
     T = B * L // G                      # tokens per group
     E, K = cfg.n_experts, cfg.top_k
-    e0, e_loc, group = (0, E, None) if mesh is None else \
-        _model_share(mesh, E)
     cap = _capacity(T, cfg)
-    dev = x.device
-    xt, router = x.reshape(G * T, D), p["router"]["w"]
-    if group is not None:
-        xt, router = (_ToModelGroup.apply(t, group) for t in (xt, router))
+    dev = xt3.device
+    xt = xt3.reshape(G * T, D)
 
     logits = torch.matmul(xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)                    # (G*T, E)
@@ -234,22 +294,14 @@ def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
     slot = torch.where(keep, e_sorted * cap + rank,
                        torch.full_like(rank, n_slots))
 
-    # dispatch every kept assignment into the full buffer, then take this
-    # rank's experts (all of them off a mesh)
+    # dispatch every kept assignment into the full buffer
     tok = xt[t_sorted].to(compute_dtype)
     tok = torch.where(keep[:, None], tok, torch.zeros_like(tok))
     buf = torch.zeros((n_slots + 1, D), dtype=compute_dtype, device=dev)
     buf.index_add_(0, slot, tok)
-    h = buf[:n_slots].reshape(G, E, cap, D)[:, e0:e0 + e_loc]
+    out = experts(buf[:n_slots].reshape(G, E, cap, D))
 
-    # expert FFN (SwiGLU)
-    w_up, w_gate, w_down = (_share(p[k], slice(e0, e0 + e_loc), group)
-                            .to(compute_dtype) for k in ("up", "gate", "down"))
-    up = torch.einsum("gecd,edf->gecf", h, w_up)
-    gate = torch.einsum("gecd,edf->gecf", h, w_gate)
-    out = torch.einsum("gecf,efd->gecd", silu(gate) * up, w_down)
-
-    # combine this rank's experts' contributions
+    # combine experts [e0, e0 + e_loc)'s contributions
     n_mine = G * e_loc * cap
     out_flat = torch.cat([out.reshape(n_mine, D),
                           torch.zeros((1, D), dtype=compute_dtype,
@@ -262,18 +314,57 @@ def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
     contrib = out_flat[row] * w_mine[:, None].to(compute_dtype)
     y = torch.zeros((G * T, D), dtype=compute_dtype, device=dev)
     y.index_add_(0, t_sorted, contrib)
-    if group is not None:
-        y = _SumModelGroup.apply(y, group)
-    y = y.reshape(B, L, D)
-    if "shared" in p:
-        y = y + mlp_apply(p["shared"], _shared_cfg(cfg), x,
-                          compute_dtype=compute_dtype)
 
     # Switch-style load balance, per group
     frac = torch.zeros(G * E, device=dev).index_add_(
         0, key, torch.ones_like(flat_w)).reshape(G, E) / (T * K)
     mean_prob = torch.mean(probs.reshape(G, T, E), dim=1)
     aux = torch.mean(cfg.aux_coef * E * torch.sum(frac * mean_prob, dim=-1))
-    if mesh is not None:
+    return y, aux
+
+
+def _moe_local(p, cfg: MoECfg, x, mesh, compute_dtype, route_rows):
+    """The routed experts on plain tensors: the global path without a
+    mesh; on a mesh, the expert-parallel body (``x`` this rank's rows,
+    ``p``'s experts this rank's E/n slice).  Returns (y (B, L, D),
+    aux)."""
+    E = cfg.n_experts
+    e0, e_loc, group = (0, E, None) if mesh is None else \
+        _model_share(mesh, E)
+    if p["up"].shape[0] != e_loc:
+        raise ValueError(
+            f"the expert leaves hold {p['up'].shape[0]} experts; this "
+            f"rank's slice is {e_loc} of {E} (cut a whole tree with "
+            "expert_slice, or pass DTensors)")
+    xt, router = x, p["router"]["w"]
+    if group is not None:
+        xt, router = (_ToModelGroup.apply(t, group) for t in (xt, router))
+    y, aux = _route_dispatch_combine(
+        xt, router, cfg, compute_dtype, route_rows,
+        lambda h: _expert_ffn(p, h[:, e0:e0 + e_loc], compute_dtype),
+        e0, e_loc)
+    if group is not None:
+        y = _SumModelGroup.apply(y, group)
         aux = _MeshMean.apply(aux, mesh)
+    return y.reshape(x.shape), aux
+
+
+def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
+              route_rows: bool = False):
+    """x: (B, L, D) -> (y (B, L, D) in the compute dtype, aux loss f32).
+    ``route_rows``: each of the B rows routed on its own (the aux loss is
+    then the mean of the rows').  With ``cfg.dispatch == "shardmap"``
+    under a current mesh, the expert-parallel path (module docstring):
+    ``x`` is this rank's data shard, or a DTensor, and ``y`` its rows."""
+    mesh = current_mesh()
+    if mesh is not None and is_dtensor(x):
+        fn = (_expert_parallel_dtensor if cfg.dispatch == "shardmap"
+              else _gspmd_dtensor)
+        y, aux = fn(p, cfg, x, mesh, compute_dtype, route_rows)
+    else:
+        y, aux = _moe_local(p, cfg, x, mesh if cfg.dispatch == "shardmap"
+                            else None, compute_dtype, route_rows)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], _shared_cfg(cfg), x,
+                          compute_dtype=compute_dtype)
     return y, aux

@@ -9,6 +9,17 @@ the sequence; a gated RMSNorm and the output projection close the block.
 layers' training path, also runs ``ssd_reference`` here, as the
 reference's does).  Decode keeps a constant-size
 state: the conv tail (width-1 tokens) and the SSM state (H, P, N).
+
+Under a mesh (DTensor parameters and inputs; the reference's
+``ssm_spec`` and ``ssm_state_spec``): ``in_proj``'s output ``[z | xBC |
+dt]`` is split over ``"model"`` in contiguous column blocks, not by
+head, so ``_split_proj`` slices the global DTensor layout (DTensor
+gathers it) and the conv runs on DTensors.  The SSD then runs on this
+rank's heads in a local region (``sharding.Region``) opened at the
+reference's ``constrain`` of x, where the rank takes its heads' dt, A
+and D and the B/C groups its heads read; the scan's output crosses the
+reference's ``constrain`` back, and the gated norm and ``out_proj`` are
+DTensor ops.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 
 from .core import linear, linear_init, rmsnorm, silu
+from .sharding import P, Region, batch_spec, constrain, like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +82,17 @@ def ssm_init(generator: torch.Generator, cfg: SSMCfg, *,
     }
 
 
+def ssm_spec(cfg: SSMCfg) -> dict:
+    return {"in_proj": {"w": P(None, "model")},
+            "conv_w": P(None, "model"),
+            "conv_b": P("model"),
+            "A_log": P(None),
+            "D": P(None),
+            "dt_bias": P(None),
+            "norm": {"scale": P(None)},
+            "out_proj": {"w": P("model", None)}}
+
+
 def _split_proj(cfg: SSMCfg, zxbcdt):
     GN2 = 2 * cfg.n_groups * cfg.d_state
     di = cfg.d_inner
@@ -84,8 +107,7 @@ def _causal_conv(xBC, w, b, *, tail: Optional[torch.Tensor] = None):
     W = w.shape[0]
     L = xBC.shape[1]
     if tail is None:
-        tail = torch.zeros(xBC.shape[:1] + (W - 1,) + xBC.shape[2:],
-                           dtype=xBC.dtype, device=xBC.device)
+        tail = xBC.new_zeros(xBC.shape[:1] + (W - 1,) + xBC.shape[2:])
     xpad = torch.cat([tail, xBC], dim=1)
     out = xpad[:, 0:L, :] * w[0]
     for i in range(1, W):
@@ -171,12 +193,26 @@ def ssm_forward(p: dict, cfg: SSMCfg, xin: torch.Tensor, *,
     Cm = xBC[..., di + G * N:].reshape(Bsz, L, G, N)
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
+    # the local region: the SSD on this rank's heads
+    reg = Region(x)
+    x = reg.open(x, batch_spec(None, "model", None))
+    D = p["D"]
+    if reg.active:
+        heads = P("model" if reg.sharded("model") else None)
+        dt = reg.take(dt, batch_spec(None, "model"))
+        A, D = reg.take(A, heads), reg.take(D, heads)
+        Bm, Cm = reg.groups_of_heads((reg.take(Bm), reg.take(Cm)), 2, H, G,
+                                     x.shape[2])
     if impl == "kernel":
-        y, S = kops.ssd_scan(x, dt, A, Bm, Cm, p["D"], chunk=cfg.chunk)
+        y, S = kops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=cfg.chunk)
     else:
-        y, S = ssd_reference(x, dt, A, Bm, Cm, p["D"], chunk=cfg.chunk,
+        y, S = ssd_reference(x, dt, A, Bm, Cm, D, chunk=cfg.chunk,
                              return_state=True)
-    y = y.to(compute_dtype).reshape(Bsz, L, di)
+    y = y.to(compute_dtype).reshape(y.shape[:2] + (-1,))
+    if reg.active:
+        y = reg.give_spec(y, reg.spec(None, "model"))
+        S = reg.give_spec(S, reg.spec("model", None, None))
+    y = constrain(y, batch_spec(None, "model"))
     y = rmsnorm(p["norm"], y * silu(z))            # gated RMSNorm
     out = linear(p["out_proj"], y, compute_dtype=compute_dtype)
     if return_state:
@@ -191,6 +227,11 @@ def init_ssm_state(B: int, cfg: SSMCfg, dtype=torch.bfloat16,
                                 device=device),
             "ssm": torch.zeros((B, cfg.n_heads, cfg.head_dim, cfg.d_state),
                                dtype=torch.float32, device=device)}
+
+
+def ssm_state_spec(cfg: SSMCfg) -> dict:
+    return {"conv": batch_spec(None, "model"),
+            "ssm": batch_spec("model", None, None)}
 
 
 def ssm_decode(p: dict, cfg: SSMCfg, xin: torch.Tensor, state: dict, *,
@@ -210,16 +251,32 @@ def ssm_decode(p: dict, cfg: SSMCfg, xin: torch.Tensor, state: dict, *,
     Cm = xBC[:, 0, di + G * N:].reshape(Bsz, G, N)
     dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])         # (B,H)
     A = -torch.exp(p["A_log"])
-    rep = H // G
+    # the local region: the recurrence on this rank's heads
+    reg = Region(x)
+    x = reg.open(x, batch_spec("model", None))
+    D, S0 = p["D"], state["ssm"]
+    if reg.active:
+        heads = P("model" if reg.sharded("model") else None)
+        dt1 = reg.take(dt1, batch_spec("model"))
+        A, D = reg.take(A, heads), reg.take(D, heads)
+        S0 = reg.take(S0, reg.spec("model", None, None))
+        Bm, Cm = reg.groups_of_heads((reg.take(Bm), reg.take(Cm)), 1, H, G,
+                                     x.shape[1])
+    rep = x.shape[1] // Bm.shape[1]
     Bf = torch.repeat_interleave(Bm.float(), rep, dim=1)      # (B,H,N)
     Cf = torch.repeat_interleave(Cm.float(), rep, dim=1)
     xf = x.float()
     dA = torch.exp(dt1 * A[None, :])
-    S = state["ssm"] * dA[:, :, None, None] + torch.einsum(
+    S = S0 * dA[:, :, None, None] + torch.einsum(
         "bh,bhn,bhp->bhpn", dt1, Bf, xf)
     y = torch.einsum("bhn,bhpn->bhp", Cf, S)
-    y = y + xf * p["D"][None, :, None]
-    y = y.to(compute_dtype).reshape(Bsz, 1, di)
+    y = y + xf * D[None, :, None]
+    y = y.to(compute_dtype).reshape(y.shape[0], 1, -1)
+    if reg.active:
+        y = reg.give_spec(y, reg.spec(None, "model"))
+        S = like(reg.give_spec(S, reg.spec("model", None, None)),
+                 state["ssm"])
     y = rmsnorm(p["norm"], y * silu(z))
     out = linear(p["out_proj"], y, compute_dtype=compute_dtype)
-    return out, {"conv": conv_tail.to(state["conv"].dtype), "ssm": S}
+    conv_tail = like(conv_tail.to(state["conv"].dtype), state["conv"])
+    return out, {"conv": conv_tail, "ssm": S}

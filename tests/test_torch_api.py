@@ -1,8 +1,8 @@
 """The port's public names (ROADMAP A.13), on the CPU.
 
 * Every name a reference package's ``__init__`` exports resolves in its
-  port twin, but for ``NOT_YET`` (the mesh half's specs, A.12 step 4),
-  the ``jax``/``jnp`` modules and the three Pallas source modules.
+  port twin, but for the ``jax``/``jnp`` modules and the three Pallas
+  source modules.
 * ``run_episode`` against the JAX package's ``run_episode`` with the
   env's draws injected (the mechanism of ``tests/test_torch_cache.py``),
   ``static_popular_cache_batch`` exactly against JAX's,
@@ -38,9 +38,6 @@ from test_torch_cache import EP_ENV
 REPO = Path(__file__).resolve().parents[1]
 PACKAGES = sorted(p.name for p in (REPO / "src" / "repro").iterdir()
                   if (p / "__init__.py").is_file())
-NOT_YET = {"configs": {"input_specs"},
-           "models": {"lm_spec", "lm_cache_spec", "whisper_spec",
-                      "whisper_cache_spec"}}
 NOT_NAMES = {"jax", "jnp"}                  # the reference's own imports
 PALLAS_SOURCES = {"kernels": {"ddpm_step", "flash_attention", "ssd_scan"}}
 TWINS = ("quickstart", "serve_edge", "train_lm")
@@ -78,13 +75,10 @@ def _exported(pkg: str) -> set:
 def test_every_reference_export_resolves_in_the_port(pkg):
     import importlib
     twin = importlib.import_module(f"repro_torch.{pkg}")
-    skip = NOT_YET.get(pkg, set()) | NOT_NAMES | PALLAS_SOURCES.get(pkg,
-                                                                    set())
+    skip = NOT_NAMES | PALLAS_SOURCES.get(pkg, set())
     want = _exported(pkg)
     missing = sorted(n for n in want - skip if not hasattr(twin, n))
     assert not missing, f"repro_torch.{pkg} lacks {missing}"
-    # the skipped names are skipped for a reason that still holds
-    assert not any(hasattr(twin, n) for n in NOT_YET.get(pkg, ()))
 
 
 def _replayed_states(key, ec):

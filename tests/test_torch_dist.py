@@ -12,14 +12,28 @@ the JAX reference.
   ``independent_impl="vmap"``, ``mods``, no process group, B = 3 on 2
   ranks).
 * The expert-parallel ``moe_apply`` on a ``("model",)`` mesh of 2 at
-  ``n_shared`` 0 and 2, f32 and bf16, with capacity overflow, against the
-  port's unsharded path and the reference's shard body
+  ``n_shared`` 0 and 2, f32 and bf16, with capacity overflow, each rank
+  holding its E/2 experts as plain tensors (a whole tree is refused),
+  against the port's unsharded path and the reference's shard body
   ``_local_dispatch_combine`` under ``jax.vmap(axis_name="model")`` (2e-5
   in f32, 2e-2 in bf16); and on a (2 data x 1 model) mesh, each rank
   routing its half of the batch.
-* deepseek-v3's smoke config with ``PerfOpts(moe_shardmap=True)`` on the
-  ``("model",)`` mesh: the forward, the loss, every gradient and two
-  train steps against the default options without a mesh.
+* deepseek-v3's smoke config with ``PerfOpts(moe_shardmap=True)`` (and
+  with the global dispatch) on the ``("model",)`` mesh, its parameters
+  DTensors by ``lm_spec`` (each rank's expert leaves hold E/2 experts):
+  the forward, the loss, every gradient and two train steps against the
+  default options without a mesh.
+* The LM's mesh half on ``("data", "model")`` meshes (1, 2) and (2, 1),
+  parameters and caches DTensors by their specs: qwen2's forward, loss,
+  every gradient (against the port unsharded and the reference's
+  ``jax.value_and_grad``) and two train steps with ``PerfOpts(fsdp=True)``
+  (against the port unsharded); mamba2's prefill and decode, a GQA config
+  of 4 query heads and 1 KV head (the query heads split, the KV head
+  whole on each rank) and a decode from a cache moved to
+  ``seq_shard="model"`` (these two on (1, 2)), and deepseek-v3's (MLA,
+  and the MoE's global dispatch under a mesh), each against the port
+  unsharded and the reference's ``lm_prefill``/``lm_decode``: 2e-5 in
+  f32.
 """
 import functools
 
@@ -30,9 +44,14 @@ import pytest
 import torch
 
 import _dist_ranks as ranks
+from repro.configs import get_arch as jget_arch
+from repro.models import lm as jlm
 from repro.nn import mlp as jmlp
 from repro.nn import moe as jmoe
 from repro_torch.bridge import train_state_to_numpy
+from repro_torch.configs import get_arch
+from repro_torch.device import make_generator
+from repro_torch.models import lm as lm_mod
 from repro_torch.core.env import EnvCfg, make_user_masks
 from repro_torch.core.t2drl import (T2DRLCfg, cell_generators, run_training,
                                     run_training_sharded, t2drl_init_batch)
@@ -135,10 +154,40 @@ def _unsharded(case, x=None):
     return y.float().numpy(), float(aux)
 
 
+def _lm_params(case) -> dict:
+    """The case's parameters as a numpy tree of the JAX layout (the
+    port's init, whose tree is the reference's leaf for leaf)."""
+    cfg = ranks.case_cfg(case)
+    return lm_mod.tree_map(lambda t: t.numpy(), lm_mod.lm_init(
+        make_generator(case["seed"], "cpu"), cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_mesh_cases() -> dict:
+    """The LM mesh cases: smoke widths, B = 2, prompts of 16, a cache of
+    32 and 2 decode steps (made once, read only)."""
+    rng = np.random.default_rng(40)
+    B, L = 2, 16
+
+    def serve(arch, seed, heads=None):
+        c = {"arch": arch, "heads": heads, "seed": seed, "S": 32,
+             "tokens": rng.integers(0, 512, (B, L)),
+             "decode": rng.integers(0, 512, (B, 2))}
+        return {**c, "params": _lm_params(c)}
+    train = {"arch": "qwen2-0.5b", "seed": 1, "batch": {
+        "tokens": rng.integers(0, 512, (B, L)),
+        "labels": rng.integers(0, 512, (B, L))}}
+    return {"train": {**train, "params": _lm_params(train)},
+            "ssm": serve("mamba2-130m", 2), "gqa": serve("qwen2-0.5b", 3,
+                                                         (4, 1)),
+            "seq": serve("qwen2-0.5b", 4), "mla": serve("deepseek-v3-671b",
+                                                        5)}
+
+
 @pytest.fixture(scope="module")
 def world():
     """The spec every rank runs and the two ranks' results."""
-    spec = {"train": _train_cases(),
+    spec = {"lm_mesh": _lm_mesh_cases(), "train": _train_cases(),
             "moe": {f"s{s}_{d}": _moe_case(s, d, (2, 6, 32), 10 + i)
                     for i, (s, d) in enumerate(MOE_CASES)},
             "moe_data": _moe_case(2, "f32", (4, 6, 32), 20),
@@ -230,6 +279,17 @@ def test_expert_parallel_moe_matches_unsharded_and_the_shard_body(world,
         np.testing.assert_allclose(aux, ref_aux, **F32)
 
 
+def test_expert_parallel_moe_refuses_a_whole_plain_expert_tree(world):
+    # plain tensors must be the rank's slice: a whole replicated tree would
+    # train only this rank's experts and the copies drift apart
+    spec, results = world
+    kw = next(iter(spec["moe"].values()))["cfg"]
+    for r in range(N):
+        msg = results[r]["moe_whole"]
+        assert msg is not None and f"hold {kw['n_experts']} experts" in msg
+        assert f"slice is {kw['n_experts'] // N} of" in msg
+
+
 def test_expert_parallel_moe_shards_tokens_over_data(world):
     spec, results = world
     case = spec["moe_data"]
@@ -249,10 +309,23 @@ def test_expert_parallel_moe_shards_tokens_over_data(world):
 
 
 def test_moe_shardmap_trains_and_serves_deepseek_v3_as_unsharded(world):
+    _deepseek_v3_as_unsharded(world, "lm")
+
+
+def test_global_dispatch_on_a_mesh_trains_deepseek_v3_as_unsharded(world):
+    _deepseek_v3_as_unsharded(world, "lm_gspmd")
+
+
+def _deepseek_v3_as_unsharded(world, dispatch: str):
     spec, results = world
     want = ranks.lm_case(spec["lm"], shardmap=False)
+    E = get_arch("deepseek-v3-671b").make_smoke().groups[-1].cycle[-1] \
+        .moe.n_experts
     for r in range(N):
-        got = results[r]["lm"]
+        got = results[r][dispatch]
+        # each rank holds E/2 experts of every expert leaf
+        assert got["expert_rows"] and set(got["expert_rows"]) == {E // N}
+        assert set(want["expert_rows"]) == {E}
         np.testing.assert_allclose(got["logits"], want["logits"], **F32)
         np.testing.assert_allclose(got["aux"], want["aux"], **F32)
         np.testing.assert_allclose(got["loss"], want["loss"], **F32)
@@ -272,3 +345,102 @@ def test_moe_shardmap_trains_and_serves_deepseek_v3_as_unsharded(world):
                            zip(got["params"], want["params"])))
         norm = np.sqrt(sum(np.sum(w ** 2) for w in want["params"]))
         assert diff <= 2e-5 * norm, (diff, norm)
+
+
+# -- the LM's mesh half ----------------------------------------------------------------
+
+def _close(got, want, what, tol=F32):
+    scale = max(float(np.abs(want).max()), 1e-6)
+    np.testing.assert_allclose(got / scale, want / scale, **tol,
+                               err_msg=what)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lm(name: str):
+    """The reference's unsharded results of LM mesh case ``name``: the
+    train case's logits, loss and gradient leaves; a serve case's
+    prefill and decode logits."""
+    case = _lm_mesh_cases()[name]
+    cfg = ranks.case_cfg(case, jget_arch)
+    p = jax.tree.map(jnp.asarray, case["params"])
+    f32 = jnp.float32
+    if name == "train":
+        batch = {k: jnp.asarray(v, jnp.int32)
+                 for k, v in case["batch"].items()}
+        logits, _ = jlm.lm_forward(p, cfg, batch["tokens"],
+                                   compute_dtype=f32)
+        (loss, _), grads = jax.value_and_grad(
+            lambda q: jlm.lm_loss(q, cfg, batch, compute_dtype=f32),
+            has_aux=True)(p)
+        return {"logits": np.asarray(logits), "loss": float(loss),
+                "grads": [np.asarray(g) for g in jax.tree.leaves(grads)]}
+    tok = jnp.asarray(case["tokens"], jnp.int32)
+    B, L = tok.shape
+    cache = jlm.lm_init_cache(cfg, B, case["S"], dtype=f32)
+    logits, cache = jlm.lm_prefill(p, cfg, tok, cache, compute_dtype=f32)
+    out = [np.asarray(logits)]
+    for i in range(case["decode"].shape[1]):
+        lg, cache = jlm.lm_decode(
+            p, cfg, jnp.asarray(case["decode"][:, i:i + 1], jnp.int32),
+            cache, jnp.int32(L + i), compute_dtype=f32)
+        out.append(np.asarray(lg))
+    return {"logits": out}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_lm(name: str):
+    """The port's unsharded run of LM mesh case ``name``."""
+    case = _lm_mesh_cases()[name]
+    if name == "train":
+        return ranks.train_lm_case(case)
+    return ranks.serve_lm_case(case)
+
+
+@pytest.mark.parametrize("mesh", [m for m, _ in ranks.LM_MESHES])
+def test_lm_mesh_train_matches_unsharded_and_the_reference(world, mesh):
+    _, results = world
+    want, ref = _port_lm("train"), _jax_lm("train")
+    assert want["fsdp_leaves"] == 0          # no mesh, no DTensor
+    for r in range(N):
+        got = results[r]["lm_mesh"][mesh]["train"]
+        _close(got["logits"], want["logits"], "logits")
+        _close(got["logits"], ref["logits"], "logits vs the reference")
+        np.testing.assert_allclose(got["loss"], want["loss"], **F32)
+        np.testing.assert_allclose(got["loss"], ref["loss"], **F32)
+        assert len(got["grads"]) == len(want["grads"]) == len(ref["grads"])
+        for i, (g, w, j) in enumerate(zip(got["grads"], want["grads"],
+                                          ref["grads"])):
+            _close(g, w, f"gradient leaf {i}")
+            _close(g, j, f"gradient leaf {i} vs the reference")
+        # PerfOpts(fsdp=True): most leaves sharded over "data"
+        assert got["fsdp_leaves"] >= len(got["params"]) // 2
+        for gm, wm in zip(got["metrics"], want["metrics"]):
+            assert set(gm) == set(wm)
+            for k in wm:
+                np.testing.assert_allclose(gm[k], wm[k], **F32, err_msg=k)
+        diff = np.sqrt(sum(np.sum((g - w) ** 2) for g, w in
+                           zip(got["params"], want["params"])))
+        norm = np.sqrt(sum(np.sum(w ** 2) for w in want["params"]))
+        assert diff <= 2e-5 * norm, (diff, norm)
+
+
+@pytest.mark.parametrize("mesh,case", [(m, c) for m, cs in
+                                       ranks.LM_SERVE.items() for c in cs])
+def test_lm_mesh_serving_matches_unsharded_and_the_reference(world, mesh,
+                                                             case):
+    _, results = world
+    want, ref = _port_lm(case), _jax_lm(case)
+    for r in range(N):
+        got = results[r]["lm_mesh"][mesh][case]
+        assert len(got["logits"]) == len(want["logits"]) == 3
+        for i, (g, w, j) in enumerate(zip(got["logits"], want["logits"],
+                                          ref["logits"])):
+            _close(g, w, f"step {i}")
+            _close(g, j, f"step {i} vs the reference")
+        for i, (g, w) in enumerate(zip(got["cache"], want["cache"])):
+            _close(g, w, f"cache leaf {i}")
+        pl = got["cache_placements"]
+        if case == "seq" and mesh == "tp":   # the sequence over "model"
+            assert all("Shard(dim=2)" in p for p in pl), pl
+        if case == "gqa" and mesh == "tp":   # one KV head: whole a rank
+            assert all("Replicate()" in p for p in pl), pl

@@ -108,8 +108,10 @@ def test_perf_opts_tags_fsdp_refused_and_moe_shardmap_accepted():
     assert steps.PerfOpts(impl="chunked", ring=True).tag == "chunked-ring"
     assert steps.PerfOpts(impl="kernel", bf16_moments=True).tag == \
         "bf16m-kernel"
-    with pytest.raises(NotImplementedError, match="A.12 step 4"):
-        steps.PerfOpts(fsdp=True)
+    # fsdp is accepted and tagged first, as the reference's
+    assert steps.PerfOpts(fsdp=True).tag == "fsdp"
+    assert steps.PerfOpts(fsdp=True, bf16_moments=True,
+                          moe_shardmap=True).tag == "fsdp-bf16m-moesm"
     assert steps.PerfOpts(moe_shardmap=True, impl="chunked").tag == \
         "chunked-moesm"
     # every MoE block, and only those, switched to the expert-parallel

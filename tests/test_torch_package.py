@@ -542,8 +542,9 @@ def test_chip_smoke_ops_phase_runs_small_on_cpu(one_thread):
 def test_chip_smoke_dist_phase_runs_small_on_cpu(one_thread):
     """Phase dist on the CPU: the world of one and the world of two on
     gloo (two spawned worlds), 4 cells at a tiny EnvCfg, deepseek-v2's
-    MoE layer and deepseek-v3's forward at their smoke widths, and the
-    example twins at tiny arguments.  The ranks unpickle their function
+    MoE layer and deepseek-v3's forward at their smoke widths, the LM's
+    mesh half on a (1, 1) mesh at smoke widths (qwen2 and mamba2 serving,
+    two FSDP train steps), and the example twins at tiny arguments.  The ranks unpickle their function
     from the module ``chip_smoke``, so it is registered under that name
     and the repository root is importable (the card runs the script as
     ``__main__``, which the spawn start method imports alike)."""
@@ -560,7 +561,9 @@ def test_chip_smoke_dist_phase_runs_small_on_cpu(one_thread):
                                            "--frames", "1", "--slots", "2"],
                       "train_lm_torch": ["--steps", "1", "--batch", "1",
                                          "--seq-len", "8"]},
-            timeout_s=240)
+            timeout_s=240, make="make_smoke", prompts=(2, 16), decode=2,
+            fsdp=dict(arch="qwen2-0.5b", steps=2, batch=2, seq_len=16,
+                      lr=3e-4))
     finally:
         sys.path.remove(str(REPO))
         del sys.modules["chip_smoke"]
@@ -576,6 +579,14 @@ def test_chip_smoke_dist_phase_runs_small_on_cpu(one_thread):
         assert m["experts_per_rank"] * 2 == m["experts"]
         assert m["y_max_abs_err"] <= 2e-2
     assert all(x["logits_max_abs_err"] <= 2e-5 for x in w2["lm"])
+    # the LM's mesh half in the world of one, on a (1, 1) mesh
+    for r in w1["serve"][0]:
+        assert r["mesh"] == [1, 1] and r["max_rel_err"] <= 5e-2
+        assert r["weight_bytes_per_rank"] == r["weight_bytes_unsharded"]
+    f = w1["fsdp"][0]
+    assert f["update_max_rel_l2"] == f["leaf_max_abs_diff"] == 0.0
+    assert len(f["losses"]) == 2 and f["loss_max_rel_err"] == 0.0
+    assert out["per_rank_bytes"]
     assert set(out["examples"]) == {"quickstart_torch", "serve_edge_torch",
                                     "train_lm_torch"}
     shapes = out["launches_by_shape"]["ddpm_chain"]
