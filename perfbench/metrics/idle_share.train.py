@@ -1,0 +1,7 @@
+"""The device's idle share of the measured window: one minus the traced
+device busy time per episode over the window's host time per episode."""
+from perfbench.lib import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx, "episodes")
