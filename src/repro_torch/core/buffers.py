@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import profiling
+
 
 def buffer_init(capacity: int, item_example: dict) -> dict:
     """Zeroed storage for ``capacity`` items shaped and typed like
@@ -164,6 +166,13 @@ def buffer_sample_batch(buf: dict, generators=None, batch: int = 1, *,
 def buffer_sample_stacked(buf: dict, generators=None, batch: int = 1, *,
                           idx=None) -> dict:
     """``buffer_sample_batch`` with one (B, batch) gather per leaf."""
+    if profiling.ON:
+        with profiling.span("replay.sample"):
+            return _buffer_sample_stacked(buf, generators, batch, idx)
+    return _buffer_sample_stacked(buf, generators, batch, idx)
+
+
+def _buffer_sample_stacked(buf, generators, batch, idx):
     if idx is None:
         idx = _sample_idx(buf, generators, batch)
     rows = torch.arange(idx.shape[0], device=idx.device)[:, None]

@@ -38,6 +38,7 @@ from repro_torch.diffusion import (Denoiser, denoiser_init, make_schedule,
                                    reverse_sample_actions_stacked_stats,
                                    reverse_sample_actions_stats,
                                    stack_denoisers)
+from repro_torch.obs import profiling
 from repro_torch.optim import (adam_init, adam_learner, adam_update,
                                adam_update_stacked, global_norm,
                                global_norm_stacked, learner_values,
@@ -143,6 +144,13 @@ def amend_actions(raw, req, rho, U: int, *, b_floor: float = 0.01,
     (11f)-(11g).  ``b_floor`` is a pseudo-count that keeps every share
     positive; ``mask`` restricts both simplexes to active users.  See
     ``repro.core.d3pg.amend_actions``."""
+    if profiling.ON:
+        with profiling.span("d3pg.amend_actions"):
+            return _amend_actions(raw, req, rho, U, b_floor, mask)
+    return _amend_actions(raw, req, rho, U, b_floor, mask)
+
+
+def _amend_actions(raw, req, rho, U, b_floor, mask):
     b_t, xi_t = raw[..., :U], raw[..., U:]
     b_t = b_t + b_floor
     if mask is not None:
@@ -368,6 +376,17 @@ def d3pg_update_stacked(params: dict, cfg: D3PGCfg, sched, batch: dict,
     state (updated in place) and ``{"critic_loss": (B,), "actor_loss":
     (B,)}``; ``diag=True`` adds ``d3pg_update``'s diagnostics per learner,
     (B,) and ``denoise_mag`` (B, L), from the same launches."""
+    if profiling.ON:
+        with profiling.span("d3pg.update_stacked"):
+            return _d3pg_update_stacked(params, cfg, sched, batch,
+                                        generators, lr_a, lr_c, mask, diag,
+                                        draws, impl)
+    return _d3pg_update_stacked(params, cfg, sched, batch, generators, lr_a,
+                                lr_c, mask, diag, draws, impl)
+
+
+def _d3pg_update_stacked(params, cfg, sched, batch, generators, lr_a, lr_c,
+                         mask, diag, draws, impl):
     B, dev = batch["s"].shape[0], batch["s"].device
     lr_a = learner_values(cfg.lr_actor if lr_a is None else lr_a, B, dev)
     lr_c = learner_values(cfg.lr_critic if lr_c is None else lr_c, B, dev)

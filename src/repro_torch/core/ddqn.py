@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.obs import profiling
 from repro_torch.optim import (adam_init, adam_learner, adam_update,
                                adam_update_stacked, global_norm,
                                global_norm_stacked, learner_values,
@@ -62,11 +63,18 @@ def _obs(gamma_idx, cfg: DDQNCfg):
     return torch.nn.functional.one_hot(gamma_idx, cfg.J).to(torch.float32)
 
 
-@torch.no_grad()
 def ddqn_act(params, cfg: DDQNCfg, gamma_idx, generator=None,
              eps: float = 0.0):
     """epsilon-greedy over the 2^M caching actions; ``gamma_idx`` may carry
     leading batch axes.  ``eps == 0`` is greedy and draws nothing."""
+    if profiling.ON:
+        with profiling.span("ddqn.act"):
+            return _ddqn_act(params, cfg, gamma_idx, generator, eps)
+    return _ddqn_act(params, cfg, gamma_idx, generator, eps)
+
+
+@torch.no_grad()
+def _ddqn_act(params, cfg, gamma_idx, generator, eps):
     greedy = torch.argmax(mlp_apply(params["q"], _obs(gamma_idx, cfg)),
                           dim=-1)
     if eps <= 0.0:
@@ -82,6 +90,13 @@ def amend_caching(a_int, cfg: DDQNCfg, c=None, C: float = 0.0):
     """Paper's amender: rho_m = floor(a / 2^(M-m)) mod 2, over leading axes
     of ``a_int``.  With ``cfg.feasible_amender`` (single env) the largest
     cached model is evicted while the storage constraint (11d) fails."""
+    if profiling.ON:
+        with profiling.span("ddqn.amend_caching"):
+            return _amend_caching(a_int, cfg, c, C)
+    return _amend_caching(a_int, cfg, c, C)
+
+
+def _amend_caching(a_int, cfg, c, C):
     a = torch.as_tensor(a_int)
     m = torch.arange(1, cfg.M + 1, device=a.device)
     rho = torch.div(a[..., None], 2 ** (cfg.M - m),

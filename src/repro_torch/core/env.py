@@ -40,6 +40,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.obs import profiling
+
 from .quality import gen_delay, tv_quality
 
 MB_BITS = 8e6  # bits per MB
@@ -499,6 +501,13 @@ def env_step_slot(state: EnvState, cfg: EnvCfg, models: ModelParams, b, xi,
 
 def observe(state: EnvState, cfg: EnvCfg, models: ModelParams, mask=None):
     """s_t(k) = {h, phi, rho, d_in, d_op} normalised to O(1) ranges."""
+    if profiling.ON:
+        with profiling.span("env.observe"):
+            return _observe(state, cfg, models, mask)
+    return _observe(state, cfg, models, mask)
+
+
+def _observe(state, cfg, models, mask):
     h_n = (torch.log10(state.h + 1e-30) + 12.0) / 5.0
     req_n = state.req.to(torch.float32) / cfg.M
     din_n = state.d_in / (cfg.d_in_mb[1] * MB_BITS)

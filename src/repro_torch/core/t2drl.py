@@ -78,6 +78,7 @@ import torch.distributed as dist
 
 from repro_torch.agents.base import FrameObs, SlotObs, cell_of, vmap_agent
 from repro_torch.device import make_generator, resolve_device
+from repro_torch.obs import profiling
 from repro_torch.obs.taps import (ObsCfg, broadcast_diag, combine_updates,
                                   reduce_update_diag)
 from repro_torch.obs.writer import progress_line
@@ -738,18 +739,23 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
         env = env_advance_frame(env, ec, schedule_frame_P(mods, t),
                                 schedule_slot_mod(mods, t * ec.K))
         gamma_t = env.gamma_idx
-        a_int, rho = cacher.act(cache if stateful else cacher_state,
-                                FrameObs(gamma_t, models), generators, step)
+        with profiling.span("t2drl.cacher_act"):
+            a_int, rho = cacher.act(cache if stateful else cacher_state,
+                                    FrameObs(gamma_t, models), generators,
+                                    step)
         env = env_set_cache(env, rho)
         size0 = list(ebuf["size"])
         items, frame_r, reqs = [], [], []
         s = observe(env, ec, models, masks) if alloc0.learns else None
         for k in range(ec.K):
-            b, xi = alloc.act(alloc_state, SlotObs(s, env, models, masks),
-                              generators, step)
-            env1, r, m = env_step_slot(
-                env, ec, models, b, xi, masks,
-                schedule_slot_mod(mods, t * ec.K + k + 1))
+            with profiling.span("t2drl.act"):
+                b, xi = alloc.act(alloc_state,
+                                  SlotObs(s, env, models, masks),
+                                  generators, step)
+            with profiling.span("env.step_slot"):
+                env1, r, m = env_step_slot(
+                    env, ec, models, b, xi, masks,
+                    schedule_slot_mod(mods, t * ec.K + k + 1))
             frame_r.append(r)
             _record_slot(cols, ec, r, m, masks)
             reqs.append(env.req)
@@ -765,9 +771,10 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
                                      and sz > 0 for sz in size0)
                 metrics = None
                 if gate:
-                    out = _slot_updates(alloc, cfg, alloc_state, generators,
-                                        step, sample, masks,
-                                        tap=taps["diag/"] is not None)
+                    with profiling.span("t2drl.slot_updates"):
+                        out = _slot_updates(alloc, cfg, alloc_state,
+                                            generators, step, sample, masks,
+                                            tap=taps["diag/"] is not None)
                     alloc_state, metrics = (out if taps["diag/"]
                                             else (out, None))
                 if taps["diag/"] is not None:
@@ -775,7 +782,9 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
                 s = s1
             env = env1
         if alloc0.learns and train:
-            ebuf = buffer_add_many_stacked(ebuf, _stack_items(items, dim=1))
+            with profiling.span("replay.add"):
+                ebuf = buffer_add_many_stacked(ebuf,
+                                               _stack_items(items, dim=1))
         if stateful:
             cache = cacher0.step_frame(cache, torch.stack(reqs, dim=1),
                                        models, masks)
@@ -792,20 +801,23 @@ def _episode_core_fused(ts: dict, cfg: T2DRLCfg, generators, step: dict, *,
         storage_viols.append(storage_viol)
 
     if cacher0.learns and train:
-        for t in range(ec.T - 1):
-            fbuf = buffer_add_batch(fbuf, {"s": gammas[t], "a": a_ints[t],
-                                           "r": r_frames[t],
-                                           "s1": gammas[t + 1]})
-            gate = all(sz > dq.batch for sz in fbuf["size"])
-            metrics = None
-            if gate:
-                batch = buffer_sample_stacked(fbuf, generators, dq.batch)
-                if "lr_ddqn" in step:
-                    batch["lr"] = step["lr_ddqn"]
-                cacher_state, metrics = cacher.update(cacher_state, batch,
-                                                      generators)
-            if taps["diag/ddqn_"] is not None:
-                taps["diag/ddqn_"].add(metrics, gate)
+        with profiling.span("t2drl.ddqn_updates"):
+            for t in range(ec.T - 1):
+                fbuf = buffer_add_batch(fbuf, {"s": gammas[t],
+                                               "a": a_ints[t],
+                                               "r": r_frames[t],
+                                               "s1": gammas[t + 1]})
+                gate = all(sz > dq.batch for sz in fbuf["size"])
+                metrics = None
+                if gate:
+                    batch = buffer_sample_stacked(fbuf, generators,
+                                                  dq.batch)
+                    if "lr_ddqn" in step:
+                        batch["lr"] = step["lr_ddqn"]
+                    cacher_state, metrics = cacher.update(cacher_state,
+                                                          batch, generators)
+                if taps["diag/ddqn_"] is not None:
+                    taps["diag/ddqn_"].add(metrics, gate)
 
     ts = {"models": models, "d3pg": alloc_state, "ddqn": cacher_state,
           "ebuf": ebuf, "fbuf": fbuf, "cache": cache}
@@ -1291,6 +1303,16 @@ def greedy_slot_action(policy, cfg: T2DRLCfg, env: EnvState,
     diffusion actor's reverse chain (or SCHRS' GA); ``x_L``/``noises``
     inject the chain's draws instead; ``impl`` picks its kernels
     (``reverse_sample``)."""
+    if profiling.ON:
+        with profiling.span("t2drl.greedy_slot_action"):
+            return _greedy_slot_action(policy, cfg, env, models, generator,
+                                       mask, x_L, noises, impl)
+    return _greedy_slot_action(policy, cfg, env, models, generator, mask,
+                               x_L, noises, impl)
+
+
+def _greedy_slot_action(policy, cfg, env, models, generator, mask, x_L,
+                        noises, impl):
     alloc, _ = _agents(cfg)
     s = observe(env, cfg.env, models, mask) if alloc.learns else None
     return alloc.greedy(policy, SlotObs(s, env, models, mask), generator,
@@ -1302,7 +1324,11 @@ def greedy_frame_cache(policy, cfg: T2DRLCfg, models: ModelParams,
     """Greedy (eps = 0) per-frame caching vector rho, from the cacher's
     ``greedy`` (a classical cacher serves the exported resident set)."""
     _, cacher = _agents(cfg)
-    return cacher.greedy(policy, FrameObs(gamma_idx, models), generator)
+    obs = FrameObs(gamma_idx, models)
+    if profiling.ON:
+        with profiling.span("t2drl.greedy_frame_cache"):
+            return cacher.greedy(policy, obs, generator)
+    return cacher.greedy(policy, obs, generator)
 
 
 def greedy_episode(policy, cfg: T2DRLCfg, models: ModelParams,

@@ -37,6 +37,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import profiling
 
 from .denoiser import Denoiser, StackedDenoiser, time_embedding
 from .schedule import DiffusionSchedule
@@ -71,15 +72,26 @@ def reverse_sample(p: Denoiser, sched: DiffusionSchedule, state,
     carries the graph to ``p``'s parameters (with ``impl="step"`` to
     ``state`` as well; ``impl="chain"`` refuses a ``state`` that requires
     a gradient)."""
+    if profiling.ON:
+        with profiling.span("sampler.reverse_sample"):
+            return _reverse_sample(p, sched, state, action_dim, generator,
+                                   x_L, noises, impl)
+    return _reverse_sample(p, sched, state, action_dim, generator, x_L,
+                           noises, impl)
+
+
+def _reverse_sample(p, sched, state, action_dim, generator, x_L, noises,
+                    impl):
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} is not one of {IMPLS}")
     L = sched.L
     shape = state.shape[:-1] + (action_dim,)
     dev = state.device
-    if x_L is None:
-        x_L = torch.randn(shape, generator=generator, device=dev)
-    if noises is None:
-        noises = torch.randn((L,) + shape, generator=generator, device=dev)
+    if profiling.ON:
+        with profiling.span("sampler.draws"):
+            x_L, noises = _draw(shape, L, generator, dev, x_L, noises)
+    else:
+        x_L, noises = _draw(shape, L, generator, dev, x_L, noises)
     if impl == "chain":
         R = math.prod(shape[:-1])
         coef, te = chain_tables(sched, p.time_dim, dev)

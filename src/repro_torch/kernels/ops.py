@@ -34,6 +34,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.obs import profiling
+
 from . import build, ref
 
 LAUNCHES = {"ddpm_step": 0, "ddpm_step_bwd": 0, "ddpm_chain": 0,
@@ -594,6 +596,13 @@ def ddpm_chain(net, x_L, state, noises, coef, te, *, record: bool = False):
     ``ddpm_chain_bwd`` in the backward); x_L, state and noises must not
     require one.  ``record=True`` returns ``(x_0, record)`` without a
     graph, the record as ``ddpm_chain_bwd`` reads it."""
+    if profiling.ON:
+        with profiling.span("ops.ddpm_chain"):
+            return _ddpm_chain(net, x_L, state, noises, coef, te, record)
+    return _ddpm_chain(net, x_L, state, noises, coef, te, record)
+
+
+def _ddpm_chain(net, x_L, state, noises, coef, te, record):
     ws, bs = list(net.w), list(net.b)
     _check_device("ddpm_chain", x_L, state, noises, coef, te, *ws, *bs)
     dims = _check_chain(ws, bs, x_L, state, noises, coef, te)

@@ -1,21 +1,51 @@
 """Profiling hooks (DESIGN.md §15), port of ``repro.obs.profiling``:
-stage timers, a ``torch.profiler`` trace, and a build counter.
+the span recorder, a ``torch.profiler`` trace, and a build counter.
+
+The span recorder is the program's one account of where its host time
+goes.  A span is a named stretch of the host's clock (``Span``: name,
+start, end, the index of its parent span and a trace id; a root span
+opens a new trace id and its descendants share it).  The decision and
+training paths open spans at their layer boundaries.  The recorder is off
+by default, and then a span site of the decision path costs one test of
+the module flag ``ON``::
+
+    if profiling.ON:
+        with profiling.span("env.observe"):
+            return _observe(state, cfg, models, mask)
+    return _observe(state, cfg, models, mask)
+
+and one of the training episode, whose slots take milliseconds, a
+``with span(name):`` that returns a shared no-op context.  Either way,
+with the recorder off the program launches the same work, draws the
+same numbers and reads no clock.  ``recording()`` turns it on; spans are
+kept in memory, at most ``CAPACITY`` of them (the rest are counted as
+dropped), until ``take()`` returns and clears them.  Stamps are
+``time.perf_counter_ns``; ``take()`` gives them on the clock of
+``torch.profiler``'s events (Unix-epoch ns), from one pair of clock
+readings taken when the recorder is turned on, so that spans lie over a
+profile of the card's kernels alone.  While a profiler is running each
+span also opens a ``record_function`` range of its name, so that the
+profiler's own trace shows the program's spans.  Spans time the host: an
+enqueue, not the device's work.
 
 The reference counts fresh XLA compiles of its episode programs; the port
 compiles no episode program, and the compiles it does make are the CUDA
 kernels' ``nvcc`` builds.  So :func:`record_compile` is fed by
 ``repro_torch.kernels.build``: one event per library built (tag
 ``"nvcc:<source>"``, signature the library's file name), none for a
-library found already built.  :func:`stage` wraps host-side phases in
-wall-clock timers (``profile`` records through a ``MetricWriter`` when
-one is attached), and :func:`profiler_trace` gates a ``torch.profiler``
-trace behind an opt-in directory.
+library found already built.  :func:`stage` is a span that also writes a
+``profile`` record (its host wall time) through a ``MetricWriter`` when
+one is attached, and :func:`profiler_trace` gates a ``torch.profiler``
+trace, with the program's spans in it, behind an opt-in directory.
 """
 from __future__ import annotations
 
 import contextlib
 import time
 import warnings
+from typing import NamedTuple
+
+from torch.autograd import profiler as _autograd_profiler
 
 # (tag, signature) per build, appended by kernels.build.  Module-global on
 # purpose: builds happen once per process, whoever asks for the kernel.
@@ -55,15 +85,150 @@ def reset_compiles() -> None:
     _WARNED_TAGS.clear()
 
 
+# -- the span recorder -------------------------------------------------------
+
+ON = False              # the one test a span site makes
+CAPACITY = 1 << 20      # spans kept until take(); further ones are dropped
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int       # on the profiler's clock (Unix-epoch ns)
+    end_ns: int
+    parent: int         # index of the parent span in the same take(), or -1
+    trace: int          # shared by a root span and its descendants
+
+
+class SpanLog(NamedTuple):
+    spans: list         # of Span, in the order they were opened
+    dropped: int        # spans not kept because the buffer was full
+
+
+class _Buffer:
+    """Spans as parallel lists, the open ones on a stack of indices."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        self.name, self.start, self.end = [], [], []
+        self.parent, self.trace = [], []
+        self.stack, self.dropped, self.traces = [], 0, 0
+
+
+_BUF = _Buffer()
+_ANNOTATE = False       # open record_function ranges under a profiler
+_OFFSET_NS = 0          # profiler's clock minus perf_counter_ns
+
+
+def _clock_offset_ns() -> int:
+    """``time.time_ns()`` minus ``time.perf_counter_ns()``, from the
+    narrowest of a few bracketed readings."""
+    best = None
+    for _ in range(5):
+        p0 = time.perf_counter_ns()
+        t = time.time_ns()
+        p1 = time.perf_counter_ns()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, t - (p0 + p1) // 2)
+    return best[1]
+
+
+@contextlib.contextmanager
+def recording(annotate: bool = True):
+    """The recorder on for the block, and as it was after it.
+    ``annotate``: while a profiler runs, each span also opens a
+    ``record_function`` range (leave it off under a profile of the card's
+    kernels alone, which records no host ranges).  The clock pair that
+    ``take`` converts with is read here when no span is waiting."""
+    global ON, _ANNOTATE, _OFFSET_NS
+    saved = ON, _ANNOTATE
+    if not _BUF.name:
+        _OFFSET_NS = _clock_offset_ns()
+    ON, _ANNOTATE = True, annotate
+    try:
+        yield
+    finally:
+        ON, _ANNOTATE = saved
+
+
+def take() -> SpanLog:
+    """The spans recorded since the last ``take`` (all closed: taking
+    while a span is open is refused), and how many were dropped; clears
+    them."""
+    b = _BUF
+    if b.stack:
+        raise RuntimeError(f"obs.profiling.take: {len(b.stack)} span(s) "
+                           f"still open")
+    off = _OFFSET_NS
+    spans = [Span(n, s + off, e + off, p, t) for n, s, e, p, t
+             in zip(b.name, b.start, b.end, b.parent, b.trace)]
+    log = SpanLog(spans, b.dropped)
+    b.clear()
+    return log
+
+
+class _Open:
+    """One span while it is open (``span`` makes it only with the recorder
+    on)."""
+    __slots__ = ("name", "i", "rf")
+
+    def __init__(self, name: str):
+        self.name, self.i, self.rf = name, -1, None
+
+    def __enter__(self):
+        b = _BUF
+        parent = b.stack[-1] if b.stack else -1
+        if len(b.name) >= CAPACITY or parent == -2:
+            b.dropped += 1
+            b.stack.append(-2)          # a dropped span's children drop too
+            return self
+        if parent < 0:
+            b.traces += 1
+        self.i = len(b.name)
+        b.name.append(self.name)
+        b.parent.append(parent)
+        b.trace.append(b.traces if parent < 0 else b.trace[parent])
+        b.end.append(0)
+        b.stack.append(self.i)
+        b.start.append(time.perf_counter_ns())
+        if _ANNOTATE and _autograd_profiler._is_profiler_enabled:
+            self.rf = _autograd_profiler.record_function(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        b = _BUF
+        if self.i >= 0:
+            b.end[self.i] = time.perf_counter_ns()
+        b.stack.pop()
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named ``name`` over the ``with`` block; nothing (and no
+    clock read) with the recorder off.  Hot paths test ``ON`` first."""
+    return _Open(name) if ON else _OFF
+
+
 @contextlib.contextmanager
 def stage(name: str, writer=None, **fields):
-    """Wall-clock a host-side stage; writes a ``profile`` record when a
-    ``MetricWriter`` is attached.  The yielded dict is live: callers may
-    add fields before the record is written on exit."""
+    """A span over a host-side stage, which also takes its wall time on
+    the host's clock (``wall_s``: the time the host spent in the block,
+    an enqueue where the block launches device work, not the device's
+    time) and writes it as a ``profile`` record when a ``MetricWriter``
+    is attached.  The yielded dict is live: callers may add fields before
+    the record is written on exit."""
     info = dict(fields)
     t0 = time.perf_counter()
     try:
-        yield info
+        with span(name):
+            yield info
     finally:
         info["wall_s"] = time.perf_counter() - t0
         if writer is not None:
@@ -74,8 +239,11 @@ def stage(name: str, writer=None, **fields):
 def profiler_trace(trace_dir=None):
     """Opt-in ``torch.profiler`` trace of the CPU and, where there is a
     card, its CUDA activity, exported as a Chrome trace into
-    ``trace_dir`` on exit; a no-op when ``trace_dir`` is empty.  Yields
-    the profiler (or None)."""
+    ``trace_dir`` on exit, with the span recorder on for its duration so
+    that the trace carries the program's spans as ``record_function``
+    ranges (the recorder's state is restored on exit; the spans stay for
+    ``take``); a no-op when ``trace_dir`` is empty.  Yields the profiler
+    (or None)."""
     if not trace_dir:
         yield None
         return
@@ -87,6 +255,7 @@ def profiler_trace(trace_dir=None):
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
+    with recording(annotate=True):
+        with profile(activities=acts) as prof:
+            yield prof
     prof.export_chrome_trace(os.path.join(str(trace_dir), "trace.json"))
