@@ -1270,6 +1270,61 @@ def _chain_timing(device) -> list:
     return rows
 
 
+# ddpm_chain under both plans: the decide cells' R = 4096 (one slot's
+# decision for 4096 cells) at Table 2's widths and at U = 18, L = 10's, and
+# the crossover, where it was measured: the last R of the cluster plan's
+# single wave and the first of the row-tiled plan, at Table 2's widths
+U18_DIMS = (134, 128, 128, 128, 36)
+CHAIN_PLAN_CASES = [
+    ("decide_table2", CTRL_DIMS, 50, 4096, 5),
+    ("decide_u18l10", U18_DIMS, 82, 4096, 10),
+    ("crossover_below", CTRL_DIMS, 50, ops.CHAIN_ROW_TILED_FROM - 1, 5),
+    ("crossover_at", CTRL_DIMS, 50, ops.CHAIN_ROW_TILED_FROM, 5)]
+
+
+def _chain_plans_timing(device) -> list:
+    """ddpm_chain at CHAIN_PLAN_CASES under both plans, the one
+    ``chain_plan`` picks and the other, forced through ``ops._chain_fwd``'s
+    private ``plan``: each held against the plain version (2e-5), then ms
+    in turns (cluster, row-tiled, row-tiled, cluster), graph_ms, beside
+    the bound."""
+    rows = []
+    for i, (name, dims, S, R, L) in enumerate(CHAIN_PLAN_CASES):
+        c = _chain_inputs(dims, S, R, L, "paper", device, 1200 + i)
+        plans = {"row_tiled": ops._row_tiled_plan(dims),
+                 "cluster": ops._cluster_chain_plan(dims, R)}
+
+        def launch(plan):
+            return lambda: ops._chain_fwd(
+                list(c["net"].w), list(c["net"].b), c["x_L"], c["state"],
+                c["noises"], c["coef"], c["te"], False, None, plan)
+
+        expect = ref.ddpm_chain_ref(*_chain_args(c))
+        err = {k: _allclose_err(launch(p)(), expect, TOL[torch.float32],
+                                f"ddpm_chain {name} {k}")
+               for k, p in plans.items()}
+        t = _timed_turns(launch(plans["row_tiled"]), launch(plans["cluster"]))
+        bound, by = chain_bound_ms(dims, S, R, L)
+        picked = ops.chain_plan(dims, R)
+        rows.append({
+            "case": name, "shape": {"dims": list(dims), "S": S, "R": R,
+                                    "L": L},
+            "picked": "row_tiled" if picked.row_tiled else "cluster",
+            "row_tiled_from": ops.CHAIN_ROW_TILED_FROM, "iters": t["iters"],
+            "row_tiled": {"plan": plans["row_tiled"]._asdict(),
+                          "ms": t["ms"], "ms_runs": t["ms_runs"],
+                          "graph_ms": t["graph_ms"],
+                          "max_abs_err": err["row_tiled"]},
+            "cluster": {"plan": plans["cluster"]._asdict(),
+                        "ms": t["plain_ms"], "ms_runs": t["plain_ms_runs"],
+                        "graph_ms": _graph_ms(launch(plans["cluster"]),
+                                              t["graph_launches"]),
+                        "max_abs_err": err["cluster"]},
+            "graph_launches": t["graph_launches"], "bound_ms": bound,
+            "bound_by": by, "peak": "f32 67 TFLOP/s"})
+    return rows
+
+
 # ddpm_chain_bwd timing cases at the actor's widths (L = 5): one row, a
 # D3PG minibatch, and 128 clusters
 CHAIN_BWD_TIMING = [("control_R1", 1), ("train", 64), ("R1024", 1024)]
@@ -1383,6 +1438,7 @@ def phase_kernel_timing(device) -> dict:
     return {"phase": "kernel_timing", "ddpm_step": rows,
             "ddpm_step_bwd": _ddpm_bwd_timing(device),
             "ddpm_chain": _chain_timing(device),
+            "ddpm_chain_plans": _chain_plans_timing(device),
             "ddpm_chain_bwd": _chain_bwd_timing(device),
             "stacked": _stacked_timing(device),
             "flash_attention": _flash_timing(device),
@@ -4464,6 +4520,7 @@ def kernels_line(check, timing, train, control, data, lm, vector,
     for k, row in chain_rows[1:]:
         if "step_ms" in row:
             chain["at"][k]["step_ms"] = row["step_ms"]
+    chain["plans"] = timing["ddpm_chain_plans"]
     chain["launches_by_plane"] = by_plane
     chain["launches_by_phase"] = {"dist": by_plane["dist"]}
     chain["grids_per_call"] = (control["grids"] + data["grids"]

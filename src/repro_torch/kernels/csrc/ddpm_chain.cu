@@ -69,6 +69,54 @@
 //    bit for bit.  The products sum in another order than the plain
 //    version's x @ w + b, so eps_hat agrees to rounding, not bit for bit.
 //
+// Design at large R (ddpm_chain_kernel_rows).  A controller's slot
+// decision for C cells is one chain over R = C rows: at R = 4096 the work
+// is 1.70 GFLOP at the paper's widths (L = 5) and 3.72 GFLOP at U = 18,
+// L = 10 (~2 MB of bytes), 25.3 and 55.5 us at 67 TFLOP/s: bound by
+// operations.  The cluster design above is not: it splits each dot product
+// over 8 CTAs for 8 rows, so R = 4096 takes 512 clusters, ~34 waves of the
+// 15 that run at once, each staging its slices of every weight and walking
+// all 4L dependent layers, with a DSMEM exchange each, for 8 rows; a
+// weight read from shared memory feeds one FMA (1.90 and 3.79 ms on an
+// H100, 1.3-1.5% of the bound).  So from ops.CHAIN_ROW_TILED_FROM rows
+// (125: past the cluster design's single wave, where it measured slower)
+// a second design runs instead:
+//  * Whole rows per CTA: one CTA owns a tile of 32 rows for the whole
+//    chain, so R = 4096 is 128 CTAs, one wave of the 132 SMs at one CTA an
+//    SM.  No cluster and no DSMEM: a layer waits only for the CTA's own
+//    __syncthreads.
+//  * Each CTA stages every per-step weight once (layer 0's x rows, the
+//    hidden layers, the last layer, the biases: 156-172 KB at the decide
+//    widths), cp.async with one commit group per layer as above.  The
+//    state's rows of w0 serve only s0, which is computed once per row from
+//    device memory (L2); the time embedding's rows serve only te . w0,
+//    the same for every row of a step, computed once per step and column
+//    into shared memory a step ahead.
+//  * Register micro-tiles: each of the 256 threads owns 4 rows x 4
+//    columns of every layer but the last (4 x 2 there).  A warp holds 4 row
+//    groups x 8 column groups, so each k reads one vector of activations
+//    (stored transposed, [k][row]) and one of weights from shared memory,
+//    and every value read feeds 4 FMAs (2 in the last layer).  Activations
+//    sit in a double buffer; the noise of a step is read into registers
+//    at its start.
+//  * The same arithmetic: fmaf on the CUDA cores, one chain per output in
+//    k order, so eps_hat agrees with the cluster design and the plain
+//    version to rounding; the same update (ddpm_update).  The record is a
+//    store per value, and a learner's tiles are those of its single
+//    launch, so both bit-for-bit invariants hold by construction.
+//  On an H100 (CUDA graph, Table 2 / U = 18, L = 10): 0.0872 / 0.174 ms
+//  at R = 4096, 29% / 32% of the bound, and 0.086 / 0.173 ms at any R
+//  down to 64, where the cluster design took 0.0565 / 0.111 ms up to R =
+//  120, then a second wave that passes those times at R = 123 / 125
+//  (PERF.md).  A 16-row tile (2 x 4 micro-tiles) took
+//  0.066 / 0.128 ms up to R = 2112 but needs two waves at R = 4096 (0.133
+//  / 0.257 ms); no path runs R in between, so only the 32-row tile is
+//  built.  A layer averages ~4.4 us, about twice what its FMAs need; the
+//  likely limit is the micro-tiles' shared-memory reads (no profiler
+//  counter on the card's machine tells).  Widths the layout does not
+//  cover (hidden layers over 128, A over 64, one layer) keep the cluster
+//  design.
+//
 // The record and the backward (ddpm_chain_bwd).  With a record pointer
 // the forward also writes, per step and row, x and every hidden layer's
 // output after its ReLU: (L, R, A + hidden widths) f32, ~0.5 MB at the
@@ -178,6 +226,7 @@ constexpr int kMaxRows = 8;
 constexpr int64_t kSmemLimit = 232448;           // H100: 227 KB per block
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // row stride of a weight slice of cs columns: >= cs and = 4 (mod 32)
 __host__ __device__ inline int wstride(int cs) {
@@ -341,6 +390,15 @@ __device__ __forceinline__ float split_sum(float acc) {
   acc += __shfl_xor_sync(0xffffffffu, acc, 2);
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   return acc;
+}
+
+// the fused update of one element, ddpm_step.cu's rounding sequence:
+// c1 x - c2 eps_hat + sigma noise
+__device__ __forceinline__ float ddpm_update(float x, float eps, float nv,
+                                             float c1, float c2,
+                                             float sigma) {
+  const float mu = __fsub_rn(__fmul_rn(c1, x), __fmul_rn(c2, eps));
+  return __fadd_rn(mu, __fmul_rn(sigma, nv));
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -569,9 +627,7 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
           } else {            // the fused update, as ddpm_step.cu
             cp_async_wait<1>();          // N_i has landed
             const float nv = nbuf[(i & 1) * rows * csl + o];
-            const float mu =
-                __fsub_rn(__fmul_rn(c1, xown[o]), __fmul_rn(c2, v));
-            v = __fadd_rn(mu, __fmul_rn(sigma, nv));
+            v = ddpm_update(xown[o], v, nv, c1, c2, sigma);
             xown[o] = v;
             if (last_step)
               out[static_cast<size_t>(row0 + r) * A + c0 + c] = v;
@@ -599,6 +655,349 @@ ddpm_chain_kernel(const ChainNet net, const float* __restrict__ x_L,
   cluster.sync();
 }
 
+// -- the row-tiled forward (large R) ------------------------------------------
+
+constexpr int kRowsTile = 32;       // rows a CTA owns
+constexpr int kTileRows = 4;        // rows of a thread's micro-tile: a tile
+                                    // is 8 row groups, two warps' 4
+constexpr int kHiddenCols = 4;      // columns of a thread's micro-tile in
+constexpr int kLastCols = 2;        // layer 0 and the hidden layers; in the
+                                    // last layer
+constexpr int kRowsMaxHidden = 128; // widest hidden layer, and widest A,
+constexpr int kRowsMaxA = 64;       // that one micro-tile a thread covers
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+struct RowsLayout {   // float offsets into the dynamic shared memory
+  int w[CHAIN_MAX_LAYERS], b[CHAIN_MAX_LAYERS];
+  int ws[CHAIN_MAX_LAYERS];   // row stride of a layer's weights (padded)
+  int h, hrows, hs;           // two transposed activation buffers [k][row]
+  int e;                      // two steps' time-embedding share of layer 0
+  int total;
+};
+
+// every layer's weights, rows padded to a multiple of 4 floats (layer 0:
+// x's rows only; the state's and the time embedding's are read from
+// device memory), every bias, two activation buffers of the widest layer
+// output by rows + 4 floats, and two steps of te . w0[time rows]
+__host__ __device__ inline RowsLayout rows_layout(const ChainNet& net,
+                                                  int rows) {
+  RowsLayout lo = {};
+  const int nl = net.n_layers, A = net.dims[nl];
+  int off = 0;
+  for (int l = 0; l < nl; ++l) {
+    lo.ws[l] = round4(net.dims[l + 1]);
+    lo.w[l] = off;
+    off += (l == 0 ? A : net.dims[l]) * lo.ws[l];
+    lo.b[l] = off;
+    off += lo.ws[l];
+    lo.hrows = imax(lo.hrows, net.dims[l + 1]);
+  }
+  lo.hs = rows + 4;
+  lo.h = off;  off += 2 * lo.hrows * lo.hs;
+  lo.e = off;  off += 2 * round4(net.dims[1]);
+  lo.total = off;
+  return lo;
+}
+
+// which widths the row-tiled layout covers: two layers or more, hidden
+// layers up to 128 wide and A up to 64, so one micro-tile a thread covers
+// any layer of a tile
+bool rows_fit(const ChainNet& net) {
+  const int nl = net.n_layers;
+  if (nl < 2 || net.dims[nl] > kRowsMaxA) return false;
+  for (int l = 1; l < nl; ++l)
+    if (net.dims[l] > kRowsMaxHidden) return false;
+  return true;
+}
+
+int64_t rows_smem_bytes_of(const ChainNet& net, int rows) {
+  return 4 * static_cast<int64_t>(rows_layout(net, rows).total);
+}
+
+template <int N>
+__device__ __forceinline__ void lds(float (&v)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    static_assert(N == 2, "micro-tiles are 2 or 4 wide");
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void sts4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// thread tid's micro-tile (rows r0 .. r0+MR, columns c0 .. c0+NC) in a
+// layer `out` wide; false if it has none.  A warp holds 4 row groups by 8
+// column groups, so a weight row is read as 8 distinct vectors and an
+// activation column as 4; the warps take the tile's two halves of rows
+// times the layer's blocks of 8 column groups.
+template <int MR, int NC>
+__device__ __forceinline__ bool tile_of(int tid, int out, int& r0, int& c0) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ncg = cdiv(out, NC), nb = cdiv(ncg, 8);
+  const int rb = warp / nb, cg = (warp - rb * nb) * 8 + (lane & 7);
+  r0 = (rb * 4 + (lane >> 3)) * MR;
+  c0 = cg * NC;
+  return rb < 2 && cg < ncg;
+}
+
+// acc = h . w over k < K for an MR x NC micro-tile: h transposed ([k][row],
+// stride hs) and w row-major (stride ws), both in shared memory; one fmaf
+// chain per output, k in order.  Each activation read feeds NC FMAs and
+// each weight read MR.
+template <int MR, int NC>
+__device__ __forceinline__ void tile_dot(float (&acc)[MR][NC], const float* h,
+                                         int hs, const float* w, int ws,
+                                         int K) {
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float hv[MR], wv[NC];
+    lds<MR>(hv, h + k * hs);
+    lds<NC>(wv, w + k * ws);
+#pragma unroll
+    for (int i = 0; i < MR; ++i)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(hv[i], wv[j], acc[i][j]);
+  }
+}
+
+// one step's te . w0[time rows] for layer 0's columns, into e (threads
+// c < dims[1], one column each, t in order)
+__device__ __forceinline__ void time_share(float* e, const float* te_l,
+                                           const float* w0t, int T, int ow,
+                                           int tid) {
+  for (int c = tid; c < ow; c += kThreads) {
+    float a = 0.f;
+    for (int t = 0; t < T; ++t)
+      a = fmaf(__ldg(te_l + t), __ldg(w0t + static_cast<size_t>(t) * ow + c),
+               a);
+    e[c] = a;
+  }
+}
+
+// The row-tiled plan: one CTA owns RT = 32 rows for the whole chain (no
+// cluster, no DSMEM), holds every per-step weight in its shared memory, and
+// each thread computes an MR x NC micro-tile of every layer in registers.
+__global__ void __launch_bounds__(kThreads, 1)
+ddpm_chain_kernel_rows(const ChainNet net, const float* __restrict__ x_L,
+                       const float* __restrict__ state,
+                       const float* __restrict__ noises,
+                       const float* __restrict__ coef,
+                       const float* __restrict__ te, float* __restrict__ out,
+                       float* __restrict__ record, int R, int L, int S,
+                       int T) {
+  constexpr int RT = kRowsTile, MR = kTileRows;
+  constexpr int NH = kHiddenCols, NL = kLastCols;
+  extern __shared__ float smem[];
+  const int row0 = static_cast<int>(blockIdx.x) * RT;
+  const int nrows = min(RT, R - row0);
+  const int nl = net.n_layers;
+  const int A = net.dims[nl], O0 = net.dims[1];
+  // the learner (grid y), as in ddpm_chain_kernel
+  const size_t lrn = blockIdx.y;
+  x_L += lrn * R * A;
+  state += lrn * R * S;
+  noises += lrn * L * R * A;
+  out += lrn * R * A;
+  const int wrec = record_width(net);
+  if (record) record += lrn * L * R * wrec;
+  const RowsLayout lo = rows_layout(net, RT);
+  const int tid = threadIdx.x, hs = lo.hs, hbuf = lo.hrows * lo.hs;
+  const float* w0g = net.w[0] + lrn * net.w_lstride[0];
+
+  // 1. every layer's weights and bias, one cp.async group a layer (pad
+  //    columns zero)
+  for (int l = 0; l < nl; ++l) {
+    const int in = l == 0 ? A : net.dims[l], ow = net.dims[l + 1];
+    const int ws = lo.ws[l];
+    float* wl = smem + lo.w[l];
+    const float* wg = l == 0 ? w0g : net.w[l] + lrn * net.w_lstride[l];
+    if (ow % 4 == 0 && (reinterpret_cast<uintptr_t>(wg) & 15) == 0) {
+      const int nq = ow / 4;             // 16 bytes a copy
+      for (int e = tid; e < in * nq; e += kThreads) {
+        const int k = e / nq, q = 4 * (e - k * nq);
+        cp_async16(wl + k * ws + q, wg + static_cast<size_t>(k) * ow + q);
+      }
+    } else {
+      for (int e = tid; e < in * ow; e += kThreads) {
+        const int k = e / ow, c = e - k * ow;
+        cp_async4(wl + k * ws + c, wg + static_cast<size_t>(k) * ow + c);
+      }
+      for (int e = tid; e < in * (ws - ow); e += kThreads) {
+        const int k = e / (ws - ow);
+        wl[k * ws + ow + e - k * (ws - ow)] = 0.f;
+      }
+    }
+    const float* bg = net.b[l] + lrn * net.b_lstride[l];
+    for (int c = tid; c < ws; c += kThreads) {
+      if (c < ow)
+        cp_async4(smem + lo.b[l] + c, bg + c);
+      else
+        smem[lo.b[l] + c] = 0.f;
+    }
+    cp_async_commit();
+  }
+
+  // 2. the last layer's micro-tile holds x in registers: x_L, into input
+  //    buffer 0 (x's rows) for layer 0
+  float* hb = smem + lo.h;
+  int r0l = 0, c0l = 0;
+  const bool own_x = tile_of<MR, NL>(tid, A, r0l, c0l);
+  float xr[MR][NL];
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      const int r = r0l + i, c = c0l + j;
+      xr[i][j] = own_x && r < nrows && c < A
+                     ? x_L[static_cast<size_t>(row0 + r) * A + c]
+                     : 0.f;
+      if (own_x && c < A) hb[c * hs + r] = xr[i][j];
+    }
+
+  // 3. s0 = state . w0[A:A+S] + b0 for layer 0's micro-tile, once, with
+  //    the state's rows of w0 read from device memory (L2)
+  int r00 = 0, c00 = 0;
+  const bool own0 = tile_of<MR, NH>(tid, O0, r00, c00);
+  float s0[MR][NH];
+#pragma unroll
+  for (int i = 0; i < MR; ++i)
+#pragma unroll
+    for (int j = 0; j < NH; ++j) s0[i][j] = 0.f;
+  if (own0) {
+    const float* ws0 = w0g + static_cast<size_t>(A) * O0;
+    for (int k = 0; k < S; ++k) {
+      float hv[MR], wv[NH];
+#pragma unroll
+      for (int i = 0; i < MR; ++i)
+        hv[i] = r00 + i < nrows
+                    ? __ldg(state + static_cast<size_t>(row0 + r00 + i) * S +
+                            k)
+                    : 0.f;
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+        wv[j] = c00 + j < O0
+                    ? __ldg(ws0 + static_cast<size_t>(k) * O0 + c00 + j)
+                    : 0.f;
+#pragma unroll
+      for (int i = 0; i < MR; ++i)
+#pragma unroll
+        for (int j = 0; j < NH; ++j) s0[i][j] = fmaf(hv[i], wv[j], s0[i][j]);
+    }
+    const float* b0 = net.b[0] + lrn * net.b_lstride[0];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const float b = c00 + j < O0 ? __ldg(b0 + c00 + j) : 0.f;
+#pragma unroll
+      for (int i = 0; i < MR; ++i) s0[i][j] += b;
+    }
+  }
+  // step 0's share of the time embedding (buffer 0)
+  const float* w0t = w0g + static_cast<size_t>(A + S) * O0;
+  time_share(smem + lo.e, te + static_cast<size_t>(L - 1) * T, w0t, T, O0,
+             tid);
+  cp_async_wait_dyn(nl - 1);           // layer 0's group has landed
+  __syncthreads();
+
+  int g = 0;                           // layers run; input in buffer g & 1
+  for (int i = 0; i < L; ++i) {
+    const int l_rev = L - 1 - i;
+    const bool last_step = i == L - 1;
+    const float c1 = coef[3 * l_rev], c2 = coef[3 * l_rev + 1],
+                sigma = coef[3 * l_rev + 2];
+    float* rec_i = record ? record + static_cast<size_t>(i) * R * wrec
+                          : nullptr;
+    // this step's noise for x's micro-tile, read now and used by the last
+    // layer; the record's x_i
+    float nz[MR][NL];
+#pragma unroll
+    for (int ii = 0; ii < MR; ++ii)
+#pragma unroll
+      for (int j = 0; j < NL; ++j) {
+        const int r = r0l + ii, c = c0l + j;
+        const bool v = own_x && r < nrows && c < A;
+        nz[ii][j] = v ? __ldg(noises + (static_cast<size_t>(i) * R + row0 +
+                                        r) * A + c)
+                      : 0.f;
+        if (v && rec_i)
+          rec_i[static_cast<size_t>(row0 + r) * wrec + c] = xr[ii][j];
+      }
+    // the next step's share of the time embedding, into the other buffer
+    if (!last_step)
+      time_share(smem + lo.e + ((i + 1) & 1) * round4(O0),
+                 te + static_cast<size_t>(l_rev - 1) * T, w0t, T, O0, tid);
+    const float* e = smem + lo.e + (i & 1) * round4(O0);
+    int rof = A;                       // the record column of the output
+
+#pragma unroll
+    for (int l = 0; l < CHAIN_MAX_LAYERS; ++l) {
+      if (l >= nl) break;
+      const int ow = net.dims[l + 1], in = l == 0 ? A : net.dims[l];
+      const float* hin = hb + (g & 1) * hbuf;
+      float* hnx = hb + ((g + 1) & 1) * hbuf;
+      const float* wl = smem + lo.w[l];
+      if (l < nl - 1) {
+        int r0 = r00, c0 = c00;
+        const bool own = l == 0 ? own0 : tile_of<MR, NH>(tid, ow, r0, c0);
+        if (own) {
+          float acc[MR][NH];
+          tile_dot<MR, NH>(acc, hin + r0, hs, wl + c0, lo.ws[l], in);
+#pragma unroll
+          for (int j = 0; j < NH; ++j) {
+            const int c = c0 + j;
+            if (c >= ow) break;
+            const float b = l == 0 ? e[c] : smem[lo.b[l] + c];
+            float v[MR];
+#pragma unroll
+            for (int ii = 0; ii < MR; ++ii) {
+              v[ii] = fmaxf(l == 0 ? s0[ii][j] + (acc[ii][j] + b)
+                                   : acc[ii][j] + b,
+                            0.f);
+              if (rec_i && r0 + ii < nrows)
+                rec_i[static_cast<size_t>(row0 + r0 + ii) * wrec + rof + c] =
+                    v[ii];
+            }
+            sts4(hnx + c * hs + r0, v);
+          }
+        }
+      } else if (own_x) {              // the last layer and the update
+        float acc[MR][NL];
+        tile_dot<MR, NL>(acc, hin + r0l, hs, wl + c0l, lo.ws[l], in);
+#pragma unroll
+        for (int j = 0; j < NL; ++j) {
+          const int c = c0l + j;
+          if (c >= A) break;
+          const float b = smem[lo.b[l] + c];
+          float v[MR];
+#pragma unroll
+          for (int ii = 0; ii < MR; ++ii) {
+            xr[ii][j] = ddpm_update(xr[ii][j], acc[ii][j] + b, nz[ii][j], c1,
+                                    c2, sigma);
+            v[ii] = xr[ii][j];
+            if (last_step && r0l + ii < nrows)
+              out[static_cast<size_t>(row0 + r0l + ii) * A + c] = v[ii];
+          }
+          sts4(hnx + c * hs + r0l, v);
+        }
+      }
+      // the next layer's weights have landed (first step only)
+      if (i == 0 && l + 1 < nl) cp_async_wait_dyn(nl - 2 - l);
+      __syncthreads();
+      rof += ow;
+      ++g;
+    }
+  }
+}
+
 // the learner axis: 1 to 65535 weight sets (grid y), and with more than
 // one, every layer's strides at least its own size (no two learners share
 // a weight)
@@ -619,8 +1018,6 @@ int64_t smem_bytes_of(const ChainNet& net, int cluster, int rows) {
 }
 
 // -- the backward ---------------------------------------------------------------
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 struct BwdLayout {    // float offsets into the dynamic shared memory,
                       // after the two 8-byte mbarriers at offset 0
@@ -961,10 +1358,12 @@ __global__ void ddpm_chain_bwd_reduce_kernel(const float* __restrict__ part,
 // the unstacked shapes).  record: null, or (B, L, R, record_width) f32
 // that receives each step's x and hidden outputs for
 // ddpm_chain_bwd_launch.  cluster, rows and smem_bytes come from
-// ops.chain_plan for one learner's R rows; the grid runs every learner's
-// clusters side by side (grid y).  started[0] = grids launched,
-// started[1] = clusters in them.  Returns the CUDA error code of
-// the launch (0 on success).
+// ops.chain_plan for one learner's R rows: cluster 2, 4 or 8 runs
+// ddpm_chain_kernel (clusters of up to 8 rows), cluster 1 the row-tiled
+// ddpm_chain_kernel_rows (one CTA per 32 rows); the grid runs every
+// learner's clusters or tiles side by side (grid y).  started[0] = grids
+// launched, started[1] = clusters in them (0 for the row-tiled plan).
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
                                  const void* state, const void* noises,
                                  const void* coef, const void* te, void* out,
@@ -975,30 +1374,37 @@ extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
   started[0] = started[1] = 0;
   if (R <= 0) return 0;
   const int nl = net.n_layers;
+  const bool tiled = cluster == 1;
   bool ok = nl >= 1 && nl <= CHAIN_MAX_LAYERS && L >= 1 && S >= 0 &&
-            T >= 0 && T <= kThreads && rows >= 1 && rows <= kMaxRows &&
-            (cluster == 2 || cluster == 4 || cluster == 8) &&
-            R <= (int64_t)1 << 30 && L <= (int64_t)1 << 30;
+            T >= 0 && R <= (int64_t)1 << 30 && L <= (int64_t)1 << 30;
   for (int l = 0; ok && l <= nl; ++l) ok = net.dims[l] >= 1;
   ok = ok && net.dims[0] == net.dims[nl] + S + T;
   ok = ok && learners_ok(net);
-  ok = ok && smem_bytes <= kSmemLimit &&
-       smem_bytes == smem_bytes_of(net, cluster, rows);
+  if (tiled)
+    ok = ok && rows == kRowsTile && rows_fit(net) &&
+         smem_bytes == rows_smem_bytes_of(net, rows);
+  else
+    ok = ok && T <= kThreads && rows >= 1 && rows <= kMaxRows &&
+         (cluster == 2 || cluster == 4 || cluster == 8) &&
+         smem_bytes == smem_bytes_of(net, cluster, rows);
+  ok = ok && smem_bytes <= kSmemLimit;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
   int dev = 0;
   cudaGetDevice(&dev);
-  static unsigned configured = 0;     // one bit per device
-  if (dev < 32 && !(configured & (1u << dev))) {
+  static unsigned configured[2] = {0, 0};   // one bit per device and plan
+  if (dev < 32 && !(configured[tiled] & (1u << dev))) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ddpm_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tiled ? reinterpret_cast<const void*>(ddpm_chain_kernel_rows)
+              : reinterpret_cast<const void*>(ddpm_chain_kernel),
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemLimit));
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured |= 1u << dev;
+    configured[tiled] |= 1u << dev;
   }
-  const int clusters = static_cast<int>((R + rows - 1) / rows);
+  const int blocks = static_cast<int>((R + rows - 1) / rows);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster),
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks * (tiled ? 1 : cluster)),
                      static_cast<unsigned>(net.learners));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
@@ -1009,18 +1415,25 @@ extern "C" int ddpm_chain_launch(ChainNet net, const void* x_L,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(
-      &cfg, ddpm_chain_kernel, net, static_cast<const float*>(x_L),
-      static_cast<const float*>(state), static_cast<const float*>(noises),
-      static_cast<const float*>(coef), static_cast<const float*>(te),
-      static_cast<float*>(out), static_cast<float*>(record),
-      static_cast<int>(R), static_cast<int>(L), static_cast<int>(S),
-      static_cast<int>(T), rows);
+  cfg.numAttrs = tiled ? 0 : 1;
+  const float* xp = static_cast<const float*>(x_L);
+  const float* sp = static_cast<const float*>(state);
+  const float* np = static_cast<const float*>(noises);
+  const float* cp = static_cast<const float*>(coef);
+  const float* tp = static_cast<const float*>(te);
+  float* op = static_cast<float*>(out);
+  float* rp = static_cast<float*>(record);
+  const int r = static_cast<int>(R), l = static_cast<int>(L),
+            s = static_cast<int>(S), t = static_cast<int>(T);
+  cudaError_t e =
+      tiled ? cudaLaunchKernelEx(&cfg, ddpm_chain_kernel_rows, net, xp, sp,
+                                 np, cp, tp, op, rp, r, l, s, t)
+            : cudaLaunchKernelEx(&cfg, ddpm_chain_kernel, net, xp, sp, np, cp,
+                                 tp, op, rp, r, l, s, t, rows);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   started[0] = 1;
-  started[1] = clusters;
+  started[1] = tiled ? 0 : blocks;
   return 0;
 }
 

@@ -10,7 +10,9 @@ starts: ``ssd_scan`` runs one grid for a single chunk and three (chunk
 states, state recurrence, outputs) for more, and counts one either way.
 ``GRIDS[name]`` adds up the grids that the C entry points report they
 started, and ``CLUSTERS[name]`` the thread-block clusters of the two
-chain kernels' grids.  ``reset_launches`` zeroes all three.
+chain kernels' grids.  ``ddpm_chain`` has two plans (``chain_plan``): a
+launch of the row-tiled plan counts one grid and no cluster, and also one
+in ``ROW_TILED["ddpm_chain"]``.  ``reset_launches`` zeroes all four.
 
 ``ddpm_step`` is differentiable in x and eps_hat: its
 ``torch.autograd.Function`` (``DdpmStep``) launches ``ddpm_step_bwd`` in
@@ -21,9 +23,10 @@ forward with its record of activations and, in the backward, one
 forward-only and refuse grad-enabled inputs.
 
 ``flash_plan`` (which kernel a dtype takes), ``ssd_plan`` (chunks,
-scratch, shared memory), ``chain_plan`` and ``chain_bwd_plan`` (cluster
-size, rows per cluster, shared memory) hold the host-side choices of a
-launch, so the CPU tests reach them.
+scratch, shared memory), ``chain_plan`` (the cluster plan or the
+row-tiled one; cluster size, rows per cluster or tile, shared memory) and
+``chain_bwd_plan`` hold the host-side choices of a launch, so the CPU
+tests reach them.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ LAUNCHES = {"ddpm_step": 0, "ddpm_step_bwd": 0, "ddpm_chain": 0,
             "ddpm_chain_bwd": 0, "flash_attention": 0, "ssd_scan": 0}
 GRIDS = dict(LAUNCHES)
 CLUSTERS = {"ddpm_chain": 0, "ddpm_chain_bwd": 0}
+ROW_TILED = {"ddpm_chain": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
@@ -94,7 +98,7 @@ SMEM_LIMIT = 232448          # H100: 227 KB of shared memory per block
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GRIDS, CLUSTERS):
+    for counts in (LAUNCHES, GRIDS, CLUSTERS, ROW_TILED):
         for k in counts:
             counts[k] = 0
 
@@ -266,12 +270,29 @@ def ddpm_step_bwd(g, c1: float, c2: float):
 # -- ddpm_chain -------------------------------------------------------------------
 
 class ChainPlan(NamedTuple):
-    cluster: int       # CTAs per cluster, each owning a slice of every layer
-    rows: int          # rows of x per cluster
+    cluster: int       # CTAs per cluster, each owning a slice of every
+                       # layer; 1: the row-tiled plan (no cluster)
+    rows: int          # rows of x per cluster, or per CTA when row-tiled
     smem_bytes: int    # dynamic shared memory of one CTA
+
+    @property
+    def row_tiled(self) -> bool:
+        return self.cluster == 1
 
 
 _CHAIN_THREADS, _CHAIN_MAX_ROWS, _CHAIN_CLUSTERS = 256, 8, (2, 4, 8)
+# The row-tiled plan (ddpm_chain_kernel_rows): a CTA owns 32 whole rows,
+# holds every per-step weight, and covers any layer with one micro-tile a
+# thread, so hidden layers up to 128 wide and A up to 64.
+_ROWS_TILE, _ROWS_MAX_HIDDEN, _ROWS_MAX_A = 32, 128, 64
+# From how many rows the row-tiled plan runs, as measured on an H100 at
+# both decide widths (CUDA graph, Table 2 / U = 18, L = 10; PERF.md): 15
+# clusters of 8 CTAs run at once, so the cluster plan takes 0.0565 / 0.111
+# ms up to R = 120; from R = 121 a 16th cluster runs in a second wave whose
+# time grows with its rows, to 0.110 / 0.218 ms at R = 128.  The row-tiled
+# plan takes 0.086 / 0.173 ms at any R up to 4096, and passes the cluster
+# plan at R = 123 / 125.
+CHAIN_ROW_TILED_FROM = 125
 
 
 def _chain_smem_bytes(dims, cluster: int, rows: int) -> int:
@@ -288,6 +309,19 @@ def _chain_smem_bytes(dims, cluster: int, rows: int) -> int:
     cs0, csl = _cdiv(dims[1], cluster), _cdiv(dims[-1], cluster)
     total += (rows * cs0 + 2 * rows * max(dims) + 3 * rows * csl
               + 2 * _CHAIN_THREADS)
+    return 4 * total
+
+
+def _chain_rows_smem_bytes(dims, rows: int) -> int:
+    """The shared-memory layout that ddpm_chain_kernel_rows carves (the
+    launch refuses bytes that disagree): every layer's weights (layer 0
+    only x's rows) and bias, each row padded to a multiple of 4 floats; two
+    transposed activation buffers of the widest layer output by rows + 4
+    floats; two steps' time-embedding share of layer 0."""
+    total = 0
+    for l, (i, o) in enumerate(zip(dims[:-1], dims[1:])):
+        total += ((dims[-1] if l == 0 else i) + 1) * _cdiv(o, 4) * 4
+    total += 2 * max(dims[1:]) * (rows + 4) + 2 * _cdiv(dims[1], 4) * 4
     return 4 * total
 
 
@@ -337,12 +371,32 @@ def _pick_chain_plan(name: str, smem_bytes, dims, R: int,
     return ChainPlan(cluster, rows, smem_bytes(dims, cluster, rows))
 
 
+def _row_tiled_plan(dims) -> Optional[ChainPlan]:
+    """The row-tiled plan for these widths, or None where its layout does
+    not cover them."""
+    if (len(dims) < 3 or max(dims[1:-1]) > _ROWS_MAX_HIDDEN
+            or dims[-1] > _ROWS_MAX_A):
+        return None
+    smem = _chain_rows_smem_bytes(dims, _ROWS_TILE)
+    return ChainPlan(1, _ROWS_TILE, smem) if smem <= SMEM_LIMIT else None
+
+
+def _cluster_chain_plan(dims, R: int, dtype=torch.float32) -> ChainPlan:
+    """``ddpm_chain``'s cluster plan at any R (``_pick_chain_plan``)."""
+    return _pick_chain_plan("ddpm_chain", _chain_smem_bytes, dims, R, dtype)
+
+
 @functools.lru_cache(maxsize=256)
 def chain_plan(dims: tuple, R: int, dtype=torch.float32) -> ChainPlan:
     """Launch choices of ``ddpm_chain`` for an MLP of widths ``dims`` (in,
-    hidden..., A) over R rows (``_pick_chain_plan``).  Raises when even 8
-    CTAs cannot hold the weights, or for a dtype other than float32."""
-    return _pick_chain_plan("ddpm_chain", _chain_smem_bytes, dims, R, dtype)
+    hidden..., A) over R rows: from ``CHAIN_ROW_TILED_FROM`` rows on, the
+    row-tiled plan where its layout covers the widths
+    (``_row_tiled_plan``), else the cluster plan.  Raises when even 8 CTAs
+    cannot hold the weights, or for a dtype other than float32."""
+    plan = _cluster_chain_plan(dims, R, dtype)
+    if R >= CHAIN_ROW_TILED_FROM:
+        return _row_tiled_plan(dims) or plan
+    return plan
 
 
 @functools.lru_cache(maxsize=256)
@@ -455,13 +509,14 @@ def _chain_net_of(ws, bs, dims) -> _ChainNet:
 
 
 def _chain_fwd(ws, bs, x_L, state, noises, coef, te, record: bool,
-               dims=None):
+               dims=None, plan=None):
     """x_0, and with ``record`` also the ((B,) L, R, ``chain_record_width``)
     record of every step's x and hidden outputs; one ``ddpm_chain`` launch
     for CUDA tensors (all B learners of stacked weights in it), the plain
     version for CPU tensors (any float dtype there: the f64 gradcheck).
     ``dims``: the widths ``_check_chain`` returned, or None to check
-    here."""
+    here.  ``plan``: ``chain_plan``'s unless given (a card test or timing
+    that holds the two plans side by side)."""
     if x_L.device.type == "cpu":
         plain = (ref.ddpm_chain_stacked_ref if ws[0].dim() == 3
                  else ref.ddpm_chain_ref)
@@ -473,7 +528,8 @@ def _chain_fwd(ws, bs, x_L, state, noises, coef, te, record: bool,
     _check_cuda("ddpm_chain", x_L, state, noises, coef, te, *ws, *bs)
     lead = tuple(x_L.shape[:-2])
     R, L = x_L.shape[-2], coef.shape[0]
-    plan = chain_plan(dims, R)
+    if plan is None:
+        plan = chain_plan(dims, R)
     out = torch.empty_like(x_L)
     rec = (torch.empty(lead + (L, R, chain_record_width(dims)),
                        dtype=x_L.dtype, device=x_L.device)
@@ -491,6 +547,7 @@ def _chain_fwd(ws, bs, x_L, state, noises, coef, te, record: bool,
     LAUNCHES["ddpm_chain"] += 1
     GRIDS["ddpm_chain"] += started[0]
     CLUSTERS["ddpm_chain"] += started[1]
+    ROW_TILED["ddpm_chain"] += plan.row_tiled
     return (out, rec) if record else out
 
 

@@ -461,6 +461,103 @@ def test_ddpm_chain_record_leaves_the_forward_as_it_was(cuda, name):
     assert torch.allclose(rec, rec_plain, rtol=2e-5, atol=2e-5)
 
 
+# the row-tiled plan (R >= ops.CHAIN_ROW_TILED_FROM): both decide cells'
+# widths at R = 4096, the threshold (R = 125: a tile 3 rows short), a last
+# tile one row short (R = 4095), and widths that leave threads of a tile
+# without columns (90, 30; 100, 5)
+ROW_TILED_CASES = [
+    ("table2_R4096", (86, 128, 128, 128, 20), 50, 4096, 5),
+    ("u18l10_R4096", (134, 128, 128, 128, 36), 82, 4096, 10),
+    ("table2_R125", (86, 128, 128, 128, 20), 50, 125, 5),
+    ("u18l10_R4095", (134, 128, 128, 128, 36), 82, 4095, 10),
+    ("odd_widths_R200", (53, 90, 90, 90, 30), 7, 200, 7),
+    ("empty_slice_R129", (25, 100, 100, 5), 4, 129, 3)]
+
+
+@pytest.mark.parametrize("name,dims,S,R,L", ROW_TILED_CASES)
+def test_ddpm_chain_row_tiled_matches_plain(cuda, name, dims, S, R, L):
+    """The row-tiled plan: one launch of one grid and no cluster, counted
+    in ``ROW_TILED``; x_0 within 2e-5 of the plain version and within
+    ``chain_exact_tol`` of the exact f64 chain; with a record, x_0 bit for
+    bit as without one and the record within 2e-5 of the plain one's."""
+    cs = _chip_smoke()
+    c = cs._chain_inputs(dims, S, R, L, "paper", cuda, 450 + R)
+    args = cs._chain_args(c)
+    assert ops.chain_plan(dims, R).row_tiled
+    ops.reset_launches()
+    out = ops.ddpm_chain(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ddpm_chain"] == ops.GRIDS["ddpm_chain"] == 1
+    assert ops.ROW_TILED["ddpm_chain"] == 1
+    assert ops.CLUSTERS["ddpm_chain"] == 0
+    expect, rec_plain = ref.ddpm_chain_ref(*args, record=True)
+    assert out.shape == (R, dims[-1]) and bool(torch.isfinite(out).all())
+    assert torch.allclose(out, expect, rtol=2e-5, atol=2e-5)
+    exact = cs.chain_exact(*args)
+    assert cs._tol_ratio(out, exact, cs.chain_exact_tol(L)) <= 1.0
+    x0, rec = ops.ddpm_chain(*args, record=True)
+    torch.cuda.synchronize()
+    assert torch.equal(x0, out)
+    assert rec.shape == (L, R, ops.chain_record_width(dims))
+    assert torch.equal(rec[0, :, :dims[-1]], c["x_L"])
+    assert torch.allclose(rec, rec_plain, rtol=2e-5, atol=2e-5)
+
+
+def test_row_tiled_counter_counts_its_launches_only(cuda):
+    """``ROW_TILED`` counts one a launch from ``CHAIN_ROW_TILED_FROM`` rows
+    on and none below; ``CLUSTERS`` counts the cluster plan's only."""
+    cs = _chip_smoke()
+    for R in (4096, 64, ops.CHAIN_ROW_TILED_FROM,
+              ops.CHAIN_ROW_TILED_FROM - 1):
+        tiled = R >= ops.CHAIN_ROW_TILED_FROM
+        args = cs._chain_args(cs._chain_inputs(cs.CTRL_DIMS, 50, R, 5,
+                                               "paper", cuda, 9))
+        ops.reset_launches()
+        for _ in range(2):
+            ops.ddpm_chain(*args)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["ddpm_chain"] == ops.GRIDS["ddpm_chain"] == 2
+        assert ops.ROW_TILED["ddpm_chain"] == (2 if tiled else 0)
+        assert ops.CLUSTERS["ddpm_chain"] == (0 if tiled else 2 * -(-R // 8))
+
+
+def test_row_tiled_launch_refuses_what_its_layout_does_not_take(cuda):
+    """The C launch recomputes the row-tiled layout: bytes that disagree,
+    a tile other than 32 rows, and widths the layout does not cover are
+    refused."""
+    cs = _chip_smoke()
+    for dims, S, rows, delta in (((86, 128, 128, 128, 20), 50, 32, 4),
+                                 ((86, 128, 128, 128, 20), 50, 16, 0),
+                                 ((86, 256, 256, 20), 50, 32, 0)):
+        c = cs._chain_inputs(dims, S, 256, 5, "paper", cuda, 10)
+        plan = ops.ChainPlan(1, rows,
+                             ops._chain_rows_smem_bytes(dims, rows) + delta)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._chain_fwd(list(c["net"].w), list(c["net"].b), c["x_L"],
+                           c["state"], c["noises"], c["coef"], c["te"],
+                           False, None, plan)
+
+
+@pytest.mark.parametrize("dims,S,L", [((86, 128, 128, 128, 20), 50, 5),
+                                      ((134, 128, 128, 128, 36), 82, 10)])
+def test_stacked_row_tiled_chain_matches_single_launches(cuda, dims, S, L):
+    """Two stacked learners at R = 4096 in one row-tiled launch: within
+    2e-5 of the plain stacked version, and each learner's x_0 and record
+    bit for bit its single launch's."""
+    nets, net, x_L, state, noises, coef, te, _ = _stacked_case(
+        dims, S, 2, 4096, L, cuda, 1100 + L)
+    ops.reset_launches()
+    x0, rec = ops.ddpm_chain(net, x_L, state, noises, coef, te, record=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ddpm_chain"] == ops.ROW_TILED["ddpm_chain"] == 1
+    x0p = ref.ddpm_chain_stacked_ref(net, x_L, state, noises, coef, te)
+    assert (x0 - x0p).abs().max().item() <= 2e-5 * (1 + x0p.abs().max())
+    for b in range(2):
+        one, rec1 = ops.ddpm_chain(nets[b], x_L[b], state[b], noises[b],
+                                   coef, te, record=True)
+        assert torch.equal(x0[b], one) and torch.equal(rec[b], rec1)
+
+
 def test_ddpm_chain_bwd_rejects_on_the_card(cuda):
     cs = _chip_smoke()
     c = cs._chain_inputs(cs.CTRL_DIMS, 50, 3, 5, "paper", cuda, 5)

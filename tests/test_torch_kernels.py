@@ -203,6 +203,26 @@ CHAIN_PLANS = [
     (((12, 8, 4), 1), (2, 1, None)),
     # 512 wide: 8 CTAs, and only 8 hold the weights
     (((528, 512, 16), 1), (8, 1, None)),
+    # the row-tiled plan (cluster 1) over R = 4096 rows, 32 rows a CTA.
+    # Table 2's decide widths: 21*128 (x's rows of w0, and b0) +
+    # 2*129*128 + 129*20, + 2*128*36 (two activation buffers of 32 + 4) +
+    # 2*128 (two steps' time share) = 47764 floats
+    (((86, 128, 128, 128, 20), 4096), (1, 32, 191056)),
+    # U = 18, L = 10: 37*128 + 2*129*128 + 129*36 + 2*128*36 + 2*128
+    # = 51876 floats
+    (((134, 128, 128, 128, 36), 4096), (1, 32, 207504)),
+    # the threshold (the measured crossover, ops.CHAIN_ROW_TILED_FROM)
+    # takes it too; one row less keeps the clusters
+    (((86, 128, 128, 128, 20), 125), (1, 32, 191056)),
+    (((86, 128, 128, 128, 20), 124), (8, 8, 62556)),
+    # widths 8 does not divide, padded to 4: 31*92 + 2*91*92 + 91*32, +
+    # 2*90*36 + 2*92 = 29172 floats
+    (((53, 90, 90, 90, 30), 4095), (1, 32, 116688)),
+    # widths the row-tiled layout does not cover keep the cluster plan at
+    # R = 4096: A = 256 (the data plane's image chain), a 256-wide hidden
+    # layer
+    (((273, 128, 128, 128, 256), 4096), (8, 8, None)),
+    (((86, 256, 256, 20), 4096), (8, 8, None)),
 ]
 
 
