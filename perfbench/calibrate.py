@@ -3,15 +3,17 @@
     python3 perfbench/calibrate.py --workload <cell> --seeds 1 2 3 \
         [--window 2] [--control] [--fault unchanged|half_batch|altered]
 
-For each seed in one process: the cell's set-up and a short window of
-its traffic, then every number the check compares, for the program and,
-with ``--control``, for the control (the plain reference computed with
-TF32 products in the program's place, one precision below the
-configuration's float32).  ``--fault`` plants one of ``lib.faults`` in
-the program first.  One JSON line per seed on standard output.  The
-limits in ``workloads/<cell>.json`` lie between the largest reading of
-sound runs and the smallest reading of the control or of a fault.  Needs
-the card, as ``run.py`` does.
+For each seed in one process: the cell's set-up and a window of its
+traffic (a serving cell's as long as a run's, ``--window 51``), then
+every number the check compares, for the program and, with
+``--control``, for the control: the plain reference in the program's
+place, computed one precision below the configuration's (TF32 products
+for float32, float8_e4m3fn product inputs for bf16).  ``--fault`` plants
+one of ``lib.faults`` in the program first.  One JSON line per seed on
+standard output; ``check_s`` in it gives the seconds the program's and
+the control's readings took.  The limits in ``workloads/<cell>.json``
+lie between the largest reading of sound runs and the smallest reading
+of the control or of a fault.  Needs the card, as ``run.py`` does.
 """
 import argparse
 import contextlib
@@ -49,13 +51,16 @@ def main(argv=None) -> int:
             t1 = time.perf_counter()
             w = traffic.window(args.window)
         traffic.free()
+        t2 = time.perf_counter()
         row = {"workload": args.workload, "seed": seed, "fault": args.fault,
                "setup_s": t1 - t0, "window": {k: v for k, v in w.items()
-                                              if k != "unit_s"},
+                                              if not isinstance(v, list)},
                "program": traffic.readings(),
                "worst_leaf": getattr(traffic, "where", None)}
+        t3 = time.perf_counter()
         if args.control:
             row["control"] = traffic.readings(control=True)
+        row["check_s"] = [t3 - t2, time.perf_counter() - t3]
         print(json.dumps(row), flush=True)
         del traffic
         gc.collect()

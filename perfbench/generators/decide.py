@@ -10,7 +10,10 @@ frame's first slot the caching decision for all C cells
 the run's seed and the decision's index.  The device is synchronised
 before each decision's clock starts; the clock stops once (b, xi) are in
 host memory.  No env step runs in the window: the world's simulation is
-not the controller's work.
+not the controller's work.  Once the window has closed, on the card, a
+stretch of ``trace_decisions`` decisions under the profiler gives the
+card's time a decision: the union of its events (kernels and copies)
+over the stretch, divided by its decisions.
 
 The check takes decisions drawn from the seed (a reservoir over the
 window) and computes them again with the plain reference from the same
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from perfbench import counts
-from perfbench.lib import check, pool, program
+from perfbench.lib import check, pool, program, trace
 from perfbench.reference import env as renv
 from perfbench.reference import nets as rnets
 from perfbench.reference import t2drl as rt2
@@ -139,9 +142,23 @@ class Traffic:
         slot = [x for j, x in enumerate(lat) if j % self.K]
         return {"seconds": elapsed, "failed": failed, "unit_s": lat,
                 "decisions": len(lat), "frame_decisions": len(frame),
+                "ms_p95": float(np.percentile(lat, 95)),
                 "frame_ms_median": float(np.median(frame)),
                 "slot_ms_median": float(np.median(slot)) if slot else None,
-                "frame_enqueue_ms_median": float(np.median(host[::self.K]))}
+                "frame_enqueue_ms_median": float(np.median(host[::self.K])),
+                **self._card_ms()}
+
+    def _card_ms(self) -> dict:
+        """The card's busy ms a decision over a profiled stretch from a
+        frame's first slot (``card_ms``; ``kernel_ms`` the kernels alone,
+        copies left out); nothing off the card."""
+        if self.device.type != "cuda":
+            return {}
+        run, work = self.stretch()
+        tr = trace.profile(run, self.device)
+        n = work["decisions"]
+        return {"card_ms": 1e3 * tr.busy_s / n,
+                "kernel_ms": 1e3 * sum(s for _, s in tr.kernels) / n}
 
     def stretch(self):
         n = int(self.mix["trace_decisions"])
@@ -154,7 +171,7 @@ class Traffic:
 
     @staticmethod
     def end_to_end(w: dict) -> dict:
-        return {"decision_ms_p95": float(np.percentile(w["unit_s"], 95))}
+        return {"decision_card_ms": w.get("card_ms")}
 
     @staticmethod
     def attempted(w: dict) -> int:

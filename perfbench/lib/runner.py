@@ -88,7 +88,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     if not traced:
         values = {"setup_s": setup_s, **traffic.end_to_end(w)}
         metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
-                   for m in e2e}
+                   for m in e2e if values.get(m["name"]) is not None}
     else:
         run, work = traffic.stretch()
         tr = trace.profile(run, device)

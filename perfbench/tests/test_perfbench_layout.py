@@ -102,11 +102,11 @@ def test_a_new_cell_mix_and_metric_need_no_edit(tmp_path):
                                "traffic": "decide_wide", "chips": 1,
                                "why": "a dummy"})
     next(m for m in bench["end_to_end"]
-         if m["name"] == "decision_ms_p95")["workloads"].append("dummy-cell")
+         if m["name"] == "decision_card_ms")["workloads"].append("dummy-cell")
     bench["per_layer"].append({"name": "dummy_decisions.decide",
                                "unit": "decision", "better": "higher",
                                "source": "program_counter", "layer": "x",
-                               "moves": "decision_ms_p95",
+                               "moves": "decision_card_ms",
                                "workloads": ["dummy-cell"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     torch.set_num_threads(1)
@@ -121,7 +121,7 @@ def test_a_new_cell_mix_and_metric_need_no_edit(tmp_path):
 
 
 # a generator of a mix that needs behaviour of its own: the decide loop,
-# its cell's tail taken as the window's longest decision
+# its cell's end-to-end metric the window's longest decision
 WORST = """
 from pathlib import Path
 
@@ -133,7 +133,7 @@ base = spec.generator("decide", Path(__file__).resolve().parents[1])
 class Traffic(base.Traffic):
     @staticmethod
     def end_to_end(w):
-        return {"decision_ms_p95": max(w["unit_s"])}
+        return {"decision_ms_max": max(w["unit_s"])}
 """
 
 
@@ -153,13 +153,15 @@ def test_a_new_generator_is_a_file_found_by_its_name(tmp_path):
     bench["workloads"].append({"name": "worst-cell", "config": w["config"],
                                "traffic": "decide_worst", "chips": 1,
                                "why": "a dummy"})
-    next(m for m in bench["end_to_end"]
-         if m["name"] == "decision_ms_p95")["workloads"].append("worst-cell")
+    bench["end_to_end"].append({"name": "decision_ms_max", "unit": "ms",
+                                "better": "lower", "bound": 0.25,
+                                "source": "host_clock",
+                                "workloads": ["worst-cell"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     torch.set_num_threads(1)
     out = runner.run_cell("worst-cell", 6, 0.1, False, torch.device("cpu"),
                           time.perf_counter(), root=root, pkg=pkg)
-    assert out["metrics"]["decision_ms_p95"]["value"] == \
+    assert out["metrics"]["decision_ms_max"]["value"] == \
         out["window"]["unit_max"]
     assert out["correct"]
     after = {p: hashlib.sha256(p.read_bytes()).hexdigest()
