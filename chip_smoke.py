@@ -311,6 +311,12 @@ def chain_exact_tol(L: int) -> float:
 PATH_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 LONG_L = 4096                         # a timing shape off the path
 QWEN_HEADS = (14, 2, 64)              # H, Hkv, d_head of qwen2-0.5b
+# DeepSeek-V2/V3's expanded MLA prefill: H = Hkv = 128, q/k of 128 nope +
+# 64 rope, v of 128, and V3's softmax scale (1/sqrt(192) times YaRN's
+# mscale(40, 1)^2); timed at the DeepSeek serve cell's prompt buckets
+MLA_HEADS = (128, 128, 192, 128)
+MLA_SCALE = 192 ** -0.5 * (0.1 * math.log(40) + 1) ** 2
+MLA_TIMING_L = (512, 1024, 2048, 4096)
 MAMBA_SSD = (24, 64, 1, 128, 128)     # H, P, G, N, chunk of mamba2-130m
 # (B, H, Hkv, L, S, D, window, dtype, causal): FLASH_CASES of
 # tests/test_kernels.py, one non-causal case, and qwen2-0.5b's prefills
@@ -530,11 +536,11 @@ def _randn(g, *shape):
     return torch.randn(shape, generator=g)
 
 
-def _flash_inputs(B, H, Hkv, L, S, D, dtype, device, seed):
+def _flash_inputs(B, H, Hkv, L, S, D, dtype, device, seed, DV=None):
     g = torch.Generator().manual_seed(seed)
     return [t.to(device=device, dtype=dtype) for t in
             (_randn(g, B, L, H, D), _randn(g, B, S, Hkv, D),
-             _randn(g, B, S, Hkv, D))]
+             _randn(g, B, S, Hkv, DV or D))]
 
 
 def _ssd_inputs(B, L, H, P, G, N, device, seed):
@@ -1026,20 +1032,22 @@ def ddpm_bwd_bound_ms(n: int, itemsize: int):
 
 
 def flash_bound_ms(B, L, S, H, Hkv, D, itemsize: int, causal: bool = True,
-                   window=None):
+                   window=None, DV=None):
     """Least time for one attention call: q, k, v read once and out written
-    once over HBM against 4*D flops (QK^T and PV) for each (query, key)
-    pair the mask keeps, at the peak of the input type (bf16 tensor cores
-    or f32 CUDA cores); returns (ms, "bytes"|"operations", peak name)."""
+    once over HBM against 2*(D + DV) flops (QK^T and PV; DV, v's head size,
+    defaults to D) for each (query, key) pair the mask keeps, at the peak of
+    the input type (bf16 tensor cores or f32 CUDA cores); returns (ms,
+    "bytes"|"operations", peak name)."""
+    DV = DV or D
     i = np.arange(L)
     hi = np.minimum(S - 1, i) if causal else np.full(L, S - 1)
     lo = np.maximum(0, i - window + 1) if window else np.zeros(L, np.int64)
     pairs = int(np.maximum(0, hi - lo + 1).sum())
-    t_bytes = itemsize * (2 * B * L * H * D + 2 * B * S * Hkv * D) \
+    t_bytes = itemsize * (B * L * H * (D + DV) + B * S * Hkv * (D + DV)) \
         / HBM_BYTES_PER_S
     peak, name = ((BF16_FLOPS, "bf16 989 TFLOP/s") if itemsize == 2
                   else (F32_FLOPS, "f32 67 TFLOP/s"))
-    t_ops = 4 * D * B * H * pairs / peak
+    t_ops = 2 * (D + DV) * B * H * pairs / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", name)
 
@@ -1157,23 +1165,24 @@ def _timed_turns(kernel, plain, library=None) -> dict:
     return out
 
 
-def _sdpa_call(q, k, v):
+def _sdpa_call(q, k, v, scale=None):
     """The library yardstick for flash_attention (timed here only; the port
     never calls it): one ``scaled_dot_product_attention`` with
-    ``is_causal=True`` on the (B, H, L, D) views, with ``enable_gqa=True``
-    where this torch has it, else on K/V heads repeated beforehand."""
+    ``is_causal=True`` (and ``scale``) on the (B, H, L, D) views, with
+    ``enable_gqa=True`` where this torch has it, else on K/V heads repeated
+    beforehand."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     try:
         F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
+                                       scale=scale, enable_gqa=True)
         return (lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)), \
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)), \
             "sdpa(is_causal=True, enable_gqa=True)"
     except TypeError:
         G = q.shape[2] // k.shape[2]
         kr, vr = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
         return (lambda: F.scaled_dot_product_attention(
-            qt, kr, vr, is_causal=True)), \
+            qt, kr, vr, is_causal=True, scale=scale)), \
             "sdpa(is_causal=True) on repeated K/V heads"
 
 
@@ -2076,7 +2085,8 @@ def _shapes(B: int, slots: int, n: int, record_target: bool = False):
 def _add_shapes(total: dict, part: dict) -> None:
     for kern, by in part.items():
         for case, n in by.items():
-            total[kern][case] = total[kern].get(case, 0) + n
+            by_case = total.setdefault(kern, {})
+            by_case[case] = by_case.get(case, 0) + n
 
 
 def _ops_run(dev, fn, shapes: dict, totals: dict) -> tuple:
@@ -3069,15 +3079,30 @@ def _mixer_blocks(cfg, mixer: str) -> list:
             if b.mixer == mixer]
 
 
+def _plain_mla_layers(cfg) -> int:
+    """MLA layers whose head pair the kernel is not built for: each runs
+    the plain products in a prefill, counted in ``ops.PLAIN_PREFILLS``."""
+    return sum((b.mla.qk_nope_dim + b.mla.qk_rope_dim, b.mla.v_head_dim)
+               not in ops.FLASH_HEAD_PAIRS for b in _mixer_blocks(cfg, "mla"))
+
+
 def _prefill_shapes(cfg, L: int) -> dict:
     """The kernel launches one prefill of L positions makes, by kernel and
-    shape: flash_attention (1, L, H, Hkv, D) per attention layer, ssd_scan
-    (1, L, H, P, G, N, chunk) per Mamba2 layer."""
-    out = {"flash_attention": {}, "ssd_scan": {}}
+    shape: flash_attention (1, L, H, Hkv, D) per attention layer,
+    flash_mla (1, L, H, H, (D, DV)) per MLA layer whose head pair the
+    kernel is built for (``_plain_mla_layers`` counts the others),
+    ssd_scan (1, L, H, P, G, N, chunk) per Mamba2 layer."""
+    out = {"flash_attention": {}, "flash_mla": {}, "ssd_scan": {}}
     for b in _mixer_blocks(cfg, "attn"):
         a = b.attn
         key = _shape_key((1, L, a.n_heads, a.n_kv_heads, a.d_head))
         out["flash_attention"][key] = out["flash_attention"].get(key, 0) + 1
+    for b in _mixer_blocks(cfg, "mla"):
+        m = b.mla
+        pair = (m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim)
+        if pair in ops.FLASH_HEAD_PAIRS:
+            key = _shape_key((1, L, m.n_heads, m.n_heads) + pair)
+            out["flash_mla"][key] = out["flash_mla"].get(key, 0) + 1
     for b in _mixer_blocks(cfg, "ssm"):
         c = b.ssm
         key = _shape_key((1, L, c.n_heads, c.head_dim, c.n_groups,
@@ -3089,7 +3114,8 @@ def _prefill_shapes(cfg, L: int) -> dict:
 def _add_prefill(total: dict, cfg, L: int, n: int = 1) -> None:
     for kern, by in _prefill_shapes(cfg, L).items():
         for key, c in by.items():
-            total[kern][key] = total[kern].get(key, 0) + n * c
+            by_key = total.setdefault(kern, {})
+            by_key[key] = by_key.get(key, 0) + n * c
 
 
 def _logits_vs_plain(fn, what: str) -> dict:
@@ -3128,7 +3154,8 @@ def _check_launches(dev, got: dict, want: dict, totals: dict,
         require(got == n, f"{what}: launched {got}, expected {n}")
     for kern, by in want.items():
         _add_shapes(totals["by_shape"], {kern: by})
-        totals["grids"][kern] += ops.GRIDS[kern]
+        totals["grids"][kern] = totals["grids"].get(kern, 0) \
+            + ops.GRIDS[kern]
 
 
 def _serve_arch(dev, name, cfg, params, rng, n_requests, max_prompt,
@@ -3146,17 +3173,23 @@ def _serve_arch(dev, name, cfg, params, rng, n_requests, max_prompt,
         done, stats = eng.run(reqs)
         sync(dev)
         got = dict(ops.LAUNCHES)
+        plain = ops.PLAIN_PREFILLS["mla"]
         finite = fin.all_finite()
     require(finite, f"{name}: non-finite logits in Engine.run")
     require(sorted(done) == list(range(n_requests)) and all(
         len(done[i]) == _generated(len(p), mnt, max_seq)
         for i, p, mnt in reqs),
         f"{name}: generated lengths {[len(v) for v in done.values()]}")
-    want = {"flash_attention": {}, "ssd_scan": {}}
+    want = {"flash_attention": {}, "flash_mla": {}, "ssd_scan": {}}
     buckets = [min(_bucket(len(p)), max_seq) for _, p, _ in reqs]
     for Lb in buckets:
         _add_prefill(want, cfg, Lb)
     _check_launches(dev, got, want, totals, f"{name} Engine.run")
+    want_plain = _plain_mla_layers(cfg) * n_requests
+    require(plain == want_plain, f"{name}: {plain} MLA prefills ran the "
+            f"plain products, expected {want_plain}")
+    totals["plain_mla_prefills"] = totals.get("plain_mla_prefills", 0) \
+        + plain
     decoded = sum(len(v) - 1 for v in done.values())
     out = {"requests": n_requests, "buckets": buckets,
            "prompt_lengths": [len(p) for _, p, _ in reqs],
@@ -3166,6 +3199,7 @@ def _serve_arch(dev, name, cfg, params, rng, n_requests, max_prompt,
            / stats["prefills"],
            "decode_tokens_per_s": decoded / stats["decode_s"],
            "wall_s": stats["wall_s"], "launches": got,
+           "plain_mla_prefills": plain,
            "kernel_vs_plain_prefill": _prefill_kernel_vs_plain(
                eng, reqs[0][1])}
     del eng
@@ -3265,11 +3299,17 @@ def phase_lm_archs(device, make: str = "make_full", n_requests: int = 4,
     whisper_prefill and whisper_decode.  Launches exact (one
     flash_attention per attention layer and one ssd_scan per Mamba2 layer
     a prefill); one prefill against the plain versions; prefill ms,
-    decode tokens/s, weight bytes, and the cuts (``reduced``)."""
+    decode tokens/s, weight bytes, and the cuts (``reduced``).  MLA layers
+    launch ``flash_mla`` at the head pair the kernel is built for
+    (deepseek-v2's at full width); at other widths (the smoke configs,
+    deepseek-v3's here) their prefills run the plain products, each
+    counted in ``plain_mla_prefills``."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    totals = {"by_shape": {"flash_attention": {}, "ssd_scan": {}},
-              "grids": {"flash_attention": 0, "ssd_scan": 0}}
+    totals = {"by_shape": {"flash_attention": {}, "flash_mla": {},
+                           "ssd_scan": {}},
+              "grids": {"flash_attention": 0, "flash_mla": 0, "ssd_scan": 0},
+              "plain_mla_prefills": 0}
     out = {}
     for i, name in enumerate(archs):
         arch = get_arch(name)
@@ -3312,32 +3352,41 @@ def phase_lm_archs(device, make: str = "make_full", n_requests: int = 4,
             "grids": totals["grids"],
             "flash_attention_launches": sum(
                 totals["by_shape"]["flash_attention"].values()),
+            "flash_mla_launches": sum(
+                totals["by_shape"]["flash_mla"].values()),
+            "plain_mla_prefills": totals["plain_mla_prefills"],
             "ssd_scan_launches": sum(totals["by_shape"]["ssd_scan"]
                                      .values())}
 
 
-def _flash_row(device, B, L, H, Hkv, D) -> dict:
+def _flash_row(device, B, L, H, Hkv, D, DV=None) -> dict:
     """Timing row of flash_attention at one bf16 causal shape, with SDPA's
     time at the same shape beside it; the kernel's output is held against
-    the plain version's on the same inputs first, as in the kernel check."""
+    the plain version's on the same inputs first, as in the kernel check.
+    With ``DV`` (v's head size) the shape is a pair of
+    ``ops.FLASH_HEAD_PAIRS``, run with MLA's scale (``MLA_SCALE``) and
+    counted under the pair's key."""
+    shape = [B, L, H, Hkv, D] + ([DV] if DV else [])
+    key = ops.FLASH_HEAD_PAIRS[(D, DV)] if DV else "flash_attention"
+    scale = MLA_SCALE if DV else None
     q, k, v = _flash_inputs(B, H, Hkv, L, L, D, torch.bfloat16, device,
-                            seed=L + D)
-    held = _hold_flash(ops.flash_attention(q, k, v, causal=True),
-                       ref.flash_attention_ref(q, k, v, causal=True),
-                       f"flash_attention {[B, L, H, Hkv, D]} bfloat16")
-    library, call = _sdpa_call(q, k, v)
+                            seed=L + D, DV=DV)
+    held = _hold_flash(
+        ops.flash_attention(q, k, v, causal=True, scale=scale),
+        ref.flash_attention_ref(q, k, v, causal=True, scale=scale),
+        f"flash_attention {shape} bfloat16")
+    library, call = _sdpa_call(q, k, v, scale)
 
     def kernel():
-        ops.flash_attention(q, k, v, causal=True)
+        ops.flash_attention(q, k, v, causal=True, scale=scale)
 
-    t = _timed_turns(kernel,
-                     lambda: ref.flash_attention_ref(q, k, v, causal=True),
-                     library)
-    bound, by, peak = flash_bound_ms(B, L, L, H, Hkv, D, 2)
-    return {"shape": [B, L, H, Hkv, D], "dtype": "bfloat16", **held, **t,
+    t = _timed_turns(kernel, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, scale=scale), library)
+    bound, by, peak = flash_bound_ms(B, L, L, H, Hkv, D, 2, DV=DV)
+    return {"shape": shape, "dtype": "bfloat16", **held, **t,
             "bound_ms": bound, "bound_by": by, "peak": peak,
             "library_call": call,
-            "grids_per_call": _grids_per_call(kernel, "flash_attention")}
+            "grids_per_call": _grids_per_call(kernel, key)}
 
 
 def _ssd_row(device, B, L, H, P, G, N, chunk) -> dict:
@@ -3359,20 +3408,25 @@ def _ssd_row(device, B, L, H, P, G, N, chunk) -> dict:
             "grids_per_call": _grids_per_call(kernel, "ssd_scan")}
 
 
-def phase_arch_timing(device, timing: dict, archs: dict) -> dict:
-    """Timing rows of flash_attention and ssd_scan at every shape that
-    phase lm_archs launched and phase kernel_timing did not time (the
-    other architectures' heads: d_head 112, 128 with 8 kv heads, ...;
-    zamba2-7b's Mamba2 layers), each held against its plain version on
-    the same inputs; the shapes phase kernel_timing timed are the kernel
-    check's cases.  So every shape either LM phase launched is held."""
+def phase_arch_timing(device, timing: dict, archs: dict,
+                      mla_lengths=()) -> dict:
+    """Timing rows of flash_attention, flash_mla and ssd_scan at every
+    shape that phase lm_archs launched and phase kernel_timing did not
+    time (the other architectures' heads: d_head 112, 128 with 8 kv heads,
+    ...; deepseek-v2's MLA pair; zamba2-7b's Mamba2 layers), and of
+    flash_mla at DeepSeek's heads at each of ``mla_lengths``, each held
+    against its plain version on the same inputs; the shapes phase
+    kernel_timing timed are the kernel check's cases.  So every shape
+    either LM phase launched is held."""
     rows = {}
     for kern, make in (("flash_attention", _flash_row),
-                       ("ssd_scan", _ssd_row)):
-        have = {_shape_key(r["shape"]) for r in timing[kern]}
+                       ("flash_mla", _flash_row), ("ssd_scan", _ssd_row)):
+        have = {_shape_key(r["shape"]) for r in timing.get(kern, [])}
+        keys = set(archs["launches_by_shape"].get(kern, {}))
+        if kern == "flash_mla":
+            keys |= {_shape_key((1, L) + MLA_HEADS) for L in mla_lengths}
         rows[kern] = [make(device, *map(int, key.split("x")))
-                      for key in sorted(archs["launches_by_shape"][kern])
-                      if key not in have]
+                      for key in sorted(keys) if key not in have]
     return {"phase": "arch_timing", **rows}
 
 
@@ -4413,10 +4467,13 @@ REPLACES = {
                       "of src/repro/diffusion/sampler.py:26 (its VJP, which "
                       "jax.grad derives through the scan)",
     "flash_attention": "src/repro/kernels/flash_attention.py:27",
+    "flash_mla": "none: src/repro/nn/mla.py runs MLA's attention as "
+                 "einsums (no Pallas kernel)",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:22"}
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 SOURCES["ddpm_step_bwd"] = SOURCES["ddpm_step"]
 SOURCES["ddpm_chain_bwd"] = SOURCES["ddpm_chain"]
+SOURCES["flash_mla"] = SOURCES["flash_attention"]
 
 
 def _vector_paths(vector, kernel: str) -> tuple:
@@ -4429,6 +4486,24 @@ def _vector_paths(vector, kernel: str) -> tuple:
         for case, n in r["launches_by_shape"][kernel].items():
             by[case] = by.get(case, 0) + n
     return by, sum(r["grids"][kernel] for r in runs)
+
+
+def flash_mla_summary(archs, rows: list) -> dict:
+    """flash_mla's entry of the ``kernels`` line: phase lm_archs' launches
+    by shape (deepseek-v2's prefills), timed in ``rows`` (phase
+    arch_timing's), the modal shape theirs, the times at DeepSeek's heads
+    at the shortest and longest of ``MLA_TIMING_L`` under ``at``, and the
+    MLA prefills that ran the plain products instead."""
+    path = archs["launches_by_shape"]["flash_mla"]
+    out = kernel_summary(
+        [(_shape_key(r["shape"]), r) for r in rows], path,
+        max(path, key=lambda k: (path[k], k)),
+        [_shape_key((1, L) + MLA_HEADS) for L in (MLA_TIMING_L[0],
+                                                  MLA_TIMING_L[-1])],
+        archs["grids"]["flash_mla"])
+    out["launches_by_phase"] = {"lm_archs": sum(path.values())}
+    out["plain_mla_prefills"] = archs["plain_mla_prefills"]
+    return out
 
 
 def kernels_line(check, timing, train, control, data, lm, vector,
@@ -4463,7 +4538,13 @@ def kernels_line(check, timing, train, control, data, lm, vector,
     dist adds its ranks' launches of the two chain kernels (the sharded
     training's, at the B = 8 and B = 4 stacked shapes), and of
     flash_attention and ssd_scan (the LM mesh half's prefills, at the
-    shapes phase dist_timing times), under ``launches_by_phase``."""
+    shapes phase dist_timing times), under ``launches_by_phase``.
+    flash_mla (flash_attention at MLA's head pair (192, 128)): phase
+    lm_archs' launches (deepseek-v2's prefills), timed in phase
+    arch_timing with SDPA beside it, its modal shape theirs, with the
+    times at DeepSeek's heads at L = 512 and 4096 under ``at``; the MLA
+    prefills that ran the plain products instead under
+    ``plain_mla_prefills``."""
     step_run = control["chain_vs_step_episode"]["step"]
     tl = train["launches"]
     upd = train["update_timing"]
@@ -4570,7 +4651,8 @@ def kernels_line(check, timing, train, control, data, lm, vector,
                              + archs["ssd_scan_launches"]
                              + lm_train["ssd_scan_launches"]
                              + sum(dist["launches_by_shape"]
-                                   ["ssd_scan"].values()))}
+                                   ["ssd_scan"].values())),
+                "flash_mla": archs["flash_mla_launches"]}
     for kname, model, heads in (
             ("flash_attention", "qwen2-0.5b", QWEN_HEADS),
             ("ssd_scan", "mamba2-130m", MAMBA_SSD)):
@@ -4598,16 +4680,18 @@ def kernels_line(check, timing, train, control, data, lm, vector,
             "lm_archs": sum(archs["launches_by_shape"][kname].values()),
             "lm_train": sum(lm_train["launches_by_shape"][kname].values()),
             "dist": sum(dist["launches_by_shape"][kname].values())}
+    summary["flash_mla"] = flash_mla_summary(archs, arch_timing["flash_mla"])
     idle = [k for k, n in launches.items() if n <= 0]
     require(not idle, f"kernels never launched on their paths: {idle}")
-    err = {k: max([check[k]["max_abs_err"]] + [
+    err = {k: max(([check[k]["max_abs_err"]] if k in check else []) + [
         r["max_abs_err"] for r in arch_timing.get(k, [])]) for k in launches}
     return {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k], "launches": launches[k],
         "max_abs_err": err[k], **summary[k]}
         for k in ("ddpm_step", "ddpm_step_bwd", "ddpm_chain",
-                  "ddpm_chain_bwd", "flash_attention", "ssd_scan")]}
+                  "ddpm_chain_bwd", "flash_attention", "flash_mla",
+                  "ssd_scan")]}
 
 
 def main() -> int:
@@ -4639,7 +4723,7 @@ def main() -> int:
     emit(lm)
     archs = phase_lm_archs(device)
     emit(archs)
-    arch_timing = phase_arch_timing(device, timing, archs)
+    arch_timing = phase_arch_timing(device, timing, archs, MLA_TIMING_L)
     emit(arch_timing)
     lm_train = phase_lm_train(device, card=dev_info["nvidia_smi"])
     emit(lm_train)
@@ -4647,12 +4731,12 @@ def main() -> int:
     emit(dist)
     # timing rows of the shapes phase dist launched and no phase timed
     dist_timing = phase_arch_timing(
-        device, {k: timing[k] + arch_timing[k]
-                 for k in ("flash_attention", "ssd_scan")},
+        device, {k: timing.get(k, []) + arch_timing[k]
+                 for k in ("flash_attention", "flash_mla", "ssd_scan")},
         {"launches_by_shape": dist["launches_by_shape"]})
     emit({**dist_timing, "phase": "dist_timing"})
     arch_timing = {k: arch_timing[k] + dist_timing[k]
-                   for k in ("flash_attention", "ssd_scan")}
+                   for k in ("flash_attention", "flash_mla", "ssd_scan")}
     emit(kernels_line(check, timing, train, control, data, lm, vector,
                       ops_run, fleet, archs, arch_timing, lm_train, dist))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,7 @@ from repro_torch.nn.attention import AttnCfg
 from repro_torch.nn.mla import MLACfg
 from repro_torch.nn.mlp import MLPCfg
 from repro_torch.nn.moe import MoECfg
+from repro_torch.nn.rotary import YaRN
 from repro_torch.nn.ssm import SSMCfg
 
 
@@ -41,17 +42,23 @@ def deepseek_lm(name: str, *, layers: int, dense_layers: int, d_model: int,
                 qk_nope_dim: int = 128, qk_rope_dim: int = 64,
                 v_head_dim: int = 128, mtp: bool = False,
                 window: Optional[int] = None, remat: bool = False,
-                capacity_factor: float = 1.25) -> LMCfg:
+                capacity_factor: float = 1.25,
+                rope_scaling: Optional[YaRN] = None,
+                router: Optional[dict] = None) -> LMCfg:
+    """A DeepSeek-V2/V3 decoder: ``dense_layers`` MLA + dense MLP layers,
+    then MLA + MoE layers.  ``rope_scaling``: MLA's YaRN; ``router``:
+    further ``MoECfg`` fields (the router's options, an expert share)."""
     mla = MLACfg(d_model, n_heads, q_lora_rank=q_lora_rank,
                  kv_lora_rank=kv_lora_rank, qk_nope_dim=qk_nope_dim,
                  qk_rope_dim=qk_rope_dim, v_head_dim=v_head_dim,
-                 window=window)
+                 window=window, rope_scaling=rope_scaling)
     dense_blk = BlockCfg(d_model=d_model, mixer="mla", ffn="mlp", mla=mla,
                          mlp=MLPCfg(d_model, dense_d_ff))
     moe_blk = BlockCfg(d_model=d_model, mixer="mla", ffn="moe", mla=mla,
                        moe=MoECfg(d_model, moe_d_ff, n_experts=n_experts,
                                   top_k=top_k, n_shared=n_shared,
-                                  capacity_factor=capacity_factor))
+                                  capacity_factor=capacity_factor,
+                                  **(router or {})))
     return LMCfg(name=name, vocab=vocab, d_model=d_model,
                  groups=(GroupCfg((dense_blk,), dense_layers),
                          GroupCfg((moe_blk,), layers - dense_layers)),

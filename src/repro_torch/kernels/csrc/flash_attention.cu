@@ -2,6 +2,10 @@
 //
 //     out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h // G]) v[b, j, h // G]
 //
+// q and k have head size DK, v and out DV: DK = DV in {32, 64, 112, 128},
+// or (DK, DV) = (192, 128), MLA's expanded prefill (DeepSeek-V2/V3: 128
+// nope + 64 rope dims of q and k, v of 128), whose scale the caller gives.
+//
 // over the keys j that the mask keeps: j < S, j <= i when causal, and
 // j > i - window when a window is set.  Online softmax with the running max
 // m, sum l and accumulator acc in f32; a row whose keys are all masked
@@ -50,6 +54,14 @@
 // and a row loads in 14 cp.async chunks.  The f32 kernel needs D % 4 == 0
 // (28 output columns a thread at 112).
 //
+// (192, 128): the Q and K tiles have rows of DK, the V tile rows of DV,
+// each padded by 16 bytes (400 and 272 bytes: 100 and 68 words, 4 mod 32,
+// so an ldmatrix's 8 rows stay in distinct banks).  A warp holds its Q
+// fragments (12 k-steps, 48 registers) and its output (16 tiles, 64
+// registers) for the whole CTA; shared memory is the Q tile and two
+// stages of K and V, 111.6 KB.  The f32 kernel takes DK-wide Q and K
+// tiles and a DV-wide V tile (148.5 KB).
+//
 // Interface: plain C, loaded with ctypes (kernels/ops.py).  The wrapper
 // checks shapes/dtypes/contiguity (and 16-byte alignment for bf16),
 // allocates the output and passes PyTorch's current stream; the launch
@@ -87,29 +99,31 @@ __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t smem_bytes() {
-  // Q, K, V tiles (rows padded to D + 1) and the tile's probabilities
+  // Q, K tiles (rows padded to DK + 1), the V tile (DV + 1) and the tile's
+  // probabilities
   return sizeof(float) *
-         ((size_t)kBQ * (D + 1) + 2 * (size_t)kBK * (D + 1) +
-          (size_t)kBQ * (kBK + 1));
+         ((size_t)kBQ * (DK + 1) + (size_t)kBK * (DK + 1) +
+          (size_t)kBK * (DV + 1) + (size_t)kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int L,
                      int S, int H, int Hkv, int causal, int window,
                      float scale) {
-  constexpr int RS = D + 1;    // row stride of Q/K/V tiles
+  constexpr int RS = DK + 1;   // row stride of Q/K tiles
+  constexpr int VS = DV + 1;   // row stride of the V tile
   constexpr int PS = kBK + 1;  // row stride of the probability tile
   constexpr int KPT = kBK / 4; // keys scored per thread
-  constexpr int CPT = D / 4;   // output columns per thread
+  constexpr int CPT = DV / 4;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * RS;
   float* Vs = Ks + kBK * RS;
-  float* Ps = Vs + kBK * RS;
+  float* Ps = Vs + kBK * VS;
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -120,14 +134,15 @@ __global__ void __launch_bounds__(kThreads)
   const int sub = tid & 3;     // its quarter of the keys / columns
   const int i = q0 + r;        // absolute query position
 
-  const int64_t q_stride = (int64_t)H * D;     // between positions
-  const int64_t kv_stride = (int64_t)Hkv * D;
-  const T* qb = q + ((int64_t)b * L * H + h) * D;
-  const T* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-  const T* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+  const int64_t q_stride = (int64_t)H * DK;    // between positions
+  const int64_t k_stride = (int64_t)Hkv * DK;
+  const int64_t v_stride = (int64_t)Hkv * DV;
+  const T* qb = q + ((int64_t)b * L * H + h) * DK;
+  const T* kb = k + ((int64_t)b * S * Hkv + hk) * DK;
+  const T* vb = v + ((int64_t)b * S * Hkv + hk) * DV;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int row = idx / D, d = idx % D;
+  for (int idx = tid; idx < kBQ * DK; idx += kThreads) {
+    const int row = idx / DK, d = idx % DK;
     Qs[row * RS + d] = q0 + row < L ? to_f32(qb[(q0 + row) * q_stride + d])
                                     : 0.f;
   }
@@ -143,11 +158,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = k_lo / kBK; k_hi >= k_lo && kt <= k_hi / kBK; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K/V/P are no longer read
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const bool in = k0 + j < S;
-      Ks[j * RS + d] = in ? to_f32(kb[(k0 + j) * kv_stride + d]) : 0.f;
-      Vs[j * RS + d] = in ? to_f32(vb[(k0 + j) * kv_stride + d]) : 0.f;
+    for (int idx = tid; idx < kBK * DK; idx += kThreads) {
+      const int j = idx / DK, d = idx % DK;
+      Ks[j * RS + d] = k0 + j < S ? to_f32(kb[(k0 + j) * k_stride + d]) : 0.f;
+    }
+    for (int idx = tid; idx < kBK * DV; idx += kThreads) {
+      const int j = idx / DV, d = idx % DV;
+      Vs[j * VS + d] = k0 + j < S ? to_f32(vb[(k0 + j) * v_stride + d]) : 0.f;
     }
     __syncthreads();
 
@@ -155,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int jj = 0; jj < KPT; ++jj) s[jj] = 0.f;
     const float* qrow = Qs + r * RS;
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       const float qv = qrow[d];
 #pragma unroll
       for (int jj = 0; jj < KPT; ++jj)
@@ -195,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < CPT; ++c) acc[c] *= corr;
     for (int j = 0; j < kBK; ++j) {
       const float p = prow[j];
-      const float* vrow = Vs + j * RS + sub;
+      const float* vrow = Vs + j * VS + sub;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[c] = fmaf(p, vrow[4 * c], acc[c]);
     }
@@ -203,7 +220,7 @@ __global__ void __launch_bounds__(kThreads)
 
   if (i < L) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = out + ((int64_t)b * L * H + (int64_t)i * H + h) * D + sub;
+    T* orow = out + ((int64_t)b * L * H + (int64_t)i * H + h) * DV + sub;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) orow[4 * c] = from_f32<T>(acc[c] / denom);
   }
@@ -269,10 +286,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float& lo, float& hi) {
 // row stride of the shared Q/K/V tiles in bf16: D plus a 16-byte pad
 __host__ __device__ constexpr int mma_row_stride(int D) { return D + 8; }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t mma_smem_bytes() {
   // the Q tile and two stages of K and V, 64 rows each
-  return sizeof(__nv_bfloat16) * (size_t)(kBQ + 4 * kBK) * mma_row_stride(D);
+  return sizeof(__nv_bfloat16) *
+         ((size_t)(kBQ + 2 * kBK) * mma_row_stride(DK) +
+          (size_t)2 * kBK * mma_row_stride(DV));
 }
 
 // rows [row0, row0 + 64) of a (rows, stride) bf16 matrix into a padded
@@ -293,17 +312,18 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, int L, int S, int H,
                      int Hkv, int causal, int window, float scale_log2) {
-  constexpr int RS = mma_row_stride(D);
-  constexpr int KD = D / 16;  // k-steps of Q K^T
-  constexpr int ND = D / 8;   // 8-column tiles of the output
-  constexpr int NK = kBK / 8; // 8-key tiles of S
+  constexpr int RS = mma_row_stride(DK);   // Q and K tiles
+  constexpr int VS = mma_row_stride(DV);   // V tiles
+  constexpr int KD = DK / 16;  // k-steps of Q K^T
+  constexpr int ND = DV / 8;   // 8-column tiles of the output
+  constexpr int NK = kBK / 8;  // 8-key tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kBQ * RS;      // two stages
@@ -317,21 +337,22 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;  // row in the 8-row group, quad id
 
-  const int64_t q_stride = (int64_t)H * D;
-  const int64_t kv_stride = (int64_t)Hkv * D;
-  const __nv_bfloat16* qb = q + ((int64_t)b * L * H + h) * D;
-  const __nv_bfloat16* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-  const __nv_bfloat16* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+  const int64_t q_stride = (int64_t)H * DK;
+  const int64_t k_stride = (int64_t)Hkv * DK;
+  const int64_t v_stride = (int64_t)Hkv * DV;
+  const __nv_bfloat16* qb = q + ((int64_t)b * L * H + h) * DK;
+  const __nv_bfloat16* kb = k + ((int64_t)b * S * Hkv + hk) * DK;
+  const __nv_bfloat16* vb = v + ((int64_t)b * S * Hkv + hk) * DV;
 
   int k_lo, k_hi;
   key_range(q0, L, S, causal, window, k_lo, k_hi);
   const int kt_lo = k_lo / kBK;
   const int kt_hi = k_hi >= k_lo ? k_hi / kBK : kt_lo - 1;
 
-  load_tile<D>(Qs, qb, q0, L, q_stride, tid);
+  load_tile<DK>(Qs, qb, q0, L, q_stride, tid);
   if (kt_hi >= kt_lo) {
-    load_tile<D>(Ks, kb, kt_lo * kBK, S, kv_stride, tid);
-    load_tile<D>(Vs, vb, kt_lo * kBK, S, kv_stride, tid);
+    load_tile<DK>(Ks, kb, kt_lo * kBK, S, k_stride, tid);
+    load_tile<DV>(Vs, vb, kt_lo * kBK, S, v_stride, tid);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -355,10 +376,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int buf = (kt - kt_lo) & 1;
     const int k0 = kt * kBK;
     if (kt < kt_hi) {  // the next tile loads while this one is multiplied
-      load_tile<D>(Ks + (buf ^ 1) * kBK * RS, kb, k0 + kBK, S, kv_stride,
-                   tid);
-      load_tile<D>(Vs + (buf ^ 1) * kBK * RS, vb, k0 + kBK, S, kv_stride,
-                   tid);
+      load_tile<DK>(Ks + (buf ^ 1) * kBK * RS, kb, k0 + kBK, S, k_stride,
+                    tid);
+      load_tile<DV>(Vs + (buf ^ 1) * kBK * VS, vb, k0 + kBK, S, v_stride,
+                    tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -366,7 +387,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     __syncthreads();
     const __nv_bfloat16* Kt = Ks + buf * kBK * RS;
-    const __nv_bfloat16* Vt = Vs + buf * kBK * RS;
+    const __nv_bfloat16* Vt = Vs + buf * kBK * VS;
 
     // S = Q K^T: 16 rows x 64 keys per warp
     float s[NK][4];
@@ -444,7 +465,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t vf[4];  // keys j*16 + [0, 8), [8, 16); d dp*16 + [0, 8), [8, 16)
         ldsm_x4_trans(vf, Vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   RS +
+                                   VS +
                               dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], pf[j], vf[0], vf[1]);
         mma_bf16(o[2 * dp + 1], pf[j], vf[2], vf[3]);
@@ -461,7 +482,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int i = i0 + 8 * r;
     if (i >= L) continue;
     const float inv = 1.f / fmaxf(lr, 1e-30f);
-    __nv_bfloat16* orow = out + ((int64_t)b * L * H + (int64_t)i * H + h) * D;
+    __nv_bfloat16* orow = out + ((int64_t)b * L * H + (int64_t)i * H + h) * DV;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + tq * 2) =
@@ -477,42 +498,42 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
                 int64_t B, int64_t L, int64_t S, int64_t H, int64_t Hkv,
                 int causal, int64_t window, float scale,
                 cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DK, DV>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    const cudaError_t e = allow_smem(flash_simt_kernel<float, D>, smem);
+    const cudaError_t e = allow_smem(flash_simt_kernel<float, DK, DV>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid((unsigned)((L + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_simt_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+  flash_simt_kernel<float, DK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), (int)L, (int)S,
       (int)H, (int)Hkv, causal, (int)window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                int64_t B, int64_t L, int64_t S, int64_t H, int64_t Hkv,
                int causal, int64_t window, float scale,
                cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
+  constexpr size_t smem = mma_smem_bytes<DK, DV>();
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = allow_smem(flash_mma_kernel<D>, smem);
+    const cudaError_t e = allow_smem(flash_mma_kernel<DK, DV>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const int64_t n_qt = (L + kBQ - 1) / kBQ;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)n_qt);
-  flash_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+  flash_mma_kernel<DK, DV><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -523,43 +544,41 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q: (B, L, H, D); k, v: (B, S, Hkv, D); out: (B, L, H, D); all contiguous,
-// one dtype: 0 = float32 (flash_simt_kernel), 1 = bfloat16
-// (flash_mma_kernel; pointers 16-byte aligned).  D in {32, 64, 112, 128};
-// H % Hkv == 0; window <= 0 means no window.  Sets *grids to the number of
-// grids launched (1, or 0 on an error or an empty call).  Returns the
-// cudaGetLastError() code of the launch (0 on success).
+// q: (B, L, H, D); k: (B, S, Hkv, D); v: (B, S, Hkv, DV); out: (B, L, H,
+// DV); all contiguous, one dtype: 0 = float32 (flash_simt_kernel), 1 =
+// bfloat16 (flash_mma_kernel; pointers 16-byte aligned).  D = DV in {32,
+// 64, 112, 128}, or (D, DV) = (192, 128); H % Hkv == 0; window <= 0 means
+// no window.  Sets *grids to the number of grids launched (1, or 0 on an
+// error or an empty call).  Returns the cudaGetLastError() code of the
+// launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int64_t B,
                                       int64_t L, int64_t S, int64_t H,
-                                      int64_t Hkv, int64_t D, int causal,
-                                      int64_t window, float scale, int dtype,
-                                      int* grids, void* stream) {
+                                      int64_t Hkv, int64_t D, int64_t DV,
+                                      int causal, int64_t window, float scale,
+                                      int dtype, int* grids, void* stream) {
   *grids = 0;
   if (B <= 0 || L <= 0 || H <= 0) return 0;
   if (S <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = static_cast<int>(cudaErrorInvalidValue);
-#define FLASH_CASE(KIND, DD)                                               \
-  case DD:                                                                 \
-    err = launch_##KIND<DD>(q, k, v, out, B, L, S, H, Hkv, causal, window, \
-                            scale, s);                                     \
-    break;
+#define FLASH_CASE(KIND, DD, DDV)                                           \
+  if (D == DD && DV == DDV)                                                 \
+    err = launch_##KIND<DD, DDV>(q, k, v, out, B, L, S, H, Hkv, causal,     \
+                                 window, scale, s);
   if (dtype == 0) {
-    switch (D) {
-      FLASH_CASE(simt, 32)
-      FLASH_CASE(simt, 64)
-      FLASH_CASE(simt, 112)
-      FLASH_CASE(simt, 128)
-    }
+    FLASH_CASE(simt, 32, 32)
+    FLASH_CASE(simt, 64, 64)
+    FLASH_CASE(simt, 112, 112)
+    FLASH_CASE(simt, 128, 128)
+    FLASH_CASE(simt, 192, 128)
   } else if (dtype == 1) {
-    switch (D) {
-      FLASH_CASE(mma, 32)
-      FLASH_CASE(mma, 64)
-      FLASH_CASE(mma, 112)
-      FLASH_CASE(mma, 128)
-    }
+    FLASH_CASE(mma, 32, 32)
+    FLASH_CASE(mma, 64, 64)
+    FLASH_CASE(mma, 112, 112)
+    FLASH_CASE(mma, 128, 128)
+    FLASH_CASE(mma, 192, 128)
   }
 #undef FLASH_CASE
   if (err == 0) *grids = 1;

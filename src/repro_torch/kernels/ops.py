@@ -12,7 +12,11 @@ states, state recurrence, outputs) for more, and counts one either way.
 started, and ``CLUSTERS[name]`` the thread-block clusters of the two
 chain kernels' grids.  ``ddpm_chain`` has two plans (``chain_plan``): a
 launch of the row-tiled plan counts one grid and no cluster, and also one
-in ``ROW_TILED["ddpm_chain"]``.  ``reset_launches`` zeroes all four.
+in ``ROW_TILED["ddpm_chain"]``.  ``PLAIN_PREFILLS["mla"]`` counts the
+MLA prefills asked for the kernel (``impl="kernel"``) at a head pair the
+kernel is not built for, which ran the plain products instead (the smoke
+configs' widths), so that a run shows which prefills took no kernel.
+``reset_launches`` zeroes all five.
 
 ``ddpm_step`` is differentiable in x and eps_hat: its
 ``torch.autograd.Function`` (``DdpmStep``) launches ``ddpm_step_bwd`` in
@@ -20,7 +24,10 @@ the backward (the plain version for CPU tensors).  ``ddpm_chain`` is
 differentiable in the MLP's weights and biases: ``DdpmChain`` launches the
 forward with its record of activations and, in the backward, one
 ``ddpm_chain_bwd``.  ``flash_attention`` and ``ssd_scan`` are
-forward-only and refuse grad-enabled inputs.
+forward-only and refuse grad-enabled inputs.  ``flash_attention``'s
+launches at a head pair of its own (q and k wider than v,
+``FLASH_HEAD_PAIRS``: MLA's (192, 128)) count under that pair's key
+(``"flash_mla"``), the others under ``"flash_attention"``.
 
 ``flash_plan`` (which kernel a dtype takes), ``ssd_plan`` (chunks,
 scratch, shared memory), ``chain_plan`` (the cluster plan or the
@@ -42,10 +49,12 @@ from repro_torch.obs import profiling
 from . import build, ref
 
 LAUNCHES = {"ddpm_step": 0, "ddpm_step_bwd": 0, "ddpm_chain": 0,
-            "ddpm_chain_bwd": 0, "flash_attention": 0, "ssd_scan": 0}
+            "ddpm_chain_bwd": 0, "flash_attention": 0, "flash_mla": 0,
+            "ssd_scan": 0}
 GRIDS = dict(LAUNCHES)
 CLUSTERS = {"ddpm_chain": 0, "ddpm_chain_bwd": 0}
 ROW_TILED = {"ddpm_chain": 0}
+PLAIN_PREFILLS = {"mla": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = {}
@@ -84,7 +93,7 @@ _SIGNATURES = {
                               + [_I64] * 4 + [ctypes.c_int, ctypes.c_int,
                                               _I64, _GRIDS, _P]),
     "flash_attention_launch": (ctypes.c_int, [_P, _P, _P, _P, _I64, _I64,
-                                              _I64, _I64, _I64, _I64,
+                                              _I64, _I64, _I64, _I64, _I64,
                                               ctypes.c_int, _I64,
                                               ctypes.c_float, ctypes.c_int,
                                               _GRIDS, _P]),
@@ -93,12 +102,14 @@ _SIGNATURES = {
     "ssd_scan_smem_bytes": (_I64, [_I64, _I64]),
 }
 
-FLASH_HEAD_DIMS = (32, 64, 112, 128)   # flash_attention_launch's switch
+FLASH_HEAD_DIMS = (32, 64, 112, 128)   # flash_attention_launch's D = DV
+# (q/k head size, v head size) pairs of their own, with their launch key
+FLASH_HEAD_PAIRS = {(192, 128): "flash_mla"}
 SMEM_LIMIT = 232448          # H100: 227 KB of shared memory per block
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GRIDS, CLUSTERS, ROW_TILED):
+    for counts in (LAUNCHES, GRIDS, CLUSTERS, ROW_TILED, PLAIN_PREFILLS):
         for k in counts:
             counts[k] = 0
 
@@ -692,7 +703,7 @@ def _check_flash(q, k, v, window):
         raise ValueError("flash_attention: q (B, L, H, D) and k/v "
                          "(B, S, Hkv, D) are 4-D")
     B, L, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if k.shape[2] < 1 or H % k.shape[2]:
@@ -701,7 +712,7 @@ def _check_flash(q, k, v, window):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
                         f"one dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
-    flash_plan(q.dtype, D)
+    flash_plan(q.dtype, D, v.shape[3])
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if B < 1 or L < 1 or k.shape[1] < 1:
@@ -715,14 +726,22 @@ class FlashPlan(NamedTuple):
     dtype_code: int    # what flash_attention_launch dispatches on
 
 
-def flash_plan(dtype, d_head: Optional[int] = None) -> FlashPlan:
+def flash_plan(dtype, d_head: Optional[int] = None,
+               d_v: Optional[int] = None) -> FlashPlan:
     """The kernel ``flash_attention`` takes for q/k/v of ``dtype``: bf16
     goes to the tensor-core kernel, f32 to the CUDA-core one (TF32 would
     miss the f32 tolerance).  Both are built for the head dims of
-    ``FLASH_HEAD_DIMS`` (the C switch's); another ``d_head`` is refused."""
-    if d_head is not None and d_head not in FLASH_HEAD_DIMS:
+    ``FLASH_HEAD_DIMS`` (the C switch's) with v as wide as q and k, and
+    for the pairs of ``FLASH_HEAD_PAIRS``; another ``d_head`` (q and k)
+    and ``d_v`` (v; default ``d_head``) are refused."""
+    d_v = d_head if d_v is None else d_v
+    if d_head is not None and not (
+            (d_v == d_head and d_head in FLASH_HEAD_DIMS)
+            or (d_head, d_v) in FLASH_HEAD_PAIRS):
         raise ValueError(f"flash_attention takes d_head in "
-                         f"{FLASH_HEAD_DIMS}, not {d_head}")
+                         f"{FLASH_HEAD_DIMS} (v as wide) or (q/k, v) in "
+                         f"{tuple(FLASH_HEAD_PAIRS)}, not ({d_head}, "
+                         f"{d_v})")
     if dtype == torch.bfloat16:
         return FlashPlan("mma_bf16", 1)
     if dtype == torch.float32:
@@ -731,36 +750,41 @@ def flash_plan(dtype, d_head: Optional[int] = None) -> FlashPlan:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None):
     """Causal (or full) GQA attention with an optional sliding window.
 
-    q: (B, L, H, D); k/v: (B, S, Hkv, D) — the model layout, as
+    q: (B, L, H, D); k: (B, S, Hkv, D); v: (B, S, Hkv, DV), DV = D or a
+    pair of ``FLASH_HEAD_PAIRS`` — the model layout, as
     ``repro.kernels.ops.flash_attention``; query i attends keys j <= i
-    (causal) and j > i - window.  Scale 1/sqrt(D).  Returns (B, L, H, D)
-    in q.dtype."""
+    (causal) and j > i - window.  ``scale`` defaults to 1/sqrt(D).
+    Returns (B, L, H, DV) in q.dtype."""
     dev = _check_device("flash_attention", q, k, v)
     _check_flash(q, k, v, window)
+    scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else float(scale)
     if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
     _check_cuda("flash_attention", q, k, v)
     B, L, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, DV = k.shape[1], k.shape[2], v.shape[3]
     plan = flash_plan(q.dtype)
     if plan.kernel == "mma_bf16" and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError("flash_attention: the bf16 kernel takes q/k/v "
                          "aligned to 16 bytes")
-    out = torch.empty_like(q)
+    out = q.new_empty((B, L, H, DV))
     grids = ctypes.c_int(0)
     err = _fn("flash_attention", "flash_attention_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, S, H,
-        Hkv, D, int(causal), -1 if window is None else int(window),
-        1.0 / math.sqrt(D), plan.dtype_code, ctypes.byref(grids), _stream(q))
+        Hkv, D, DV, int(causal), -1 if window is None else int(window),
+        scale, plan.dtype_code, ctypes.byref(grids), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["flash_attention"] += 1
-    GRIDS["flash_attention"] += grids.value
+    key = FLASH_HEAD_PAIRS.get((D, DV), "flash_attention")
+    LAUNCHES[key] += 1
+    GRIDS[key] += grids.value
     return out
 
 

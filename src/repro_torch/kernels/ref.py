@@ -20,9 +20,11 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, scale=None):
-    """q: (B, L, H, D); k/v: (B, S, Hkv, D) with H % Hkv == 0.  Returns
-    (B, L, H, D) in q.dtype; scores, softmax and the weighted sum in f32
-    (the oracle of ``repro.kernels.ref.flash_attention_ref``)."""
+    """q: (B, L, H, D); k: (B, S, Hkv, D), v: (B, S, Hkv, DV) with H %
+    Hkv == 0.  Returns (B, L, H, DV) in q.dtype; scores, softmax and the
+    weighted sum in f32 (the oracle of
+    ``repro.kernels.ref.flash_attention_ref``); ``scale`` defaults to
+    1/sqrt(D)."""
     B, L, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -39,7 +41,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     s = torch.where(m, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgls,bskd->blkgd", p, v.float())
-    return o.reshape(B, L, H, D).to(q.dtype)
+    return o.reshape(B, L, H, v.shape[3]).to(q.dtype)
 
 
 def ssd_scan_ref(x, dt, A, Bm, Cm, D, *, chunk: int = 128):

@@ -168,7 +168,8 @@ def block_forward(p, cfg: BlockCfg, x, *, positions=None, enc=None,
     elif cfg.mixer == "mla":
         x = x + mla_forward(p["mixer"], cfg.mla,
                             _norm_apply(cfg.norm, p["norm1"], x),
-                            positions=positions, compute_dtype=compute_dtype)
+                            positions=positions, impl=impl,
+                            compute_dtype=compute_dtype)
     elif cfg.mixer == "ssm":
         x = x + ssm_forward(p["mixer"], cfg.ssm,
                             _norm_apply(cfg.norm, p["norm1"], x),
@@ -255,7 +256,7 @@ def block_prefill(p, cfg: BlockCfg, x, cache, *, positions=None, enc=None,
         new["mixer"] = _write_prefix(cache["mixer"], {"k": k, "v": v})
     elif cfg.mixer == "mla":
         y, (c_kv, k_rope) = mla_forward(p["mixer"], cfg.mla, xn,
-                                        positions=positions,
+                                        positions=positions, impl=impl,
                                         compute_dtype=compute_dtype,
                                         return_kv=True)
         x = x + y

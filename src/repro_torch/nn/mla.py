@@ -1,8 +1,15 @@
 """Multi-head Latent Attention (DeepSeek-V2/V3), port of ``repro.nn.mla``.
 
 Prefill uses the expanded formulation: ``kv_up`` expands the compressed
-``c_kv`` into per-head K (no RoPE part) and V, and the scores are plain
-products, as the reference's einsums are (no Pallas kernel there).
+``c_kv`` into per-head K (no RoPE part) and V.  With ``impl="plain"`` the
+scores are plain products, as the reference's einsums are (no Pallas
+kernel there); with ``impl="kernel"`` (the engine's prefill) q is
+(q_nope, q_rope) and k is (k_nope, the shared k_rope on every head),
+and the causal attention runs in ``kernels.ops.flash_attention`` at the
+head pair (nope + rope, v) where the kernel is built for it
+(``ops.FLASH_HEAD_PAIRS``: (192, 128), DeepSeek-V2/V3's widths), with
+MLA's own scale; at other widths (the smoke configs) the plain products
+run, and ``ops.PLAIN_PREFILLS["mla"]`` counts the prefill.
 Decode uses the absorbed formulation: ``W_uk`` folded into the query and
 ``W_uv`` applied after the weighted sum, so the per-token cache is just
 ``c_kv`` (kv_lora_rank) and the shared RoPE key ``k_rope``.  The cache
@@ -16,6 +23,12 @@ k and v (q, its heads sharded as ``q_up``/``q_proj`` are, crosses with
 them); the shared RoPE key and the tables are made there.  The cache,
 sequence-sharded by ``mla_cache_spec``, is gathered for decode, as the
 reference's GSPMD does, and handed back in its own layout.
+
+``rope_scaling`` (a ``rotary.YaRN``, DeepSeek-V3's) stretches the RoPE
+part's frequencies and multiplies the softmax scale by
+``yarn_mscale(factor, mscale_all_dim)`` squared, in prefill and in the
+absorbed decode alike.  Spans (``obs.profiling``): ``mla.prefill`` over
+``mla_forward``, ``mla.decode`` over ``mla_decode``.
 """
 from __future__ import annotations
 
@@ -25,9 +38,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops as kops
+from repro_torch.obs import profiling
+
 from .attention import _masked_softmax, _row_positions, causal_window_mask
 from .core import linear, linear_init, rmsnorm, rmsnorm_init
-from .rotary import apply_rope, rope_cos_sin
+from .rotary import YaRN, apply_rope, rope_cos_sin, yarn_mscale
 from .sharding import P, Region, batch_spec, constrain, gather_dim, like, \
     split_last
 
@@ -44,6 +60,7 @@ class MLACfg:
     rope_theta: float = 10000.0
     causal: bool = True
     window: Optional[int] = None
+    rope_scaling: Optional[YaRN] = None
 
 
 def mla_init(generator: torch.Generator, cfg: MLACfg, *,
@@ -111,19 +128,51 @@ def _compress_kv(p, cfg: MLACfg, x, compute_dtype):
 
 
 def _rope(cfg: MLACfg, t, positions):
-    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    cos, sin = rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
     return apply_rope(t, cos, sin)
 
 
 def _scale(cfg: MLACfg) -> float:
-    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    """The softmax scale: 1 / sqrt(nope + rope), times YaRN's mscale
+    squared where the config stretches the context."""
+    s = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    y = cfg.rope_scaling
+    if y is not None and y.mscale_all_dim:
+        s *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return s
 
 
-def mla_forward(p, cfg: MLACfg, x, *, positions=None,
+def _flash(cfg: MLACfg, q_nope, q_rope, k_nope, k_rope, v):
+    """The causal attention of the expanded formulation through
+    ``flash_attention`` at (nope + rope, v): (B, L, H, v)."""
+    H = q_nope.shape[2]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(-1, -1, H, -1)], dim=-1)
+    return kops.flash_attention(q, k, v.contiguous(), causal=cfg.causal,
+                                window=cfg.window, scale=_scale(cfg))
+
+
+def _uses_flash(cfg: MLACfg, impl: str) -> bool:
+    return impl == "kernel" and (cfg.qk_nope_dim + cfg.qk_rope_dim,
+                                 cfg.v_head_dim) in kops.FLASH_HEAD_PAIRS
+
+
+def mla_forward(p, cfg: MLACfg, x, *, positions=None, impl: str = "plain",
                 compute_dtype=torch.bfloat16, return_kv: bool = False):
     """Full-sequence MLA (prefill), expanded formulation.  x: (B, L, D).
-    With ``return_kv`` also (c_kv (B, L, C), k_rope (B, L, d_rope)), what
-    the decode cache holds."""
+    ``impl``: ``"kernel"`` sends the attention through ``flash_attention``
+    where it is built for the head pair (module docstring; elsewhere the
+    plain products, counted in ``ops.PLAIN_PREFILLS["mla"]``); anything
+    else runs the plain products.  With ``return_kv`` also (c_kv (B, L, C),
+    k_rope (B, L, d_rope)), what the decode cache holds."""
+    with profiling.span("mla.prefill"):
+        return _mla_forward(p, cfg, x, positions, impl, compute_dtype,
+                            return_kv)
+
+
+def _mla_forward(p, cfg: MLACfg, x, positions, impl, compute_dtype,
+                 return_kv):
     B, L, _ = x.shape
     H = cfg.n_heads
     q = _project_q(p, cfg, x, compute_dtype)
@@ -142,14 +191,20 @@ def mla_forward(p, cfg: MLACfg, x, *, positions=None,
     q_rope = _rope(cfg, q[..., cfg.qk_nope_dim:], positions)
     k_rope = _rope(cfg, kr, positions)
     k_nope, v = kv[..., :cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim:]
-    # bf16 operands, f32 products and sums (preferred_element_type=f32)
-    scores = (torch.einsum("blhd,bshd->bhls", q_nope.float(), k_nope.float())
-              + torch.einsum("blhd,bsd->bhls", q_rope.float(),
-                             k_rope[:, :, 0].float())) * _scale(cfg)
-    mask = causal_window_mask(L, L, causal=cfg.causal, window=cfg.window,
-                              device=q.device)
-    probs = _masked_softmax(scores, mask)
-    out = torch.einsum("bhls,bshd->blhd", probs, v.float())
+    if _uses_flash(cfg, impl):
+        out = _flash(cfg, q_nope, q_rope, k_nope, k_rope, v)
+    else:
+        if impl == "kernel":
+            kops.PLAIN_PREFILLS["mla"] += 1
+        # bf16 operands, f32 products and sums (preferred_element_type=f32)
+        scores = (torch.einsum("blhd,bshd->bhls", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("blhd,bsd->bhls", q_rope.float(),
+                                 k_rope[:, :, 0].float())) * _scale(cfg)
+        mask = causal_window_mask(L, L, causal=cfg.causal,
+                                  window=cfg.window, device=q.device)
+        probs = _masked_softmax(scores, mask)
+        out = torch.einsum("bhls,bshd->blhd", probs, v.float())
     out = out.to(compute_dtype).reshape(out.shape[:2] + (-1,))
     k_rope = k_rope[:, :, 0, :]
     if reg.active:
@@ -181,6 +236,11 @@ def mla_decode(p, cfg: MLACfg, x, cache, pos, *,
     "k_rope"}``; pos: scalar or (B,) int, each row's absolute position (a
     position at or past S writes the last slot, the reference's clamp).
     Returns (y, new_cache); the cache passed in is not changed."""
+    with profiling.span("mla.decode"):
+        return _mla_decode(p, cfg, x, cache, pos, compute_dtype)
+
+
+def _mla_decode(p, cfg: MLACfg, x, cache, pos, compute_dtype):
     B = x.shape[0]
     C = cfg.kv_lora_rank
     q = _project_q(p, cfg, x, compute_dtype)                # (B, 1, H, *)

@@ -47,6 +47,37 @@ The global path (``"gspmd"``) under a mesh keeps the reference's
 ``P("model", None, None)``: the routing and the combine run on the
 tokens gathered whole on every rank (local code between those
 boundaries), the experts as DTensor products on the rank's slice.
+
+The router's options (defaults: the softmax router above) give
+DeepSeek-V3's published one (``topk_method: noaux_tc``): sigmoid scores
+(``score_func``); a per-expert correction (``score_correction``: the
+router's ``"correction"`` leaf, the release's ``e_score_correction_bias``)
+added for the selection only; group-limited selection over ``n_group``
+groups of experts, a group scored by the sum of its two best corrected
+scores (by its best where there is no correction), the best
+``topk_group`` groups kept and the top-k experts chosen among theirs;
+the weights the chosen experts' uncorrected scores, renormalised, times
+``routed_scaling``.
+
+The expert share (``n_held`` > 0): this device holds experts
+[``first_expert``, ``first_expert + n_held``) of ``n_experts``, as one
+chip of an expert-parallel deployment does, without a mesh.  The router
+keeps its ``n_experts`` outputs and routes every token over all of them;
+assignments to experts not held contribute nothing, the held experts
+compute their part, and the shared experts run for every token.  The
+share path is dropless, with no capacity.  Up to
+``SHARE_DENSE_MAX_TOKENS`` tokens (a decode step's), every held expert
+runs on every token and each token weights its output by the routing
+weight it gave that expert (0 where it chose another): no sort, no
+buffer and no read to the host, at the price of products over rows the
+step reads the held weights for anyway.  Above it (a prefill), the
+assignments to held experts are sorted by expert into a buffer (n_held,
+rows, D) sized by the held experts' counts, which the layer reads to
+the host once (its one synchronise).  It returns no load-balance loss
+(DeepSeek-V3 is trained without one).  Spans (``obs.profiling``):
+``moe.route``, ``moe.experts`` (dispatch, the held experts' products,
+combine) and ``moe.shared``; counters ``moe.routed`` (assignments) and
+``moe.held`` (those that reached a held expert, on the device).
 """
 from __future__ import annotations
 
@@ -55,6 +86,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.obs import profiling
 
 from .core import silu
 from .mlp import MLPCfg, mlp_apply, mlp_init, mlp_spec
@@ -74,29 +107,44 @@ class MoECfg:
     router_dtype: object = torch.float32
     dispatch: str = "gspmd"        # "gspmd" | "shardmap" (expert-parallel
     # under a mesh; the global path without one)
+    score_func: str = "softmax"    # "softmax" | "sigmoid"
+    score_correction: bool = False  # per-expert bias, for selection only
+    n_group: int = 1               # group-limited routing: expert groups
+    topk_group: int = 1            # groups kept per token
+    routed_scaling: float = 1.0    # on the renormalised routed weights
+    first_expert: int = 0          # the expert share: first expert held
+    n_held: int = 0                # experts held (0: all, capacity path)
 
 
 def moe_init(generator: torch.Generator, cfg: MoECfg, *,
              dtype=torch.float32) -> dict:
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    n = cfg.n_held or E
     dev = generator.device
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, device=dev) * std
     p = {"router": {"w": normal((d, E), 1.0 / math.sqrt(d))},
-         "up": normal((E, d, f), 1.0 / math.sqrt(d)).to(dtype),
-         "gate": normal((E, d, f), 1.0 / math.sqrt(d)).to(dtype),
-         "down": normal((E, f, d), 1.0 / math.sqrt(f)).to(dtype)}
+         "up": normal((n, d, f), 1.0 / math.sqrt(d)).to(dtype),
+         "gate": normal((n, d, f), 1.0 / math.sqrt(d)).to(dtype),
+         "down": normal((n, f, d), 1.0 / math.sqrt(f)).to(dtype)}
+    if cfg.score_correction:
+        p["router"]["correction"] = normal((E,), 0.1)
     if cfg.n_shared:
         p["shared"] = mlp_init(generator, _shared_cfg(cfg), dtype=dtype)
     return p
 
 
 def moe_spec(cfg: MoECfg) -> dict:
+    if cfg.n_held:
+        raise ValueError("an expert share holds its own experts; it has "
+                         "no mesh layout")
     s = {"router": {"w": P(None, None)},
          "up": P("model", None, None),
          "gate": P("model", None, None),
          "down": P("model", None, None)}
+    if cfg.score_correction:
+        s["router"]["correction"] = P(None)
     if cfg.n_shared:
         s["shared"] = mlp_spec(_shared_cfg(cfg))
     return s
@@ -214,7 +262,8 @@ def _expert_parallel_dtensor(p, cfg: MoECfg, x, mesh, compute_dtype,
     x_pl = constrain(x, batch_spec(None, None)).placements
     xl = reg.open(x, batch_spec(None, None))
     model = (mesh.mesh_dim_names or ()).index("model")
-    local = {"router": {"w": reg.take(p["router"]["w"], P(None, None))}}
+    local = {"router": {k: reg.take(t, P(*(None,) * t.dim()))
+                        for k, t in p["router"].items()}}
     for k in ("up", "gate", "down"):
         w = constrain(p[k], P("model", None, None))
         if not isinstance(w.placements[model], Shard):
@@ -234,7 +283,8 @@ def _gspmd_dtensor(p, cfg: MoECfg, x, mesh, compute_dtype, route_rows):
     repl = (Replicate(),) * mesh.ndim
     reg = Region(x)
     xl = reg.open(x, P(None, None, None))
-    router = reg.take(p["router"]["w"], P(None, None))
+    router = {k: reg.take(t, P(*(None,) * t.dim()))
+              for k, t in p["router"].items()}
 
     def experts(h):
         h = constrain(reg.give(h, repl), P(None, "model", None, None))
@@ -257,6 +307,36 @@ def _expert_ffn(p, h, compute_dtype):
     return torch.einsum("gecf,efd->gecd", silu(gate) * up, w_down)
 
 
+def _route(xt, router: dict, cfg: MoECfg):
+    """(weights (N, K) f32, expert ids (N, K), scores (N, E)) of the
+    tokens ``xt`` (N, D) under the router's options (module
+    docstring)."""
+    logits = torch.matmul(xt.float(), router["w"].float())
+    if cfg.score_func == "softmax":
+        probs = torch.softmax(logits, dim=-1)                # (N, E)
+    elif cfg.score_func == "sigmoid":
+        probs = torch.sigmoid(logits)
+    else:
+        raise ValueError(f"score_func {cfg.score_func!r}")
+    choice = probs
+    if cfg.score_correction:
+        choice = probs + router["correction"].float()
+    if cfg.n_group > 1:
+        g = choice.reshape(choice.shape[0], cfg.n_group, -1)
+        score = (torch.topk(g, 2, dim=-1)[0].sum(dim=-1)
+                 if cfg.score_correction else g.amax(dim=-1))
+        kept = torch.topk(score, cfg.topk_group, dim=-1)[1]
+        drop = torch.ones_like(score, dtype=torch.bool).scatter_(1, kept,
+                                                                 False)
+        choice = g.masked_fill(drop[..., None], -math.inf).flatten(1)
+    ids = torch.topk(choice, cfg.top_k, dim=-1)[1]           # (N, K)
+    w = torch.gather(probs, 1, ids)
+    w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-9)      # renormalise
+    if cfg.routed_scaling != 1.0:
+        w = w * cfg.routed_scaling
+    return w, ids, probs
+
+
 def _route_dispatch_combine(xt3, router, cfg: MoECfg, compute_dtype,
                             route_rows, experts, e0: int, e_loc: int):
     """Route the (B, L, D) tokens ``xt3`` (plain tensors), dispatch every
@@ -271,11 +351,7 @@ def _route_dispatch_combine(xt3, router, cfg: MoECfg, compute_dtype,
     cap = _capacity(T, cfg)
     dev = xt3.device
     xt = xt3.reshape(G * T, D)
-
-    logits = torch.matmul(xt.float(), router.float())
-    probs = torch.softmax(logits, dim=-1)                    # (G*T, E)
-    w, ids = torch.topk(probs, K, dim=-1)                    # (G*T, K)
-    w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-9)      # renormalise
+    w, ids, probs = _route(xt, router, cfg)                  # (G*T, K)
 
     # flatten the assignments, each keyed by (group, expert), and sort
     group_of = torch.arange(G * T, device=dev) // T
@@ -336,9 +412,10 @@ def _moe_local(p, cfg: MoECfg, x, mesh, compute_dtype, route_rows):
             f"the expert leaves hold {p['up'].shape[0]} experts; this "
             f"rank's slice is {e_loc} of {E} (cut a whole tree with "
             "expert_slice, or pass DTensors)")
-    xt, router = x, p["router"]["w"]
+    xt, router = x, p["router"]
     if group is not None:
-        xt, router = (_ToModelGroup.apply(t, group) for t in (xt, router))
+        xt = _ToModelGroup.apply(xt, group)
+        router = {k: _ToModelGroup.apply(t, group) for k, t in router.items()}
     y, aux = _route_dispatch_combine(
         xt, router, cfg, compute_dtype, route_rows,
         lambda h: _expert_ffn(p, h[:, e0:e0 + e_loc], compute_dtype),
@@ -349,15 +426,74 @@ def _moe_local(p, cfg: MoECfg, x, mesh, compute_dtype, route_rows):
     return y.reshape(x.shape), aux
 
 
+SHARE_DENSE_MAX_TOKENS = 256    # the share's dense path up to here
+
+
+def _moe_share(p, cfg: MoECfg, x, compute_dtype):
+    """The expert share's dropless routed part on plain tensors: (y (B,
+    L, D) in the compute dtype, aux 0)."""
+    B, L, D = x.shape
+    N = B * L
+    xt = x.reshape(N, D)
+    K, n_held = cfg.top_k, cfg.n_held
+    aux = x.new_zeros((), dtype=torch.float32)
+    if p["up"].shape[0] != n_held:
+        raise ValueError(f"the expert leaves hold {p['up'].shape[0]} "
+                         f"experts; the share holds {n_held}")
+    with profiling.span("moe.route"):
+        w, ids, _ = _route(xt, p["router"], cfg)
+        local = (ids - cfg.first_expert).reshape(-1)         # (N·K,)
+        held = (local >= 0) & (local < n_held)
+        key = torch.where(held, local, torch.full_like(local, n_held))
+        profiling.count("moe.routed", key.numel())
+        profiling.count("moe.held", held.sum())
+    if N <= SHARE_DENSE_MAX_TOKENS:
+        with profiling.span("moe.experts"):
+            wm = torch.zeros((N, n_held + 1), device=x.device).scatter_add_(
+                1, key.reshape(N, K), w)[:, :n_held]     # (N, n_held)
+            h = xt.to(compute_dtype).expand(n_held, N, D)
+            out = _expert_ffn(p, h[None], compute_dtype)[0]  # (e, N, D)
+            y = torch.einsum("end,ne->nd", out, wm.to(compute_dtype))
+        return y.reshape(B, L, D), aux
+    counts = torch.bincount(key, minlength=n_held + 1)
+    per = counts[:n_held].tolist()                           # the one read
+    y = torch.zeros((N, D), dtype=compute_dtype, device=x.device)
+    n, cap = sum(per), max(per)
+    if n == 0:
+        return y.reshape(B, L, D), aux
+    with profiling.span("moe.experts"):
+        order = torch.argsort(key, stable=True)[:n]          # held first
+        e_sorted = key[order]
+        starts = torch.cumsum(counts, 0) - counts
+        slot = e_sorted * cap + torch.arange(n, device=x.device) \
+            - starts[e_sorted]
+        tok = order // K
+        buf = torch.zeros((n_held * cap, D), dtype=compute_dtype,
+                          device=x.device)
+        buf[slot] = xt[tok].to(compute_dtype)
+        out = _expert_ffn(p, buf.reshape(1, n_held, cap, D), compute_dtype)
+        contrib = out.reshape(n_held * cap, D)[slot] \
+            * w.reshape(-1)[order][:, None].to(compute_dtype)
+        y.index_add_(0, tok, contrib)
+    return y.reshape(B, L, D), aux
+
+
 def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
               route_rows: bool = False):
     """x: (B, L, D) -> (y (B, L, D) in the compute dtype, aux loss f32).
     ``route_rows``: each of the B rows routed on its own (the aux loss is
     then the mean of the rows').  With ``cfg.dispatch == "shardmap"``
     under a current mesh, the expert-parallel path (module docstring):
-    ``x`` is this rank's data shard, or a DTensor, and ``y`` its rows."""
+    ``x`` is this rank's data shard, or a DTensor, and ``y`` its rows.
+    With ``cfg.n_held`` the expert share's dropless path (module
+    docstring), where ``route_rows`` changes nothing; it takes no
+    mesh."""
     mesh = current_mesh()
-    if mesh is not None and is_dtensor(x):
+    if cfg.n_held:
+        if mesh is not None or is_dtensor(x):
+            raise ValueError("the expert share runs without a mesh")
+        y, aux = _moe_share(p, cfg, x, compute_dtype)
+    elif mesh is not None and is_dtensor(x):
         fn = (_expert_parallel_dtensor if cfg.dispatch == "shardmap"
               else _gspmd_dtensor)
         y, aux = fn(p, cfg, x, mesh, compute_dtype, route_rows)
@@ -365,6 +501,7 @@ def moe_apply(p, cfg: MoECfg, x, *, compute_dtype=torch.bfloat16,
         y, aux = _moe_local(p, cfg, x, mesh if cfg.dispatch == "shardmap"
                             else None, compute_dtype, route_rows)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], _shared_cfg(cfg), x,
-                          compute_dtype=compute_dtype)
+        with profiling.span("moe.shared"):
+            y = y + mlp_apply(p["shared"], _shared_cfg(cfg), x,
+                              compute_dtype=compute_dtype)
     return y, aux

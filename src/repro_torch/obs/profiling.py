@@ -33,10 +33,14 @@ compiles no episode program, and the compiles it does make are the CUDA
 kernels' ``nvcc`` builds.  So :func:`record_compile` is fed by
 ``repro_torch.kernels.build``: one event per library built (tag
 ``"nvcc:<source>"``, signature the library's file name), none for a
-library found already built.  :func:`stage` is a span that also writes a
-``profile`` record (its host wall time) through a ``MetricWriter`` when
-one is attached, and :func:`profiler_trace` gates a ``torch.profiler``
-trace, with the program's spans in it, behind an opt-in directory.
+library found already built.  Counters (:func:`count`) add up numbers
+while the recorder is on: a tensor stays on its device, so a count in a
+hot path adds no synchronise, and :func:`take_counts` reads them all to
+the host once, after the stretch they cover.  :func:`stage` is a span
+that also writes a ``profile`` record (its host wall time) through a
+``MetricWriter`` when one is attached, and :func:`profiler_trace` gates
+a ``torch.profiler`` trace, with the program's spans in it, behind an
+opt-in directory.
 """
 from __future__ import annotations
 
@@ -208,12 +212,35 @@ class _Open:
 
 
 _OFF = contextlib.nullcontext()
+_COUNTS: dict = {}      # counter name -> number, or a tensor on its device
 
 
 def span(name: str):
     """A span named ``name`` over the ``with`` block; nothing (and no
     clock read) with the recorder off.  Hot paths test ``ON`` first."""
     return _Open(name) if ON else _OFF
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a number, or a tensor, kept on its device) to the
+    counter ``name`` while the recorder is on; nothing with it off."""
+    if not ON:
+        return
+    c = _COUNTS.get(name)
+    if c is None:
+        _COUNTS[name] = value.detach().clone() if hasattr(value, "detach") \
+            else value
+    else:
+        _COUNTS[name] = c + value
+
+
+def take_counts() -> dict:
+    """The counters since the last ``take_counts``, read to host numbers
+    (a tensor's read waits for the device); clears them."""
+    out = {k: (v.tolist() if hasattr(v, "tolist") else v)
+           for k, v in _COUNTS.items()}
+    _COUNTS.clear()
+    return out
 
 
 @contextlib.contextmanager

@@ -10,10 +10,19 @@ engine.  Prefill runs per request at a bucketed length (powers of two from
 8, capped at ``max_seq``): the prompt is padded with ``pad_id`` at the end,
 the slot's position is set to the bucket and its first token is the argmax
 at the last padded position — the reference's behaviour, kept as it is.
-Every prefill goes through the hand-written kernels (``impl="kernel"``).
+Every prefill runs with ``impl="kernel"``: GQA attention through
+``flash_attention`` (head dims 32, 64, 112, 128), MLA's expanded
+attention through ``flash_attention`` at its head pair (192, 128), the
+DeepSeek-V2/V3 widths (other MLA widths, such as the smoke configs',
+keep the plain products, counted in ``ops.PLAIN_PREFILLS["mla"]``),
+Mamba2 through ``ssd_scan``; the projections,
+MLPs and experts are PyTorch products.  Decode has no hand-written
+kernel: GQA scores the cache, MLA its latent cache (absorbed), in f32.
 Any ``LMCfg`` is served (dense, MLA/MoE, SSM, hybrid; a VLM's text only,
 as in the reference); MoE layers route each slot's token on its own in
-decode (``route_rows``), as the reference's mapped one-slot decode does.
+decode (``route_rows``), as the reference's mapped one-slot decode does;
+an expert share (``MoECfg.n_held``) is dropless, so its rows share
+nothing.
 """
 from __future__ import annotations
 
@@ -74,16 +83,28 @@ class Engine:
                 return i
         return None
 
-    def admit(self, uid: int, prompt, max_new_tokens: int) -> int:
-        """Prefill ``prompt`` into a free slot; returns the slot index."""
+    def admit(self, uid: int, prompt, max_new_tokens: int, *,
+              answered=()) -> int:
+        """Prefill ``prompt`` into a free slot; returns the slot index.
+        ``answered``: the tokens a request resumed part-way through its
+        answer has already produced (as after a preemption that
+        recomputes).  They follow the padded prompt in the same prefill,
+        which then runs at the bucket plus their number, and the slot
+        decodes on from there; the tokens it returns are the new ones."""
         slot = self.free_slot()
         if slot is None:
             raise RuntimeError("no free slot")
         prompt = np.asarray(prompt)
         L = int(prompt.shape[-1])
         Lb = min(_bucket(L), self.sc.max_seq)
-        toks = np.full((1, Lb), self.sc.pad_id, np.int64)
+        answered = np.asarray(answered, np.int64)
+        if answered.size and Lb + answered.size >= self.sc.max_seq:
+            raise ValueError(f"a prompt bucket of {Lb} and {answered.size} "
+                             f"answered tokens leave no room in max_seq "
+                             f"{self.sc.max_seq}")
+        toks = np.full((1, Lb + answered.size), self.sc.pad_id, np.int64)
         toks[0, :L] = prompt
+        toks[0, Lb:] = answered
         sub = tree_map(lambda c: c[:, slot: slot + 1], self.cache)
         with torch.no_grad():
             logits, sub = lm_prefill(
@@ -94,7 +115,7 @@ class Engine:
             c[:, slot: slot + 1] = s.to(c.dtype)
         tree_map(put, self.cache, sub)
         nxt = int(torch.argmax(logits[0, -1]))
-        self.pos[slot] = Lb
+        self.pos[slot] = toks.shape[1]
         self.last_tok[slot, 0] = nxt
         self.slots[slot] = _Slot(uid=uid, budget=max_new_tokens,
                                  generated=[nxt])

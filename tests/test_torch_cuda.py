@@ -643,6 +643,63 @@ def test_flash_attention_constant_v_and_rejections(cuda):
         ops.flash_attention(q[..., :48], k[..., :48], k[..., :48])
 
 
+# MLA's expanded prefill: q and k over 128 nope + 64 rope dims, v of 128,
+# DeepSeek-V3's 128 heads, its YaRN-scaled softmax scale.  The plain
+# version rounds nothing past the bf16 inputs; the kernel rounds each
+# probability to bf16 before P V, ~2e-3 of an output's norm at these
+# lengths, so the same bounds as the square kernels' hold.
+MLA_SCALE = 192 ** -0.5 * (0.1 * np.log(40) + 1) ** 2
+
+
+@pytest.mark.parametrize("L,H,dtype", [
+    (16, 128, torch.bfloat16), (77, 128, torch.bfloat16),
+    (256, 128, torch.bfloat16), (1000, 128, torch.bfloat16),
+    (4096, 128, torch.bfloat16), (130, 4, torch.float32)])
+def test_flash_attention_mla_pair_matches_plain(cuda, L, H, dtype):
+    q = _randn(1, 1, L, H, 192, device=cuda, dtype=dtype)
+    k = _randn(2, 1, L, H, 192, device=cuda, dtype=dtype)
+    v = _randn(3, 1, L, H, 128, device=cuda, dtype=dtype)
+    before = dict(ops.LAUNCHES), dict(ops.GRIDS)
+    out = ops.flash_attention(q, k, v, causal=True, scale=MLA_SCALE)
+    expect = ref.flash_attention_ref(q, k, v, causal=True, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {**before[0],
+                            "flash_mla": before[0]["flash_mla"] + 1}
+    assert ops.GRIDS["flash_mla"] == before[1]["flash_mla"] + 1
+    assert out.dtype == dtype and out.shape == (1, L, H, 128)
+    tol = TOL[dtype]
+    assert torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol)
+    for rows in (slice(None), slice(L // 2, None)):
+        o, e = out[:, rows].double(), expect[:, rows].double()
+        assert (o - e).norm() <= FLASH_REL_TOL[dtype] * e.norm()
+
+
+def test_mla_prefill_through_the_kernel_matches_plain(cuda):
+    """``mla_forward(impl="kernel")`` at DeepSeek-V3's head widths and
+    YaRN (16 heads over d_model 1024, 600 positions) against the plain
+    einsums, in bf16: one ``flash_mla`` launch, outputs within 2e-2 of
+    their largest magnitude (both round the same bf16 inputs; the kernel
+    also rounds probabilities)."""
+    from repro_torch.configs.deepseek_v3_671b import V3_YARN
+    from repro_torch.nn import mla
+    cfg = mla.MLACfg(1024, 16, q_lora_rank=256, kv_lora_rank=512,
+                     rope_scaling=V3_YARN)
+    p = mla.mla_init(make_generator(0, cuda), cfg)
+    x = _randn(7, 1, 600, 1024, device=cuda, dtype=torch.bfloat16)
+    out = {}
+    for impl in ("kernel", "plain"):
+        ops.reset_launches()
+        with torch.no_grad():
+            out[impl], kv = mla.mla_forward(p, cfg, x, impl=impl,
+                                            return_kv=True)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_mla"] == (impl == "kernel")
+        assert sum(ops.LAUNCHES.values()) == (impl == "kernel")
+    scale = out["plain"].float().abs().max()
+    assert (out["kernel"].float() - out["plain"].float()).abs().max() \
+        <= 2e-2 * scale
+
+
 @pytest.mark.parametrize("B,L,H,P,G,N,chunk", [
     (2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 64, 32),
     (2, 40, 4, 8, 2, 16, 16), (1, 256, 2, 64, 1, 128, 128),

@@ -94,12 +94,24 @@ def _prefix(cfg, seed, B):
         (B, cfg.n_prefix, cfg.prefix_embed_dim)).astype(np.float32)
 
 
+# the port's own config fields (DeepSeek-V3's published router, its
+# expert share, YaRN): the JAX configs lack them, and the JAX twins keep
+# their defaults
+PORT_ONLY_FIELDS = {"score_func": "softmax", "score_correction": False,
+                    "n_group": 1, "topk_group": 1, "routed_scaling": 1.0,
+                    "first_expert": 0, "n_held": 0, "rope_scaling": None}
+
+
 def _plain(x):
     """A config as plain data, dtypes by name (the JAX and torch dtype
-    objects of MoECfg.router_dtype differ)."""
+    objects of MoECfg.router_dtype differ); a port-only field is left
+    out where it holds its default, so that a twin equals its JAX
+    config."""
     if dataclasses.is_dataclass(x):
         return {f.name: _plain(getattr(x, f.name))
-                for f in dataclasses.fields(x)}
+                for f in dataclasses.fields(x)
+                if not (f.name in PORT_ONLY_FIELDS and getattr(x, f.name)
+                        == PORT_ONLY_FIELDS[f.name])}
     if isinstance(x, (tuple, list)):
         return [_plain(v) for v in x]
     if isinstance(x, torch.dtype):
@@ -420,9 +432,12 @@ def test_flash_plan_takes_d_head_112_as_the_kernel_switch_does():
     src = (Path(ops.__file__).parent / "csrc" /
            "flash_attention.cu").read_text()
     for kind in ("simt", "mma"):
-        dims = tuple(int(d) for d in re.findall(
-            rf"FLASH_CASE\({kind}, (\d+)\)", src))
-        assert dims == ops.FLASH_HEAD_DIMS, kind
+        pairs = [(int(d), int(dv)) for d, dv in re.findall(
+            rf"FLASH_CASE\({kind}, (\d+), (\d+)\)", src)]
+        assert tuple(d for d, dv in pairs if d == dv) \
+            == ops.FLASH_HEAD_DIMS, kind
+        assert [p for p in pairs if p[0] != p[1]] \
+            == list(ops.FLASH_HEAD_PAIRS), kind
     assert 112 in ops.FLASH_HEAD_DIMS
     for dtype in (torch.float32, torch.bfloat16):
         assert ops.flash_plan(dtype, 112) == ops.flash_plan(dtype)

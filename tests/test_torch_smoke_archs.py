@@ -63,6 +63,10 @@ def test_lm_archs_phase_runs_small_on_cpu():
     assert ar["flash_attention_launches"] == sum(
         ar["launches_by_shape"]["flash_attention"].values()) > 0
     assert ar["ssd_scan_launches"] == 2 * (2 + 3)   # mamba2, zamba2 x 2
+    # the smoke widths' MLA prefills run the plain products, counted
+    assert ar["flash_mla_launches"] == 0
+    assert ar["plain_mla_prefills"] == sum(
+        r.get("plain_mla_prefills", 0) for r in ar["archs"].values()) > 0
 
 
 def test_full_width_cuts_and_launch_shapes():
@@ -86,3 +90,48 @@ def test_full_width_cuts_and_launch_shapes():
     qwen3, _ = cs._arch_cfg("qwen3-4b", "make_full")
     assert cs._prefill_shapes(qwen3, 8)["flash_attention"] == {
         "1x8x32x8x128": 36}
+
+
+def test_mla_prefill_launch_shapes_and_plain_counts():
+    """deepseek-v2 at full width launches flash_mla at (192, 128) once a
+    layer a prefill and runs no plain MLA prefill; the smoke widths run
+    the plain products in every MLA layer; flash_mla's bound counts v's
+    head size of its own (as ``perfbench/counts/moe_lm.py`` does)."""
+    cs = _chip_smoke()
+    v2, _ = cs._arch_cfg("deepseek-v2-236b", "make_full")
+    assert cs._prefill_shapes(v2, 512)["flash_mla"] == {
+        "1x512x128x128x192x128": 2}
+    assert cs._plain_mla_layers(v2) == 0
+    v3, _ = cs._arch_cfg("deepseek-v3-671b", "make_full")
+    assert cs._prefill_shapes(v3, 64)["flash_mla"] == {}
+    assert cs._plain_mla_layers(v3) == len(cs._mixer_blocks(v3, "mla")) > 0
+    from perfbench.counts import moe_lm
+    for L in cs.MLA_TIMING_L:
+        ms, by, _ = cs.flash_bound_ms(1, L, L, *cs.MLA_HEADS[:3], 2,
+                                      DV=cs.MLA_HEADS[3])
+        assert ms == pytest.approx(1e3 * moe_lm.flash_bound_s(
+            1, L, L, *cs.MLA_HEADS))
+    assert cs.flash_bound_ms(1, 512, 512, 32, 8, 128, 2, DV=128) \
+        == cs.flash_bound_ms(1, 512, 512, 32, 8, 128, 2)
+
+
+def test_flash_mla_summary_sums_its_path_and_quotes_deepseek_heads():
+    """flash_mla's ``kernels`` entry: the path is phase lm_archs' launches
+    by shape, the long shapes DeepSeek's heads at 512 and 4096, and the
+    plain MLA prefills beside it."""
+    cs = _chip_smoke()
+    rows = [{"shape": [1, L, 128, 128, 192, 128], "ms": 1e-3 * L,
+             "graph_ms": 1e-3 * L, "plain_ms": 1.0, "bound_ms": 1e-4 * L,
+             "bound_by": "bytes", "library_ms": 5e-4 * L,
+             "grids_per_call": 1.0, "max_abs_err": 0.015625}
+            for L in (128, 256) + cs.MLA_TIMING_L]
+    archs = {"launches_by_shape": {"flash_mla": {
+        "1x128x128x128x192x128": 2, "1x256x128x128x192x128": 4}},
+        "grids": {"flash_mla": 6}, "plain_mla_prefills": 8}
+    out = cs.flash_mla_summary(archs, rows)
+    assert out["shape"] == [1, 256, 128, 128, 192, 128]
+    assert out["path_ms"] == pytest.approx(2 * 0.128 + 4 * 0.256)
+    assert out["launches_by_phase"] == {"lm_archs": 6}
+    assert out["plain_mla_prefills"] == 8
+    assert set(out["at"]) == {"1x512x128x128x192x128",
+                              "1x4096x128x128x192x128"}
